@@ -1,0 +1,234 @@
+"""The port's plain point ops (tumseg_torch.ops.core) against tumseg: the XLA
+compositions of tumseg.ops.core and the Pallas kernels in interpret mode, on
+the same numpy inputs. Indices must be identical; floats agree within
+atol 1e-5 (f32 rounding of differently ordered sums). The CUDA kernels are
+held against these plain versions on the card by chip_smoke.py and
+tests/test_torch_cuda.py."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tumseg.ops import core as xla_ops
+from tumseg_torch import ops as tops
+from tumseg_torch.ops import core, kernels
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    """Pallas TPU kernels run under the interpreter on CPU, as in
+    tests/test_pallas_ops.py."""
+    if os.environ.get("TUMSEG_TEST_TPU") == "1":
+        yield
+        return
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("B,N,npoint,with_start", [
+    (2, 128, 16, True), (3, 100, 32, False), (1, 64, 64, True),
+    (2, 40, 64, False),  # npoint > N: the first-index argmax returns 0
+])
+def test_fps_matches_xla_and_pallas(B, N, npoint, with_start):
+    from tumseg.ops.pallas.fps import farthest_point_sample as fps_pallas
+
+    r = np.random.default_rng(0)
+    xyz = r.random((B, N, 3)).astype(np.float32)
+    start = r.integers(0, N, B).astype(np.int32) if with_start else None
+    got = _np(core.farthest_point_sample(
+        _t(xyz), npoint, None if start is None else _t(start)))
+    jstart = None if start is None else jnp.asarray(start)
+    want = _np(xla_ops.farthest_point_sample(jnp.asarray(xyz), npoint,
+                                             start=jstart))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, _np(fps_pallas(jnp.asarray(xyz), npoint, start=jstart)))
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("variant", ["row", "transposed", "bitpacked"])
+@pytest.mark.parametrize("B,N,S,K,r", [(2, 128, 64, 8, 0.3),
+                                       (1, 256, 256, 16, 0.2),
+                                       (2, 96, 40, 4, 0.5)])
+def test_ball_query_matches_xla_and_pallas(variant, B, N, S, K, r):
+    from tumseg.ops.pallas import ballquery
+
+    kernel = {"row": ballquery.query_ball_point,
+              "transposed": ballquery.query_ball_point_t,
+              "bitpacked": ballquery.query_ball_point_bp}[variant]
+    rng = np.random.default_rng(0)
+    xyz = rng.random((B, N, 3)).astype(np.float32)
+    new_xyz = np.ascontiguousarray(xyz[:, :S])
+    got = _np(core.query_ball_point(r, K, _t(xyz), _t(new_xyz)))
+    np.testing.assert_array_equal(
+        got, _np(kernel(r, K, jnp.asarray(xyz), jnp.asarray(new_xyz))))
+    np.testing.assert_array_equal(
+        got, _np(xla_ops.query_ball_point(r, K, jnp.asarray(xyz),
+                                          jnp.asarray(new_xyz))))
+
+
+def test_ball_query_fill_and_sentinel():
+    from tumseg.ops.pallas.ballquery import query_ball_point as bq_pallas
+
+    xyz = np.asarray([[[0, 0, 0], [10, 10, 10], [10.05, 10, 10]]],
+                     np.float32)
+    queries = np.asarray([[[0, 0, 0], [10, 10, 10], [50, 50, 50]]],
+                         np.float32)
+    got = _np(core.query_ball_point(0.2, 4, _t(xyz), _t(queries)))
+    np.testing.assert_array_equal(got[0], [[0, 0, 0, 0],    # fill: first hit
+                                           [1, 2, 1, 1],
+                                           [3, 3, 3, 3]])   # empty: N
+    np.testing.assert_array_equal(
+        got, _np(bq_pallas(0.2, 4, jnp.asarray(xyz), jnp.asarray(queries))))
+    # nsample > N pads with the first hit, as tumseg/ops/core.py:117-121
+    np.testing.assert_array_equal(
+        _np(core.query_ball_point(0.2, 5, _t(xyz), _t(queries[:, :1]))),
+        _np(xla_ops.query_ball_point(0.2, 5, jnp.asarray(xyz),
+                                     jnp.asarray(queries[:, :1]))))
+
+
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 64, 16, 8, 9), (1, 40, 8, 4, 35)])
+def test_group_matches_pallas_with_sentinel(B, N, S, K, C):
+    from tumseg.ops.pallas.group import group_points as group_pallas
+
+    rng = np.random.default_rng(1)
+    src = rng.standard_normal((B, N, C)).astype(np.float32)
+    new_xyz = rng.standard_normal((B, S, 3)).astype(np.float32)
+    idx = rng.integers(0, N + 1, (B, S, K)).astype(np.int32)
+    idx[:, 0, :] = N  # one all-sentinel group: an empty ball
+    got = _np(core.group_points(_t(idx), _t(src), _t(new_xyz)))
+    want = _np(group_pallas(jnp.asarray(idx), jnp.asarray(src),
+                            jnp.asarray(new_xyz)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[:, 0, :, :3],
+                                  -np.broadcast_to(new_xyz[:, 0, None],
+                                                   (B, K, 3)))
+    np.testing.assert_array_equal(got[:, 0, :, 3:], 0.0)
+    # in-range rows: the XLA gather + centre subtraction, exactly
+    in_range = np.where(idx == N, 0, idx)
+    xla = np.array(xla_ops.index_points(jnp.asarray(src),
+                                        jnp.asarray(in_range)))
+    xla[..., :3] -= new_xyz[:, :, None, :]
+    keep = idx != N
+    np.testing.assert_array_equal(got[keep], xla[keep])
+
+
+def test_gather_rows_is_index_points():
+    rng = np.random.default_rng(2)
+    xyz = rng.standard_normal((2, 50, 3)).astype(np.float32)
+    idx = rng.integers(0, 50, (2, 12)).astype(np.int32)
+    np.testing.assert_array_equal(
+        _np(core.gather_rows(_t(xyz), _t(idx))),
+        _np(xla_ops.index_points(jnp.asarray(xyz), jnp.asarray(idx))))
+    np.testing.assert_array_equal(
+        _np(tops.gather_rows(_t(xyz), _t(idx))),
+        _np(core.gather_rows(_t(xyz), _t(idx))))
+
+
+@pytest.mark.parametrize("B,N,S", [(2, 128, 64), (1, 512, 16), (2, 100, 40)])
+def test_three_nn_with_ties_matches_xla_and_pallas(B, N, S):
+    from tumseg.ops.pallas.threenn import three_nn as tnn_pallas
+
+    rng = np.random.default_rng(3)
+    xyz1 = rng.random((B, N, 3)).astype(np.float32)
+    xyz2 = rng.random((B, S, 3)).astype(np.float32)
+    xyz2[:, 5] = xyz2[:, 2]   # duplicated sources: exact distance ties
+    xyz2[:, 9] = xyz2[:, 2]
+    xyz1[:, :4] = xyz2[:, 2:3]  # queries sitting on the duplicates
+    gd, gi = core.three_nn(_t(xyz1), _t(xyz2))
+    pd, pi = tnn_pallas(jnp.asarray(xyz1), jnp.asarray(xyz2))
+    xd, xi = xla_ops.three_nn(jnp.asarray(xyz1), jnp.asarray(xyz2))
+    np.testing.assert_array_equal(_np(gi), _np(pi))
+    np.testing.assert_array_equal(_np(gi), _np(xi))
+    np.testing.assert_array_equal(_np(gi)[:, :4],
+                                  np.broadcast_to([2, 5, 9], (B, 4, 3)))
+    np.testing.assert_allclose(_np(gd), _np(pd), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(_np(gd), _np(xd), rtol=0, atol=1e-5)
+    assert gi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("B,N,S,D", [(2, 128, 64, 8), (1, 512, 16, 128)])
+def test_interpolation_matches_xla_and_pallas(B, N, S, D):
+    from tumseg.ops.pallas.interpolate import weighted_interpolate
+
+    rng = np.random.default_rng(5)
+    dists = (rng.random((B, N, 3)) + 0.01).astype(np.float32)
+    idx = rng.integers(0, S, (B, N, 3)).astype(np.int32)
+    pts2 = rng.random((B, S, D)).astype(np.float32)
+    got = _np(core.interpolate_weighted(_t(dists), _t(idx), _t(pts2)))
+    want = _np(xla_ops.interpolate_weighted(
+        jnp.asarray(dists), jnp.asarray(idx), jnp.asarray(pts2)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    recip = 1.0 / (dists + np.float32(1e-8))
+    w = recip / recip.sum(axis=2, keepdims=True)
+    np.testing.assert_allclose(
+        got, _np(weighted_interpolate(jnp.asarray(idx), jnp.asarray(w),
+                                      jnp.asarray(pts2))), rtol=0, atol=1e-5)
+
+
+def test_three_interpolate_matches_pallas_path():
+    """3-NN + weights + interpolation as tumseg runs them on the TPU (the
+    direct-form 3-NN kernel, then the interpolation kernel)."""
+    from tumseg.ops.pallas.interpolate import weighted_interpolate
+    from tumseg.ops.pallas.threenn import three_nn as tnn_pallas
+
+    rng = np.random.default_rng(6)
+    xyz1 = rng.random((2, 96, 3)).astype(np.float32)
+    xyz2 = rng.random((2, 24, 3)).astype(np.float32)
+    pts2 = rng.random((2, 24, 16)).astype(np.float32)
+    d, i, out = tops.three_nn_interpolate(_t(xyz1), _t(xyz2), _t(pts2))
+    pd, pi = tnn_pallas(jnp.asarray(xyz1), jnp.asarray(xyz2))
+    recip = 1.0 / (pd + 1e-8)
+    w = recip / jnp.sum(recip, axis=2, keepdims=True)
+    want = _np(weighted_interpolate(pi, w, jnp.asarray(pts2)))
+    np.testing.assert_array_equal(_np(i), _np(pi))
+    np.testing.assert_allclose(_np(out), want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(
+        _np(out), _np(tops.three_interpolate(_t(xyz1), _t(xyz2), _t(pts2))))
+
+
+def test_three_nn_needs_three_sources():
+    with pytest.raises(ValueError, match="at least 3"):
+        core.three_nn(torch.zeros(1, 4, 3), torch.zeros(1, 2, 3))
+
+
+def test_dispatch_cpu_takes_plain_and_no_kernel_fallback():
+    xyz = torch.rand(1, 32, 3)
+    np.testing.assert_array_equal(
+        _np(tops.farthest_point_sample(xyz, 8)),
+        _np(core.farthest_point_sample(xyz, 8)))
+    # a kernel wrapper never runs its plain version: CPU input is refused
+    for call in (lambda: kernels.farthest_point_sample(xyz, 8),
+                 lambda: kernels.query_ball_point(0.1, 4, xyz, xyz),
+                 lambda: kernels.group_points(
+                     torch.zeros(1, 2, 3, dtype=torch.int32), xyz,
+                     torch.zeros(1, 2, 3)),
+                 lambda: kernels.three_nn_interpolate(xyz, xyz, xyz)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert all(v == 0 for v in kernels.launches.values())
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tops.farthest_point_sample(torch.empty(1, 8, 3, device="meta"), 2)
+
+
+def test_plain_context_is_scoped():
+    assert not getattr(tops._state, "plain", False)
+    with tops.plain():
+        assert tops._state.plain
+        with tops.plain():
+            pass
+        assert tops._state.plain
+    assert not tops._state.plain

@@ -1,0 +1,188 @@
+"""Testing CLI of the port: ``python -m tumseg_torch.cli.test``.
+
+Same flags as ``tumseg/cli/test.py`` (the parser is repeated because that
+module imports JAX; a test keeps the two equal), same report and the same
+``visual/<scene>.txt`` label dumps: whole-scene multi-vote inference of the
+``--test_area`` tiles with the ``tumseg-ckpt-v2`` checkpoint of
+``<exp_dir><log_dir>/checkpoints<output_model>``.
+
+It runs on ``cuda:<gpu>`` when CUDA is present and on the CPU only when no
+CUDA device exists.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+from pathlib import Path
+
+import torch
+
+from tumseg.cli.common import make_logger
+from tumseg.data.dataset import TestGridDataset
+from tumseg.data.features import GEO_FEATURE_NAMES, attach_geofeatures
+from tumseg.utils.labels import class_tables
+from tumseg.utils.timing import current_time, time_print
+from tumseg_torch import models
+from tumseg_torch.infer.voting import InferenceRunner, run_testing
+from tumseg_torch.models.convert import state_dict_from_variables
+from tumseg_torch.train import checkpoint as ckpt
+
+saveTest = "testdataset.pkl"
+saveDir = os.environ.get("TUMSEG_SAVE_DIR", "./data/saved_data/")
+
+_NOT_PORTED = "is not ported to tumseg_torch yet (ROADMAP Queue 1, item 10)"
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser("Model")
+    parser.add_argument("--model", type=str, default="pointnet2_sem_seg",
+                        help="model name [default: pointnet_sem_seg]")
+    parser.add_argument("--batch_size", type=int, default=32,
+                        help="batch size in testing [default: 32]")
+    parser.add_argument("--gpu", type=str, default="0",
+                        help="specify gpu device")
+    parser.add_argument("--num_point", type=int, default=4096,
+                        help="point number [default: 4096]")
+    parser.add_argument("--log_dir", type=str, default="pointnet2_sem_seg",
+                        help="log directory")
+    parser.add_argument("--exp_dir", type=str, default="log/sem_seg/",
+                        help="Log path [default: None]")
+    parser.add_argument("--visual", action="store_true", default=False,
+                        help="visualize result [default: False]")
+    parser.add_argument("--num_votes", type=int, default=5,
+                        help="aggregate segmentation scores with voting "
+                             "[default: 5]")
+    parser.add_argument("--output_model", type=str, default="/best_model.pth",
+                        help="model output name")
+    parser.add_argument("--test_area", type=str,
+                        default="cc_o_clipped_Local_DEBY_LOD2_4959323_cc.las",
+                        help="Which area to use for test, option: 1-6 [default: 5]")
+    parser.add_argument("--rootdir", type=str,
+                        default="/content/drive/MyDrive/ data/tum/tum-facade/"
+                                "training/cc_selected/CC/",
+                        help="directory to data")
+    parser.add_argument("--load", type=bool, default=False,
+                        help="load saved data or new")
+    parser.add_argument("--save", type=bool, default=False, help="save data")
+    parser.add_argument("--visualizeModel", type=str, default=False,
+                        help="directory to data")
+    parser.add_argument("--extra_features", nargs="+", default=[],
+                        help="select which features  to add")
+    parser.add_argument("--downsample", type=bool, default=False,
+                        help="downsample data")
+    parser.add_argument("--calculate_geometry", type=bool, default=False,
+                        help="decide where to calculate geometry")
+    parser.add_argument("--class8", default=False, action="store_true",
+                        help="Select 17 classes or 8 classes data")
+    parser.add_argument("--RGB_OFF", default=True, action="store_false",
+                        help="Select to use RGB or not")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="shard blocks over this many devices")
+    parser.add_argument("--bf16", default=False, action="store_true",
+                        help="bfloat16 matmul activations")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of process 0 for multi-host pods")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    return parser.parse_args(argv)
+
+
+def resolve_device(gpu: str) -> torch.device:
+    """``cuda:<gpu>`` when CUDA is present, the CPU only when it is not."""
+    if torch.cuda.is_available():
+        return torch.device(f"cuda:{gpu}")
+    return torch.device("cpu")
+
+
+def main(args):
+    if args.num_devices and args.num_devices > 1:
+        raise NotImplementedError("--num_devices > 1 " + _NOT_PORTED)
+    if (args.coordinator_address is not None or args.num_processes is not None
+            or args.process_id is not None):
+        raise NotImplementedError("multi-process serving " + _NOT_PORTED)
+    if args.bf16:
+        raise NotImplementedError(
+            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 2)")
+    device = resolve_device(args.gpu)
+    print(args.class8)
+    classes, NUM_CLASSES, label2color = class_tables(bool(args.class8))
+    dataColor = bool(args.RGB_OFF)
+    seg_label_to_cat = {i: c for i, c in enumerate(classes)}
+    print(seg_label_to_cat)
+
+    root = args.rootdir
+    test_file = glob.glob(os.path.join(root, args.test_area)) or \
+        glob.glob(root + args.test_area)
+    print("Number of Classes = %d" % NUM_CLASSES)
+
+    feature_list = list(args.extra_features)
+    if feature_list:
+        print("Extra features to be added")
+        print(feature_list)
+    else:
+        print("No extra features")
+
+    experiment_dir = (args.exp_dir if args.exp_dir is not None
+                      else "log/sem_seg/") + args.log_dir
+    print("Logging Directory = " + str(experiment_dir))
+    visual_dir = Path(experiment_dir + "/visual/")
+    visual_dir.mkdir(exist_ok=True, parents=True)
+
+    logger, log_string = make_logger("%s/eval.txt" % experiment_dir)
+    log_string("PARAMETER ...")
+    log_string(args)
+
+    testdatatime = time.time()
+    print("start loading test data ...")
+    if args.load is False:
+        tmp_feature_list = [f for f in feature_list
+                            if not (args.calculate_geometry
+                                    and f in GEO_FEATURE_NAMES)]
+        dataset = TestGridDataset(
+            root=root, las_file_list=test_file, feature_list=tmp_feature_list,
+            num_classes=NUM_CLASSES, block_points=args.num_point,
+            color=dataColor, class8=args.class8, seed=args.seed)
+        if args.calculate_geometry is True:
+            attach_geofeatures(dataset, feature_list, args.downsample)
+    else:
+        dataset = TestGridDataset.load_data(saveDir + saveTest)
+
+    log_string("The number of test data is: %d" % len(dataset))
+    dataset.calculate_labelweights()
+    time_print(testdatatime)
+    current_time()
+
+    if args.save is True:
+        print("Save Test dataset")
+        os.makedirs(saveDir, exist_ok=True)
+        dataset.save_data(saveDir + saveTest)
+
+    num_extra_features = dataset.num_extra_features
+    print("number = %d" % num_extra_features)
+    model = models.get_module(args.model).get_model(NUM_CLASSES,
+                                                    num_extra_features)
+    ckpt_path = str(experiment_dir) + "/checkpoints" + args.output_model
+    state = ckpt.load_checkpoint(ckpt_path)
+    model.load_state_dict(state_dict_from_variables(state["model_state_dict"]))
+
+    runner = InferenceRunner(model, NUM_CLASSES, batch_size=args.batch_size,
+                             device=device)
+    print("Begin testing")
+    out = run_testing(
+        dataset, runner, num_votes=args.num_votes,
+        visual_dir=visual_dir, visual=args.visual,
+        seg_label_to_cat=seg_label_to_cat, label2color=label2color,
+        result_color=True, log_string=log_string)
+    print("Done!")
+    return out
+
+
+if __name__ == "__main__":
+    start = time.time()
+    main(parse_args())
+    time_print(start)
+    current_time()

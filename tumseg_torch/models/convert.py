@@ -1,0 +1,100 @@
+"""Weights between ``tumseg``'s variables and the port's ``state_dict``.
+
+``tumseg`` keeps ``{"params": ..., "batch_stats": ...}`` pytrees whose dense
+kernels are ``[in, out]``; the port keeps the reference's torch layout
+(``tools/export_torch_checkpoint.py:20-58``): conv weights ``[out, in, 1, 1]``
+in the set abstractions and ``[out, in, 1]`` elsewhere, BN as
+weight/bias/running_mean/running_var/num_batches_tracked. Stage entries
+(``sa*``, ``fp*``) are lists of ``{"conv", "bn"}`` layers; top-level entries
+with ``"w"`` are head convs and those with ``"scale"`` head batch norms.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _conv_rank(stage: str) -> int:
+    return 2 if stage.startswith("sa") else 1
+
+
+def _weight(w, rank: int) -> torch.Tensor:
+    t = np.ascontiguousarray(np.asarray(w, dtype=np.float32).T)
+    return torch.from_numpy(t.reshape(*t.shape, *([1] * rank)))
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _bn(sd: Dict, prefix: str, params, stats) -> None:
+    sd[f"{prefix}.weight"] = _tensor(params["scale"])
+    sd[f"{prefix}.bias"] = _tensor(params["bias"])
+    sd[f"{prefix}.running_mean"] = _tensor(stats["mean"])
+    sd[f"{prefix}.running_var"] = _tensor(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def state_dict_from_variables(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``tumseg`` variables (numpy or array-like leaves) -> port state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if isinstance(p, (list, tuple)):
+            for j, layer in enumerate(p):
+                conv = layer["conv"]
+                sd[f"{name}.mlp_convs.{j}.weight"] = _weight(
+                    conv["w"], _conv_rank(name))
+                sd[f"{name}.mlp_convs.{j}.bias"] = _tensor(conv["b"])
+                _bn(sd, f"{name}.mlp_bns.{j}", layer["bn"], stats[name][j])
+        elif "w" in p:
+            sd[f"{name}.weight"] = _weight(p["w"], 1)
+            sd[f"{name}.bias"] = _tensor(p["b"])
+        else:
+            _bn(sd, name, p, stats[name])
+    return sd
+
+
+def variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Port state_dict -> ``tumseg`` variables of numpy arrays (the inverse
+    of :func:`state_dict_from_variables`; ``num_batches_tracked`` has no
+    ``tumseg`` counterpart and is dropped)."""
+    modules: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        prefix, field = key.rsplit(".", 1)
+        modules.setdefault(prefix, {})[field] = value.detach().cpu().numpy()
+
+    params: Dict = {}
+    stats: Dict = {}
+    for prefix, m in modules.items():
+        if "running_mean" in m:
+            p = {"scale": m["weight"].copy(), "bias": m["bias"].copy()}
+            s = {"mean": m["running_mean"].copy(),
+                 "var": m["running_var"].copy()}
+        else:
+            w = m["weight"]
+            p = {"w": np.ascontiguousarray(w.reshape(w.shape[0],
+                                                     w.shape[1]).T),
+                 "b": m["bias"].copy()}
+            s = None
+        parts = prefix.split(".")
+        if len(parts) == 1:  # head conv or batch norm
+            params[prefix] = p
+            if s is not None:
+                stats[prefix] = s
+            continue
+        stage, kind, j = parts[0], parts[1], int(parts[2])
+        p_layers = params.setdefault(stage, [])
+        s_layers = stats.setdefault(stage, [])
+        while len(p_layers) <= j:
+            p_layers.append({})
+            s_layers.append({})
+        if kind == "mlp_convs":
+            p_layers[j]["conv"] = p
+        else:
+            p_layers[j]["bn"] = p
+            s_layers[j].update(s)
+    return {"params": params, "batch_stats": stats}

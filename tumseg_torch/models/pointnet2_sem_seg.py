@@ -1,0 +1,68 @@
+"""PointNet++ (SSG) semantic segmentation, the eval forward
+(``tumseg/models/pointnet2_sem_seg.py``): four set abstractions
+(1024/256/64/16 centroids, radius .1/.2/.4/.8, K=32), four feature
+propagations and a Conv(128)-BN-ReLU-Conv(num_classes)-log_softmax head.
+Dropout is the identity in eval and is not applied."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from tumseg_torch.nn.layers import (BatchNorm, Dense, FeaturePropagation,
+                                    SetAbstraction)
+
+SA_CFGS = [
+    dict(npoint=1024, radius=0.1, nsample=32, mlp=[32, 32, 64]),
+    dict(npoint=256, radius=0.2, nsample=32, mlp=[64, 64, 128]),
+    dict(npoint=64, radius=0.4, nsample=32, mlp=[128, 128, 256]),
+    dict(npoint=16, radius=0.8, nsample=32, mlp=[256, 256, 512]),
+]
+FP_CFGS = [
+    dict(in_channel=768, mlp=[256, 256]),       # fp4
+    dict(in_channel=384, mlp=[256, 256]),       # fp3
+    dict(in_channel=320, mlp=[256, 128]),       # fp2
+    dict(in_channel=128, mlp=[128, 128, 128]),  # fp1
+]
+
+
+class PointNet2SemSeg(nn.Module):
+    def __init__(self, num_classes: int, num_extra_features: int = 0):
+        super().__init__()
+        in_ch = 6 + 3 + num_extra_features
+        for i, cfg in enumerate(SA_CFGS, start=1):
+            setattr(self, f"sa{i}", SetAbstraction(
+                cfg["npoint"], cfg["radius"], cfg["nsample"], in_ch,
+                cfg["mlp"]))
+            in_ch = cfg["mlp"][-1] + 3
+        for i, cfg in zip([4, 3, 2, 1], FP_CFGS):
+            setattr(self, f"fp{i}",
+                    FeaturePropagation(cfg["in_channel"], cfg["mlp"]))
+        self.conv1 = Dense(128, 128, conv_rank=1)
+        self.bn1 = BatchNorm(128)
+        self.conv2 = Dense(128, num_classes, conv_rank=1)
+
+    def forward(self, x: torch.Tensor):
+        """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
+        room-normalized xyz, then extra features) ->
+        (log_probs [B, N, num_classes], l4_points [B, 16, 512])."""
+        l_xyz = [x[..., :3].contiguous()]
+        l_points = [x]
+        for i in range(1, 5):
+            new_xyz, new_points = getattr(self, f"sa{i}")(l_xyz[-1],
+                                                          l_points[-1])
+            l_xyz.append(new_xyz)
+            l_points.append(new_points)
+        feat = l_points[4]
+        for i, lvl in zip([4, 3, 2, 1], [3, 2, 1, 0]):
+            skip = l_points[lvl] if lvl > 0 else None
+            feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
+                                           feat)
+        h = F.relu(self.bn1(self.conv1(feat)))
+        return F.log_softmax(self.conv2(h), dim=-1), l_points[4]
+
+
+def get_model(num_classes: int, num_extra_features: int = 0
+              ) -> PointNet2SemSeg:
+    return PointNet2SemSeg(num_classes, num_extra_features)

@@ -1,0 +1,138 @@
+"""PointNet++ layers as ``nn.Module``s, channels-last, eval forward
+(``tumseg/nn/layers.py:62-276``).
+
+Weights keep the reference's conv shapes — ``[out, in, 1, 1]`` in the set
+abstractions, ``[out, in, 1]`` in feature propagation and the head — so
+``tools/export_torch_checkpoint.py:export_state_dict`` output and reference
+``.pth`` state dicts load with ``strict=True``. The forward is a matmul over
+the last axis of a 2-D view of that weight, never a cuDNN convolution, whose
+default TF32 would cost the 2e-3 log-prob parity with ``tumseg``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from tumseg_torch import ops
+
+
+class Dense(nn.Module):
+    """Pointwise linear over the last axis (the reference's 1x1 conv)."""
+
+    def __init__(self, in_dim: int, out_dim: int, conv_rank: int):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_dim, in_dim, *([1] * conv_rank)))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+        # torch's Conv default init: U(+-1/sqrt(fan_in)) for both
+        bound = 1.0 / math.sqrt(in_dim)
+        nn.init.uniform_(self.weight, -bound, bound)
+        nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.view(self.weight.shape[0], self.weight.shape[1])
+        return F.linear(x, w, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Per-channel (last axis) batch norm with torch's parameter and buffer
+    names. Eval only: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``
+    (``tumseg/nn/layers.py:114-115``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode BatchNorm is not ported yet (ROADMAP Queue 1, "
+                "item 5); call .eval() for inference")
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * inv + self.bias
+
+
+@torch.no_grad()
+def calibrate_batch_norm(model: nn.Module, x: torch.Tensor) -> None:
+    """Set every BatchNorm's running mean and (biased) variance to those of
+    its own input during one eval forward of ``x``. Seeded random weights
+    then give an output that depends on the input, instead of the near
+    constant one that vanishing activations give."""
+    def hook(bn, args):
+        h = args[0].reshape(-1, args[0].shape[-1])
+        bn.running_mean.copy_(h.mean(dim=0))
+        bn.running_var.copy_(h.var(dim=0, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        model(x)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+class MLPStack(nn.Module):
+    """[Dense -> BatchNorm -> ReLU] * L over the last axis, with the
+    reference's ``mlp_convs.j`` / ``mlp_bns.j`` names."""
+
+    def __init__(self, in_dim: int, dims: Sequence[int], conv_rank: int):
+        super().__init__()
+        self.mlp_convs = nn.ModuleList()
+        self.mlp_bns = nn.ModuleList()
+        last = in_dim
+        for out in dims:
+            self.mlp_convs.append(Dense(last, out, conv_rank))
+            self.mlp_bns.append(BatchNorm(out))
+            last = out
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, bn in zip(self.mlp_convs, self.mlp_bns):
+            x = F.relu(bn(conv(x)))
+        return x
+
+
+class SetAbstraction(MLPStack):
+    """SSG set abstraction: xyz [B, N, 3], points [B, N, D] ->
+    (new_xyz [B, npoint, 3], new_points [B, npoint, mlp[-1]]); the shared
+    MLP runs on the [B, npoint, nsample, 3 + D] groups, then max over K."""
+
+    def __init__(self, npoint: int, radius: float, nsample: int,
+                 in_channel: int, mlp: Sequence[int]):
+        super().__init__(in_channel, mlp, conv_rank=2)
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor]):
+        new_xyz, grouped = ops.sample_and_group(
+            self.npoint, self.radius, self.nsample, xyz, points)
+        return new_xyz, self.mlp(grouped).amax(dim=2)
+
+
+class FeaturePropagation(MLPStack):
+    """3-NN inverse-distance interpolation of points2 onto xyz1, skip
+    concat with points1, then the pointwise MLP."""
+
+    def __init__(self, in_channel: int, mlp: Sequence[int]):
+        super().__init__(in_channel, mlp, conv_rank=1)
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                points1: Optional[torch.Tensor],
+                points2: torch.Tensor) -> torch.Tensor:
+        if xyz2.shape[1] == 1:
+            interpolated = points2.expand(-1, xyz1.shape[1], -1)
+        else:
+            interpolated = ops.three_interpolate(xyz1, xyz2, points2)
+        if points1 is not None:
+            interpolated = torch.cat([points1, interpolated], dim=-1)
+        return self.mlp(interpolated)

@@ -1,0 +1,83 @@
+"""Point-cloud op dispatch: a CUDA tensor runs the hand-written kernel
+(``tumseg_torch.ops.kernels``), a CPU tensor the plain PyTorch version
+(``tumseg_torch.ops.core``). There is no fallback between them: a kernel
+that fails to build or launch raises.
+
+``plain()`` forces the plain versions on CUDA tensors too, so that
+``chip_smoke.py`` and the tests can hold each kernel against its plain
+version on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+import torch
+
+from tumseg_torch.ops import core, kernels
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def plain():
+    """Run the plain PyTorch versions on CUDA tensors inside this block
+    (this thread only)."""
+    prev = getattr(_state, "plain", False)
+    _state.plain = True
+    try:
+        yield
+    finally:
+        _state.plain = prev
+
+
+def _impl(t: torch.Tensor):
+    if t.device.type == "cuda":
+        return core if getattr(_state, "plain", False) else kernels
+    if t.device.type == "cpu":
+        return core
+    raise ValueError(f"tumseg_torch ops run on cpu or cuda, not {t.device}")
+
+
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          start: Optional[torch.Tensor] = None):
+    return _impl(xyz).farthest_point_sample(xyz, npoint, start=start)
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor):
+    return _impl(xyz).query_ball_point(radius, nsample, xyz, new_xyz)
+
+
+def group_points(idx: torch.Tensor, src: torch.Tensor,
+                 new_xyz: torch.Tensor):
+    return _impl(src).group_points(idx, src, new_xyz)
+
+
+def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
+    """[B, S, 3] rows of xyz [B, N, 3] at idx [B, S]: the group op with K=1
+    and zero centers (``tumseg/ops/__init__.py:195-211``)."""
+    zeros = xyz.new_zeros(idx.shape[0], idx.shape[1], 3)
+    return group_points(idx[:, :, None].contiguous(), xyz, zeros)[:, :, 0, :]
+
+
+def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                         points2: torch.Tensor):
+    return _impl(xyz1).three_nn_interpolate(xyz1, xyz2, points2)
+
+
+def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                      points2: torch.Tensor):
+    return three_nn_interpolate(xyz1, xyz2, points2)[2]
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: Optional[torch.Tensor]):
+    """FPS -> centroid gather -> ball query -> group + center:
+    -> (new_xyz [B, npoint, 3], grouped [B, npoint, nsample, 3 (+D)])."""
+    new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint))
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
+    return new_xyz, group_points(idx, src, new_xyz)

@@ -1,0 +1,148 @@
+"""Python wrappers of the hand-written CUDA kernels (``tumseg_torch/csrc``).
+
+Each wrapper checks device, dtype, shape and contiguity and raises on
+anything else; rejects inputs that require grad (the kernels are
+forward-only); allocates its outputs with ``torch.empty``; launches on the
+current stream of the input's device; raises if the launcher returns a CUDA
+error; and adds one to its entry of ``launches`` per launch. There is no
+fallback: a CUDA tensor either runs the kernel or raises. The plain versions
+with the same contracts are in ``tumseg_torch.ops.core``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from tumseg_torch.ops import build
+
+KERNELS = ("fps", "ball_query", "group", "three_nn_interpolate")
+launches = dict.fromkeys(KERNELS, 0)
+
+# FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
+# of the 227 KB a block may use on Hopper, less the reduction scratch
+FPS_MAX_N = 14336
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.requires_grad:
+        raise RuntimeError(f"{name} requires grad, but the tumseg_torch "
+                           "kernels are forward-only")
+
+
+def _same_device(*tensors: torch.Tensor) -> torch.device:
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"inputs on {device} and {t.device}")
+    return device
+
+
+def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    lib = build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    launches[kernel] += 1
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          start: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """xyz [B, N, 3] f32 -> [B, npoint] int32; ``start`` [B] int32."""
+    _check("xyz", xyz, torch.float32, (None, None, 3))
+    B, N, _ = xyz.shape
+    if start is None:
+        start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
+    _check("start", start, torch.int32, (B,))
+    if N > FPS_MAX_N:
+        raise ValueError(f"fps kernel takes N <= {FPS_MAX_N}, got {N}")
+    if N == 0 or npoint < 0:
+        raise ValueError(f"fps needs N > 0 and npoint >= 0 (N={N}, "
+                         f"npoint={npoint})")
+    device = _same_device(xyz, start)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=device)
+    _launch("fps", "tumseg_fps", device, _ptr(xyz), _ptr(start), _ptr(out),
+            B, N, npoint)
+    return out
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """xyz [B, N, 3], new_xyz [B, S, 3] f32 -> [B, S, nsample] int32."""
+    _check("xyz", xyz, torch.float32, (None, None, 3))
+    B, N, _ = xyz.shape
+    _check("new_xyz", new_xyz, torch.float32, (B, None, 3))
+    S = new_xyz.shape[1]
+    if nsample < 1:
+        raise ValueError(f"nsample must be >= 1, got {nsample}")
+    device = _same_device(xyz, new_xyz)
+    out = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
+    r2 = float(radius) * float(radius)  # rounded to f32 by ctypes
+    _launch("ball_query", "tumseg_ball_query", device, _ptr(xyz),
+            _ptr(new_xyz), _ptr(out), B, N, S, nsample, r2)
+    return out
+
+
+def group_points(idx: torch.Tensor, src: torch.Tensor,
+                 new_xyz: torch.Tensor) -> torch.Tensor:
+    """idx [B, S, K] int32 in [0, N], src [B, N, C] f32 (C >= 3, xyz first),
+    new_xyz [B, S, 3] f32 -> [B, S, K, C] f32, channels 0-2 centred."""
+    _check("idx", idx, torch.int32, (None, None, None))
+    B, S, K = idx.shape
+    _check("src", src, torch.float32, (B, None, None))
+    _check("new_xyz", new_xyz, torch.float32, (B, S, 3))
+    N, C = src.shape[1], src.shape[2]
+    if C < 3:
+        raise ValueError(f"src needs xyz in channels 0-2, got C={C}")
+    device = _same_device(idx, src, new_xyz)
+    out = torch.empty((B, S, K, C), dtype=torch.float32, device=device)
+    _launch("group", "tumseg_group", device, _ptr(idx), _ptr(src),
+            _ptr(new_xyz), _ptr(out), B, N, S, K, C)
+    return out
+
+
+def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                         points2: torch.Tensor):
+    """xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D] f32 ->
+    (dists [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32)."""
+    _check("xyz1", xyz1, torch.float32, (None, None, 3))
+    B, N, _ = xyz1.shape
+    _check("xyz2", xyz2, torch.float32, (B, None, 3))
+    S = xyz2.shape[1]
+    _check("points2", points2, torch.float32, (B, S, None))
+    D = points2.shape[2]
+    if S < 3:
+        raise ValueError(f"three_nn needs at least 3 sources, got S={S}")
+    device = _same_device(xyz1, xyz2, points2)
+    dists = torch.empty((B, N, 3), dtype=torch.float32, device=device)
+    idx = torch.empty((B, N, 3), dtype=torch.int32, device=device)
+    out = torch.empty((B, N, D), dtype=torch.float32, device=device)
+    _launch("three_nn_interpolate", "tumseg_three_nn_interpolate", device,
+            _ptr(xyz1), _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx),
+            _ptr(out), B, N, S, D)
+    return dists, idx, out
