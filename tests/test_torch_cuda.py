@@ -6,7 +6,8 @@ it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 
 Indices and grouping must be identical; the interpolation agrees within
-rtol 1e-5 / atol 1e-6."""
+rtol 1e-5 / atol 1e-6. The backward kernels add with f32 atomics in an order
+that changes from run to run, so they agree within rtol 1e-5 / atol 1e-4."""
 
 import numpy as np
 import pytest
@@ -72,6 +73,83 @@ def test_three_nn_interpolate(cuda, B, N, S, D):
     torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 77, 19, 32, 35), (1, 1000, 64, 8, 1),
+                                       (3, 31, 5, 40, 67)])
+def test_group_backward(cuda, B, N, S, K, C):
+    """Ragged N, an all-sentinel ball, a short ball padded with repeats and
+    one source row that every group holds."""
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, N + 1, (B, S, K)).astype(np.int32)
+    idx[:, 0] = N
+    idx[:, 1, 2:] = idx[:, 1, 1:2]
+    idx[:, 1:, 0] = N // 2
+    idx = torch.as_tensor(idx, device=cuda)
+    g = torch.as_tensor(rng.standard_normal((B, S, K, C)).astype(np.float32),
+                        device=cuda)
+    kernels.reset_launches()
+    got = kernels.group_points_backward(idx, g, N)
+    torch.testing.assert_close(got, core.group_points_backward(idx, g, N),
+                               rtol=1e-5, atol=1e-4)
+    assert kernels.launches["group_backward"] == 1
+
+
+@pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
+                                     (2, 4099, 1024, 128)])
+def test_interpolate_backward(cuda, B, N, S, D):
+    """Ragged N, S = 3, and one source among the three of every query."""
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, S, (B, N, 3)).astype(np.int32)
+    idx[:, :, 0] = S - 1
+    w = rng.random((B, N, 3)).astype(np.float32) + 0.01
+    w /= w.sum(-1, keepdims=True)
+    idx, w = (torch.as_tensor(a, device=cuda) for a in (idx, w))
+    g = torch.as_tensor(rng.standard_normal((B, N, D)).astype(np.float32),
+                        device=cuda)
+    got = kernels.interpolate_backward(idx, w, g, S)
+    torch.testing.assert_close(got, core.interpolate_backward(idx, w, g, S),
+                               rtol=1e-5, atol=1e-4)
+
+
+def _grads(cuda, backward_plain):
+    """Forward through tumseg_torch.ops on the card, then backward, inside
+    ops.plain() or not: -> (d src, d points2)."""
+    rng = np.random.default_rng(5)
+    xyz = _rand(rng, (2, 300, 3), cuda)
+    new_xyz = xyz[:, :50].contiguous()
+    src = _rand(rng, (2, 300, 9), cuda).requires_grad_()
+    idx = kernels.query_ball_point(0.2, 16, xyz, new_xyz)
+    p2 = _rand(rng, (2, 50, 24), cuda).requires_grad_()
+    grouped = ops.group_points(idx, src, new_xyz)
+    out = ops.three_nn_interpolate(xyz, new_xyz, p2)[2]
+    loss = (grouped * grouped).sum() + (out * out).sum()
+    if backward_plain:
+        with ops.plain():
+            loss.backward()
+    else:
+        loss.backward()
+    return src.grad, p2.grad
+
+
+def test_autograd_functions_on_card(cuda):
+    """The autograd Functions run the backward kernels on CUDA tensors and
+    agree with the plain path; a backward run inside ops.plain() still
+    launches the kernels its forward chose (ctx keeps the choice)."""
+    kernels.reset_launches()
+    d_src, d_p2 = _grads(cuda, backward_plain=False)
+    assert kernels.launches["group_backward"] == 1
+    assert kernels.launches["interpolate_backward"] == 1
+    d_src2, d_p22 = _grads(cuda, backward_plain=True)
+    assert kernels.launches["group_backward"] == 2
+    assert kernels.launches["interpolate_backward"] == 2
+    with ops.plain():
+        p_src, p_p2 = _grads(cuda, backward_plain=False)
+    assert kernels.launches["group_backward"] == 2
+    for got in (d_src, d_src2):
+        torch.testing.assert_close(got, p_src, rtol=1e-5, atol=1e-4)
+    for got in (d_p2, d_p22):
+        torch.testing.assert_close(got, p_p2, rtol=1e-5, atol=1e-4)
+
+
 def test_wrappers_refuse_bad_inputs_and_count(cuda):
     xyz = torch.rand(1, 64, 3, device=cuda)
     kernels.reset_launches()
@@ -81,6 +159,14 @@ def test_wrappers_refuse_bad_inputs_and_count(cuda):
         kernels.query_ball_point(0.1, 4, xyz, xyz[:, ::2])
     with pytest.raises(RuntimeError, match="forward-only"):
         kernels.farthest_point_sample(xyz.clone().requires_grad_(), 8)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernels.group_points_backward(
+            torch.zeros(1, 4, 2, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 4, 2, 3, device=cuda, requires_grad=True), 64)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.interpolate_backward(
+            torch.zeros(1, 64, 3, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 64, 2, device=cuda), xyz, 8)
     assert sum(kernels.launches.values()) == 0
     ops.farthest_point_sample(xyz, 8)
     with ops.plain():

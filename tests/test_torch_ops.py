@@ -1,12 +1,16 @@
 """The port's plain point ops (tumseg_torch.ops.core) against tumseg: the XLA
 compositions of tumseg.ops.core and the Pallas kernels in interpret mode, on
 the same numpy inputs. Indices must be identical; floats agree within
-atol 1e-5 (f32 rounding of differently ordered sums). The CUDA kernels are
-held against these plain versions on the card by chip_smoke.py and
+atol 1e-5 (f32 rounding of differently ordered sums). The plain backward
+passes agree with jax.grad through the Pallas backward kernels within
+rtol 1e-5 / atol 1e-6 (the same f32 terms summed in another order), and the
+autograd Functions pass a finite-difference check in f64. The CUDA kernels
+are held against these plain versions on the card by chip_smoke.py and
 tests/test_torch_cuda.py."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,6 +204,72 @@ def test_three_interpolate_matches_pallas_path():
         _np(out), _np(tops.three_interpolate(_t(xyz1), _t(xyz2), _t(pts2))))
 
 
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 64, 16, 8, 9), (1, 40, 8, 32, 35)])
+def test_group_backward_matches_pallas_grad(B, N, S, K, C):
+    """d src of the Pallas group kernel's custom VJP (_group_bwd_kernel),
+    with empty balls (sentinel N), repeated indices and one source row that
+    every group holds."""
+    from tumseg.ops.pallas.group import group_points as group_pallas
+
+    rng = np.random.default_rng(11)
+    src = rng.standard_normal((B, N, C)).astype(np.float32)
+    new_xyz = rng.standard_normal((B, S, 3)).astype(np.float32)
+    idx = rng.integers(0, N + 1, (B, S, K)).astype(np.int32)
+    idx[:, 0, :] = N            # an empty ball
+    idx[:, 1, 3:] = idx[:, 1, 2:3]  # a short ball padded with a repeat
+    idx[:, :, 0] = 7            # one row in every group
+    g = rng.standard_normal((B, S, K, C)).astype(np.float32)
+    want = jax.grad(lambda s_: jnp.sum(group_pallas(
+        jnp.asarray(idx), s_, jnp.asarray(new_xyz), fast=False)
+        * jnp.asarray(g)))(jnp.asarray(src))
+    got = core.group_points_backward(_t(idx), _t(g), N)
+    assert got.shape == (B, N, C) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,N,S,D", [(2, 128, 32, 8), (1, 96, 3, 40)])
+def test_interpolate_backward_matches_pallas_grad(B, N, S, D):
+    """d points2 of the Pallas interpolation's custom VJP
+    (_interp_bwd_kernel), with repeated neighbour indices."""
+    from tumseg.ops.pallas.interpolate import weighted_interpolate
+
+    rng = np.random.default_rng(12)
+    idx = rng.integers(0, S, (B, N, 3)).astype(np.int32)
+    idx[:, :5, 1] = idx[:, :5, 0]  # one source counted twice
+    idx[:, 5:9] = 0                # one source for all three
+    w = rng.random((B, N, 3)).astype(np.float32) + 0.01
+    w /= w.sum(-1, keepdims=True)
+    pts2 = rng.standard_normal((B, S, D)).astype(np.float32)
+    g = rng.standard_normal((B, N, D)).astype(np.float32)
+    want = jax.grad(lambda p: jnp.sum(weighted_interpolate(
+        jnp.asarray(idx), jnp.asarray(w), p, fast=False)
+        * jnp.asarray(g)))(jnp.asarray(pts2))
+    got = core.interpolate_backward(_t(idx), _t(w), _t(g), S)
+    assert got.shape == (B, S, D)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+def test_autograd_functions_pass_gradcheck():
+    """The autograd Functions on the plain path, in f64, against central
+    finite differences (torch.autograd.gradcheck)."""
+    rng = np.random.default_rng(13)
+    B, N, S, K = 2, 20, 6, 4
+    src = torch.from_numpy(rng.standard_normal((B, N, 5))).requires_grad_()
+    new_xyz = torch.from_numpy(rng.standard_normal((B, S, 3)))
+    idx = torch.from_numpy(rng.integers(0, N + 1, (B, S, K)).astype(np.int32))
+    idx[:, 0] = N
+    assert torch.autograd.gradcheck(
+        lambda s_: tops.group_points(idx, s_, new_xyz), (src,))
+
+    xyz1 = torch.from_numpy(rng.random((B, 15, 3)))
+    xyz2 = torch.from_numpy(rng.random((B, S, 3)))
+    pts2 = torch.from_numpy(rng.standard_normal((B, S, 4))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda p: tops.three_nn_interpolate(xyz1, xyz2, p)[2], (pts2,))
+    dists, nn_idx, _ = tops.three_nn_interpolate(xyz1, xyz2, pts2)
+    assert not dists.requires_grad and not nn_idx.requires_grad
+
+
 def test_three_nn_needs_three_sources():
     with pytest.raises(ValueError, match="at least 3"):
         core.three_nn(torch.zeros(1, 4, 3), torch.zeros(1, 2, 3))
@@ -216,7 +286,13 @@ def test_dispatch_cpu_takes_plain_and_no_kernel_fallback():
                  lambda: kernels.group_points(
                      torch.zeros(1, 2, 3, dtype=torch.int32), xyz,
                      torch.zeros(1, 2, 3)),
-                 lambda: kernels.three_nn_interpolate(xyz, xyz, xyz)):
+                 lambda: kernels.three_nn_interpolate(xyz, xyz, xyz),
+                 lambda: kernels.group_points_backward(
+                     torch.zeros(1, 2, 3, dtype=torch.int32),
+                     torch.zeros(1, 2, 3, 4), 32),
+                 lambda: kernels.interpolate_backward(
+                     torch.zeros(1, 32, 3, dtype=torch.int32),
+                     torch.zeros(1, 32, 3), torch.zeros(1, 32, 4), 8)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert all(v == 0 for v in kernels.launches.values())

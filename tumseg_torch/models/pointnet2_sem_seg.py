@@ -1,10 +1,12 @@
-"""PointNet++ (SSG) semantic segmentation, the eval forward
+"""PointNet++ (SSG) semantic segmentation
 (``tumseg/models/pointnet2_sem_seg.py``): four set abstractions
 (1024/256/64/16 centroids, radius .1/.2/.4/.8, K=32), four feature
-propagations and a Conv(128)-BN-ReLU-Conv(num_classes)-log_softmax head.
-Dropout is the identity in eval and is not applied."""
+propagations and a Conv(128)-BN-ReLU-Dropout(.5)-Conv(num_classes)-
+log_softmax head, trained with the weighted NLL loss."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,6 +27,7 @@ FP_CFGS = [
     dict(in_channel=320, mlp=[256, 128]),       # fp2
     dict(in_channel=128, mlp=[128, 128, 128]),  # fp1
 ]
+DROPOUT_RATE = 0.5
 
 
 class PointNet2SemSeg(nn.Module):
@@ -43,15 +46,29 @@ class PointNet2SemSeg(nn.Module):
         self.bn1 = BatchNorm(128)
         self.conv2 = Dense(128, num_classes, conv_rank=1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
         room-normalized xyz, then extra features) ->
-        (log_probs [B, N, num_classes], l4_points [B, 16, 512])."""
+        (log_probs [B, N, num_classes], l4_points [B, 16, 512]).
+
+        With a ``generator`` (on x's device) in train mode, each stage's FPS
+        starts at a drawn index in [0, N_stage) and dropout 0.5 follows the
+        head's ReLU, as ``tumseg``'s ``apply`` does with ``rngs``; without
+        one, FPS starts at 0 and there is no dropout, as ``apply`` does
+        without ``rngs``."""
+        draw = generator is not None and self.training
+        B = x.shape[0]
         l_xyz = [x[..., :3].contiguous()]
         l_points = [x]
         for i in range(1, 5):
-            new_xyz, new_points = getattr(self, f"sa{i}")(l_xyz[-1],
-                                                          l_points[-1])
+            start = None
+            if draw:
+                start = torch.randint(0, l_xyz[-1].shape[1], (B,),
+                                      generator=generator, device=x.device,
+                                      dtype=torch.int32)
+            new_xyz, new_points = getattr(self, f"sa{i}")(
+                l_xyz[-1], l_points[-1], fps_start=start)
             l_xyz.append(new_xyz)
             l_points.append(new_points)
         feat = l_points[4]
@@ -60,7 +77,21 @@ class PointNet2SemSeg(nn.Module):
             feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
                                            feat)
         h = F.relu(self.bn1(self.conv1(feat)))
+        if draw:
+            keep = 1.0 - DROPOUT_RATE
+            mask = torch.rand(h.shape, generator=generator,
+                              device=h.device) < keep
+            h = torch.where(mask, h / keep, 0.0)
         return F.log_softmax(self.conv2(h), dim=-1), l_points[4]
+
+    @staticmethod
+    def loss(log_probs: torch.Tensor, target: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+        """Weighted NLL over all points, sum(w[t] * -logp[t]) / sum(w[t])
+        (``tumseg/nn/layers.py:weighted_nll_loss``)."""
+        C = log_probs.shape[-1]
+        return F.nll_loss(log_probs.reshape(-1, C),
+                          target.reshape(-1).long(), weight=weight)
 
 
 def get_model(num_classes: int, num_extra_features: int = 0

@@ -1,5 +1,5 @@
-"""PointNet++ layers as ``nn.Module``s, channels-last, eval forward
-(``tumseg/nn/layers.py:62-276``).
+"""PointNet++ layers as ``nn.Module``s, channels-last
+(``tumseg/nn/layers.py:37-276``).
 
 Weights keep the reference's conv shapes — ``[out, in, 1, 1]`` in the set
 abstractions, ``[out, in, 1]`` in feature propagation and the head — so
@@ -22,17 +22,28 @@ from tumseg_torch import ops
 
 
 class Dense(nn.Module):
-    """Pointwise linear over the last axis (the reference's 1x1 conv)."""
+    """Pointwise linear over the last axis (the reference's 1x1 conv).
+
+    Initialised as ``tumseg`` initialises the matching layer: the set
+    abstractions' convs (``conv_rank=2``, the reference's Conv2d) get a
+    Xavier-normal weight, std sqrt(2/(in+out)), and a zero bias
+    (``tumseg/nn/layers.py:dense_init``); the FP and head convs
+    (``conv_rank=1``, Conv1d) keep torch's default, U(+-1/sqrt(fan_in)) for
+    weight and bias (``dense_init_torch_default``)."""
 
     def __init__(self, in_dim: int, out_dim: int, conv_rank: int):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_dim, in_dim, *([1] * conv_rank)))
         self.bias = nn.Parameter(torch.empty(out_dim))
-        # torch's Conv default init: U(+-1/sqrt(fan_in)) for both
-        bound = 1.0 / math.sqrt(in_dim)
-        nn.init.uniform_(self.weight, -bound, bound)
-        nn.init.uniform_(self.bias, -bound, bound)
+        if conv_rank == 2:
+            std = math.sqrt(2.0 / (in_dim + out_dim))
+            nn.init.normal_(self.weight, std=std)
+            nn.init.zeros_(self.bias)
+        else:
+            bound = 1.0 / math.sqrt(in_dim)
+            nn.init.uniform_(self.weight, -bound, bound)
+            nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.view(self.weight.shape[0], self.weight.shape[1])
@@ -41,12 +52,18 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """Per-channel (last axis) batch norm with torch's parameter and buffer
-    names. Eval only: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``
-    (``tumseg/nn/layers.py:114-115``)."""
+    names and ``tumseg``'s formula (``tumseg/nn/layers.py:82-116``):
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``. In train mode
+    mean and var are the batch's, var = E[x^2] - E[x]^2, and the running
+    stats become ``(1 - momentum) * running + momentum * batch`` with the
+    unbiased batch var; the training engine sets ``momentum`` each step.
+    ``F.batch_norm`` computes the variance another way, so it is not used.
+    In eval mode the running stats are used."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -55,12 +72,21 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP Queue 1, "
-                "item 5); call .eval() for inference")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * inv + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * inv + self.bias
+        dims = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=dims)
+        var = (x * x).mean(dim=dims) - mean * mean
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            self.num_batches_tracked += 1
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * inv + self.bias
 
 
 @torch.no_grad()
@@ -113,9 +139,15 @@ class SetAbstraction(MLPStack):
         super().__init__(in_channel, mlp, conv_rank=2)
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
 
-    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor]):
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                fps_start: Optional[torch.Tensor] = None):
+        """``fps_start`` [B] int32 seeds FPS (default index 0). The max over
+        K is ``amax``, which splits the gradient evenly among tied entries,
+        as ``jnp.max`` does: a short ball repeats its first hit, so ties
+        are the rule."""
         new_xyz, grouped = ops.sample_and_group(
-            self.npoint, self.radius, self.nsample, xyz, points)
+            self.npoint, self.radius, self.nsample, xyz, points,
+            fps_start=fps_start)
         return new_xyz, self.mlp(grouped).amax(dim=2)
 
 

@@ -5,7 +5,9 @@ that fails to build or launch raises.
 
 ``plain()`` forces the plain versions on CUDA tensors too, so that
 ``chip_smoke.py`` and the tests can hold each kernel against its plain
-version on the card.
+version on the card. Grouping and interpolation are differentiable through
+``tumseg_torch.ops.autograd``, which keeps the choice made here at forward
+time for the backward pass.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 
 from tumseg_torch.ops import core, kernels
+from tumseg_torch.ops.autograd import GroupPoints, ThreeNNInterpolate
 
 _state = threading.local()
 
@@ -53,7 +56,7 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
 
 def group_points(idx: torch.Tensor, src: torch.Tensor,
                  new_xyz: torch.Tensor):
-    return _impl(src).group_points(idx, src, new_xyz)
+    return GroupPoints.apply(idx, src, new_xyz, _impl(src))
 
 
 def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
@@ -65,7 +68,7 @@ def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
 
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                          points2: torch.Tensor):
-    return _impl(xyz1).three_nn_interpolate(xyz1, xyz2, points2)
+    return ThreeNNInterpolate.apply(xyz1, xyz2, points2, _impl(xyz1))
 
 
 def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
@@ -74,10 +77,13 @@ def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
 
 
 def sample_and_group(npoint: int, radius: float, nsample: int,
-                     xyz: torch.Tensor, points: Optional[torch.Tensor]):
-    """FPS -> centroid gather -> ball query -> group + center:
+                     xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     fps_start: Optional[torch.Tensor] = None):
+    """FPS (from ``fps_start`` [B], default 0) -> centroid gather -> ball
+    query -> group + center:
     -> (new_xyz [B, npoint, 3], grouped [B, npoint, nsample, 3 (+D)])."""
-    new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint))
+    new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint,
+                                                     start=fps_start))
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
     return new_xyz, group_points(idx, src, new_xyz)

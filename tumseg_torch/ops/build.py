@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``tumseg_torch/csrc`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which ``ctypes`` loads: no PyTorch headers are compiled, so the
-build takes seconds. The library lands in ``build/tumseg_torch/`` at the root
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles the sources
+to objects in parallel; one more links them into a shared library with a
+plain C interface, which ``ctypes`` loads: no PyTorch headers are compiled,
+so the build takes seconds. The library lands in ``build/tumseg_torch/`` at the root
 of the checkout, named by a hash of the sources and flags, so an edited
 kernel is never served from a stale build. Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tumseg_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher name -> argument types; every launcher returns a cudaError_t
@@ -32,6 +33,8 @@ SIGNATURES = {
     "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tumseg_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P),
+    "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tumseg_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -62,14 +65,32 @@ def _build() -> Path:
     out = BUILD_DIR / f"libtumseg_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    failed = []
+    for cmd, proc in jobs:  # wait for every compile, then report them all
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(objdir / f"{src.stem}.o") for src in sources)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the point-cloud ops on the serving path.
+"""Plain PyTorch versions of the point-cloud ops and of their backward passes.
 
 Each function here has the contract of one hand-written CUDA kernel in
 ``tumseg_torch/csrc`` (and of the Pallas kernel that kernel replaces), so the
@@ -144,13 +144,19 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor
     return torch.stack(dists, dim=-1), torch.stack(idxs, dim=-1)
 
 
+def interpolation_weights(dists: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weights ``r = 1/(d + 1e-8)``, ``w = r/((r0+r1)+r2)``
+    (``tumseg/ops/__init__.py:323-324``), the formula the fused CUDA kernel
+    uses: dists [B, N, 3] -> [B, N, 3]."""
+    r = 1.0 / (dists + 1e-8)
+    return r / (r[..., 0:1] + r[..., 1:2] + r[..., 2:3])
+
+
 def interpolate_weighted(dists: torch.Tensor, idx: torch.Tensor,
                          points2: torch.Tensor) -> torch.Tensor:
-    """Inverse-distance weights ``r = 1/(d + 1e-8)``, ``w = r/((r0+r1)+r2)``
-    (``tumseg/ops/__init__.py:323-324``), then
-    ``out = (w0*p[i0] + w1*p[i1]) + w2*p[i2]`` -> [B, N, D]."""
-    r = 1.0 / (dists + 1e-8)
-    w = r / (r[..., 0:1] + r[..., 1:2] + r[..., 2:3])
+    """``out = (w0*p[i0] + w1*p[i1]) + w2*p[i2]`` -> [B, N, D] with the
+    weights of :func:`interpolation_weights`."""
+    w = interpolation_weights(dists)
     nb = index_points(points2, idx)                            # [B, N, 3, D]
     return (nb[:, :, 0] * w[..., 0:1] + nb[:, :, 1] * w[..., 1:2]
             + nb[:, :, 2] * w[..., 2:3])
@@ -169,11 +175,42 @@ def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     return three_nn_interpolate(xyz1, xyz2, points2)[2]
 
 
+def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """Backward of :func:`group_points` with respect to ``src``: idx
+    [B, S, K] int in [0, n], grad [B, S, K, C] -> dsrc [B, n, C], the
+    scatter-add ``dsrc[b, idx[b,s,k]] += grad[b,s,k]``
+    (``tumseg/ops/pallas/group.py:_group_t_bwd_impl``). The sentinel
+    ``idx == n`` adds into an appended row that is dropped, so it adds
+    nothing."""
+    B, S, K, C = grad.shape
+    flat = idx.reshape(B, S * K, 1).long().expand(B, S * K, C)
+    out = grad.new_zeros(B, n + 1, C)
+    out.scatter_add_(1, flat, grad.reshape(B, S * K, C))
+    return out[:, :n]
+
+
+def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
+                         grad: torch.Tensor, s: int) -> torch.Tensor:
+    """Backward of the weighted interpolation with respect to ``points2``:
+    idx [B, N, 3] int in [0, s), weight [B, N, 3], grad [B, N, D] ->
+    dpoints2 [B, s, D] = W^T g, i.e. ``dp2[b, idx[b,n,k]] += w[b,n,k] *
+    grad[b,n]`` (``tumseg/ops/pallas/interpolate.py:_interp_bwd_impl``)."""
+    B, N, D = grad.shape
+    contrib = weight[..., None] * grad[:, :, None, :]          # [B, N, 3, D]
+    flat = idx.reshape(B, N * 3, 1).long().expand(B, N * 3, D)
+    out = grad.new_zeros(B, s, D)
+    return out.scatter_add_(1, flat, contrib.reshape(B, N * 3, D))
+
+
 def sample_and_group(npoint: int, radius: float, nsample: int,
-                     xyz: torch.Tensor, points: Optional[torch.Tensor]):
-    """FPS -> centroid gather -> ball query -> group + center:
+                     xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     fps_start: Optional[torch.Tensor] = None):
+    """FPS (from ``fps_start`` [B], default 0) -> centroid gather -> ball
+    query -> group + center:
     -> (new_xyz [B, npoint, 3], grouped [B, npoint, nsample, 3 (+D)])."""
-    new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint))
+    new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint,
+                                                     start=fps_start))
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
     return new_xyz, group_points(idx, src, new_xyz)

@@ -1,12 +1,15 @@
 """Python wrappers of the hand-written CUDA kernels (``tumseg_torch/csrc``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else; rejects inputs that require grad (the kernels are
-forward-only); allocates its outputs with ``torch.empty``; launches on the
-current stream of the input's device; raises if the launcher returns a CUDA
-error; and adds one to its entry of ``launches`` per launch. There is no
-fallback: a CUDA tensor either runs the kernel or raises. The plain versions
-with the same contracts are in ``tumseg_torch.ops.core``.
+anything else; rejects inputs that require grad (a wrapper is one forward or
+one backward pass: gradients go through the ``torch.autograd.Function``s of
+``tumseg_torch.ops.autograd``, which hand the wrappers detached tensors);
+allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
+accumulating backward kernels); launches on the current stream of the
+input's device; raises if the launcher returns a CUDA error; and adds one to
+its entry of ``launches`` per launch. There is no fallback: a CUDA tensor
+either runs the kernel or raises. The plain versions with the same contracts
+are in ``tumseg_torch.ops.core``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from tumseg_torch.ops import build
 
-KERNELS = ("fps", "ball_query", "group", "three_nn_interpolate")
+KERNELS = ("fps", "ball_query", "group", "three_nn_interpolate",
+           "group_backward", "interpolate_backward")
 launches = dict.fromkeys(KERNELS, 0)
 
 # FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
@@ -44,8 +48,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad:
-        raise RuntimeError(f"{name} requires grad, but the tumseg_torch "
-                           "kernels are forward-only")
+        raise RuntimeError(f"{name} requires grad, but the kernel wrappers "
+                           "are forward-only: differentiate through "
+                           "tumseg_torch.ops")
 
 
 def _same_device(*tensors: torch.Tensor) -> torch.device:
@@ -146,3 +151,39 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
             _ptr(xyz1), _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx),
             _ptr(out), B, N, S, D)
     return dists, idx, out
+
+
+def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """idx [B, S, K] int32 in [0, n], grad [B, S, K, C] f32 -> dsrc
+    [B, n, C] f32: the scatter-add backward of :func:`group_points`; the
+    sentinel ``idx == n`` adds nothing."""
+    _check("idx", idx, torch.int32, (None, None, None))
+    B, S, K = idx.shape
+    _check("grad", grad, torch.float32, (B, S, K, None))
+    C = grad.shape[3]
+    if n < 1:
+        raise ValueError(f"group backward needs n >= 1 source rows, got {n}")
+    device = _same_device(idx, grad)
+    out = torch.zeros((B, n, C), dtype=torch.float32, device=device)
+    _launch("group_backward", "tumseg_group_backward", device, _ptr(idx),
+            _ptr(grad), _ptr(out), B, n, S, K, C)
+    return out
+
+
+def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
+                         grad: torch.Tensor, s: int) -> torch.Tensor:
+    """idx [B, N, 3] int32 in [0, s), weight [B, N, 3] f32, grad [B, N, D]
+    f32 -> dpoints2 [B, s, D] f32 = W^T g."""
+    _check("idx", idx, torch.int32, (None, None, 3))
+    B, N, _ = idx.shape
+    _check("weight", weight, torch.float32, (B, N, 3))
+    _check("grad", grad, torch.float32, (B, N, None))
+    D = grad.shape[2]
+    if s < 3:
+        raise ValueError(f"interpolation needs at least 3 sources, got s={s}")
+    device = _same_device(idx, weight, grad)
+    out = torch.zeros((B, s, D), dtype=torch.float32, device=device)
+    _launch("interpolate_backward", "tumseg_interpolate_backward", device,
+            _ptr(idx), _ptr(weight), _ptr(grad), _ptr(out), B, N, s, D)
+    return out

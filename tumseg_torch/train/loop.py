@@ -1,0 +1,229 @@
+"""The port's training engine and epoch loop (``tumseg/train/loop.py``).
+
+Same behaviour as ``tumseg``'s host-pipeline path:
+- LR schedule ``lr = max(base * decay^(epoch // step), 1e-5)`` and BN
+  momentum ``m = max(0.1 * 0.5^(epoch // step), 0.01)``;
+- Adam with betas (0.9, 0.999), eps 1e-8 and weight decay added to the
+  gradient before the moments (torch's ``Adam(weight_decay=...)`` is optax's
+  ``add_decayed_weights -> scale_by_adam``), or SGD with momentum 0.9 and no
+  decay (``optax.trace(0.9)``);
+- a z-rotation of every batch, a random FPS start per stage and dropout,
+  all drawn from the engine's ``torch.Generator`` on the device;
+- per-epoch eval with per-class IoU and mIoU, a checkpoint every 5 epochs
+  and on the best mIoU, and the accuracy / loss / IoU charts.
+
+The step runs eagerly on the model's device. Per-step losses and correct
+counts stay on the device and are read back once an epoch, as ``tumseg``
+does. No mesh, no superstep and no device sampler yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tumseg.utils.progress import progress
+from tumseg_torch.data.augment import rotate_z
+from tumseg_torch.models.convert import (state_dict_from_variables,
+                                         variables_from_state_dict)
+from tumseg_torch.nn.layers import BatchNorm
+from tumseg_torch.train import checkpoint as ckpt
+from tumseg_torch.train import metrics as M
+
+LEARNING_RATE_CLIP = 1e-5
+MOMENTUM_ORIGINAL = 0.1
+MOMENTUM_DECCAY = 0.5
+MOMENTUM_FLOOR = 0.01
+
+
+def lr_schedule(epoch: int, base_lr: float, lr_decay: float,
+                step_size: int) -> float:
+    return max(base_lr * (lr_decay ** (epoch // step_size)), LEARNING_RATE_CLIP)
+
+
+def bn_momentum_schedule(epoch: int, step_size: int) -> float:
+    m = MOMENTUM_ORIGINAL * (MOMENTUM_DECCAY ** (epoch // step_size))
+    return max(m, MOMENTUM_FLOOR)
+
+
+def make_optimizer(params, name: str = "Adam",
+                   weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+    """``tumseg``'s optimizers; the engine sets the learning rate on every
+    step."""
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+    return torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+
+
+class TrainEngine:
+    """Holds the model, its optimizer and the random stream of training."""
+
+    def __init__(self, model: torch.nn.Module, num_classes: int,
+                 train_weights: np.ndarray, optimizer: str = "Adam",
+                 weight_decay: float = 1e-4, augment_rotate: bool = True,
+                 seed: int = 0, device="cpu"):
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.num_classes = num_classes
+        self.augment_rotate = augment_rotate
+        self.weights = torch.as_tensor(
+            np.asarray(train_weights, dtype=np.float32), device=self.device)
+        self.optimizer = make_optimizer(self.model.parameters(), optimizer,
+                                        weight_decay)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def load_state(self, state: Dict) -> int:
+        """Model weights and (if saved) optimizer state from a loaded
+        ``tumseg-ckpt-v2`` checkpoint; returns its epoch."""
+        self.model.load_state_dict(
+            state_dict_from_variables(state["model_state_dict"]))
+        if state.get("optimizer_state_dict") is not None:
+            ckpt.load_optimizer_leaves(self.optimizer, self.model,
+                                       state["optimizer_state_dict"])
+        return state.get("epoch", 0)
+
+    def variables(self) -> Dict:
+        return variables_from_state_dict(self.model.state_dict())
+
+    def save(self, path: str, epoch: int, class_avg_iou=None) -> None:
+        ckpt.save_checkpoint(
+            path, epoch=epoch, variables=self.variables(),
+            opt_leaves=ckpt.optimizer_leaves(self.optimizer, self.model),
+            class_avg_iou=class_avg_iou)
+
+    def _put(self, points, target):
+        return (torch.as_tensor(points, dtype=torch.float32).to(self.device),
+                torch.as_tensor(target).to(self.device, torch.long))
+
+    def train_batch(self, points, target, lr: float, momentum: float):
+        """One step: rotate, forward, weighted NLL, backward, optimizer.
+        Returns (loss, correct) as device tensors."""
+        points, target = self._put(points, target)
+        self.model.train()
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                m.momentum = momentum
+        if self.augment_rotate:
+            angles = torch.rand(points.shape[0], generator=self.generator,
+                                device=self.device) * (2 * math.pi)
+            points = torch.cat([rotate_z(points[..., :3], angles),
+                                points[..., 3:]], dim=-1)
+        logp, _ = self.model(points, generator=self.generator)
+        loss = self.model.loss(logp, target, self.weights)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        correct = (logp.detach().argmax(-1) == target).sum()
+        return loss.detach(), correct
+
+    @torch.no_grad()
+    def eval_batch(self, points, target):
+        """-> (loss, {seen, predicted, correct}) as device tensors."""
+        points, target = self._put(points, target)
+        self.model.eval()
+        logp, _ = self.model(points)
+        loss = self.model.loss(logp, target, self.weights)
+        return loss, M.confusion_tallies(logp.argmax(-1), target,
+                                         self.num_classes)
+
+
+def fit(engine: TrainEngine, train_loader, eval_loader, *, start_epoch: int,
+        end_epoch: int, learning_rate: float, lr_decay: float, step_size: int,
+        batch_size: int, num_point: int, checkpoints_dir, model_name: str,
+        seg_label_to_cat: Dict, log_string=print):
+    """The epoch loop of ``tumseg/train/loop.py:fit`` on the host pipeline.
+    Returns (accuracyChart, MLChart, IoUChart)."""
+    num_classes = engine.num_classes
+    accuracy_chart, ml_chart, iou_chart = [], [], []
+    best_iou = 0.0
+    global_epoch = 0
+
+    for epoch in range(start_epoch, end_epoch):
+        log_string("**** Epoch %d (%d/%s) ****"
+                   % (global_epoch + 1, epoch + 1, end_epoch))
+        lr = lr_schedule(epoch, learning_rate, lr_decay, step_size)
+        log_string("Learning rate:%f" % lr)
+        momentum = bn_momentum_schedule(epoch, step_size)
+        print("BN momentum updated to: %f" % momentum)
+
+        num_batches = len(train_loader)
+        total_seen = 0
+        losses, corrects = [], []
+        t0 = time.time()
+        for points, target in progress(train_loader, total=num_batches,
+                                       desc="train"):
+            loss, correct = engine.train_batch(points, target, lr, momentum)
+            losses.append(loss)
+            corrects.append(correct)
+            total_seen += batch_size * num_point
+        # one readback an epoch, which also waits for the last step
+        loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
+        total_correct = int(torch.stack(corrects).sum()) if corrects else 0
+        train_time = time.time() - t0
+        if num_batches:
+            log_string("Training mean loss: %f" % (loss_sum / num_batches))
+            log_string("Training accuracy: %f"
+                       % (total_correct / float(total_seen)))
+            log_string("Training points/sec: %.0f"
+                       % (total_seen / max(train_time, 1e-9)))
+
+        if epoch % 5 == 0:
+            savepath = str(checkpoints_dir) + "/model.pth"
+            log_string("Saving at %s" % savepath)
+            engine.save(savepath, epoch)
+
+        log_string("---- EPOCH %03d EVALUATION ----" % (global_epoch + 1))
+        eval_batches = len(eval_loader)
+        device_tallies = None
+        eval_losses = []
+        eval_seen = 0
+        for points, target in progress(eval_loader, total=eval_batches,
+                                       desc="eval"):
+            loss, t = engine.eval_batch(points, target)
+            eval_losses.append(loss)
+            device_tallies = t if device_tallies is None else {
+                k: device_tallies[k] + t[k] for k in t}
+            eval_seen += batch_size * num_point
+
+        if eval_batches:
+            tallies = M.accumulate_host(M.zero_tallies(num_classes),
+                                        device_tallies)
+            eval_loss_sum = float(torch.stack(eval_losses).sum())
+            iou = M.iou_from_tallies(tallies)
+            miou = float(np.mean(iou))
+            eval_acc = float(tallies["correct"].sum() / float(eval_seen))
+            log_string("eval mean loss: %f" % (eval_loss_sum / eval_batches))
+            log_string("eval point avg class IoU: %f" % miou)
+            log_string("eval point accuracy: %f" % eval_acc)
+            log_string("eval point avg class acc: %f"
+                       % M.class_avg_accuracy(tallies))
+
+            labelweights = tallies["seen"] / max(tallies["seen"].sum(), 1)
+            iou_str = "------- IoU --------\n"
+            for l in range(num_classes):
+                iou_str += "class %s weight: %.3f, IoU: %.3f \n" % (
+                    seg_label_to_cat[l] + " " * (14 - len(seg_label_to_cat[l])),
+                    labelweights[l], iou[l])
+            log_string(iou_str)
+
+            if miou >= best_iou:
+                best_iou = miou
+                savepath = str(checkpoints_dir) + model_name
+                log_string("Saving at %s" % savepath)
+                engine.save(savepath, epoch, class_avg_iou=miou)
+            log_string("Best mIoU: %f" % best_iou)
+
+            accuracy_chart.append(eval_acc)
+            ml_chart.append(eval_loss_sum / eval_batches)
+            iou_chart.append(best_iou)
+        global_epoch += 1
+
+    return accuracy_chart, ml_chart, iou_chart
