@@ -30,12 +30,35 @@ g. trains through ``tumseg_torch.cli.train.main`` on a synthetic ~600K-point
    losses are finite, that ``best_model.pth`` serves through
    ``tumseg_torch.cli.test``, and that the backward kernels were launched at
    least steps x 3 (group: sa2-sa4) and steps x 4 (interpolation: fp1-fp4)
-   times in that run.
+   times in that run;
+h. runs the multi-radius ball-query kernel at the four stage shapes of a
+   B=32 x 4096-point forward of ``pointnet2_sem_seg_msg`` (radii .05/.1,
+   .1/.2, .2/.4, .4/.8, K = 16/32): indices identical to its plain version
+   and to the single-radius kernel run once per radius, plus an empty ball
+   and unsorted radii; times it beside two single-radius launches;
+i. runs that MSG forward with the kernels and with the plain versions:
+   log-probs within 1e-4, argmax equal on >= 99.99% of points, >= 2 classes
+   predicted, both timed;
+j. serves the tile of d with the MSG model through
+   ``tumseg_torch.cli.test --model pointnet2_sem_seg_msg`` (2 votes) and
+   checks its launches per forward (ball query only through the multi-radius
+   kernel);
+k. takes one MSG training step at B=16 x 4096 with the kernels and plain
+   (loss within rtol 1e-5, every gradient within 1e-4 of its layer's
+   largest, both timed), then trains through
+   ``tumseg_torch.cli.train --model pointnet2_sem_seg_msg`` (1 epoch, >= 6
+   steps, multi-radius ball query >= steps x 4 and group backward >= steps x
+   6 launches) and serves its ``best_model.pth``.
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
-then exits non-zero without printing either line. Without a CUDA device it
-exits with code 2.
+Each kernel's time at the main path's shapes stands beside its bound: the
+larger of its bytes (each input read once, each output written once) over
+the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted from
+this run's inputs (a ball query counts the candidates its queries scan
+before their balls fill), and beside one PyTorch call that computes the same
+function where there is one. The line before the last is a JSON summary of
+the kernels; the last line is ``{"ok": true, "device": {...}}``. Any failed
+phase raises, and the script then exits non-zero without printing either
+line. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -57,13 +80,21 @@ SCENE_POINTS = 300_000
 TRAIN_POINTS = 600_000
 HELD_OUT_POINTS = 50_000
 TRAIN_EPOCHS = 2
+MSG_TRAIN_EPOCHS = 1
 SA = [(1024, 0.1), (256, 0.2), (64, 0.4), (16, 0.8)]  # (npoint, radius)
 K = 32
 SA_CHANNELS = [9, 67, 131, 259]  # grouped channels of sa1..sa4
 FP_D = [128, 256, 256, 512]  # points2 channels of fp1..fp4
+MSG_SA = [(1024, (0.05, 0.1)), (256, (0.1, 0.2)), (64, (0.2, 0.4)),
+          (16, (0.4, 0.8))]  # (npoint, radii) of pointnet2_sem_seg_msg
+MSG_K = (16, 32)
+# H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 REPLACES = {
     "fps": "tumseg/ops/pallas/fps.py:39",
     "ball_query": "tumseg/ops/pallas/ballquery.py:279",
+    "ball_query_multi": "tumseg/ops/pallas/ballquery.py:293",
     "group": "tumseg/ops/pallas/group.py:60",
     "three_nn_interpolate": "tumseg/ops/pallas/threenn.py:70",
     "group_backward": "tumseg/ops/pallas/group.py:75",
@@ -72,15 +103,29 @@ REPLACES = {
 SOURCES = {
     "fps": "tumseg_torch/csrc/fps.cu",
     "ball_query": "tumseg_torch/csrc/ball_query.cu",
+    "ball_query_multi": "tumseg_torch/csrc/ball_query_multi.cu",
     "group": "tumseg_torch/csrc/group.cu",
     "three_nn_interpolate": "tumseg_torch/csrc/three_nn_interpolate.cu",
     "group_backward": "tumseg_torch/csrc/group_backward.cu",
     "interpolate_backward": "tumseg_torch/csrc/interpolate_backward.cu",
 }
 # launches of each kernel in one forward: group runs once per set
-# abstraction for the neighbourhoods and once for the centroid gather
-PER_FORWARD = {"fps": 4, "ball_query": 4, "group": 8,
-               "three_nn_interpolate": 4}
+# abstraction for the centroid gather and once per radius for the
+# neighbourhoods; a model's other ball query is never launched
+PER_FORWARD = {
+    "pointnet2_sem_seg": {"fps": 4, "ball_query": 4, "ball_query_multi": 0,
+                          "group": 8, "three_nn_interpolate": 4},
+    "pointnet2_sem_seg_msg": {"fps": 4, "ball_query": 0,
+                              "ball_query_multi": 4, "group": 12,
+                              "three_nn_interpolate": 4},
+}
+# backward launches of one training step: group backward where the source
+# needs a gradient (sa2-sa4, once per radius), interpolation at fp1-fp4
+PER_STEP = {
+    "pointnet2_sem_seg": {"group_backward": 3, "interpolate_backward": 4},
+    "pointnet2_sem_seg_msg": {"group_backward": 6, "interpolate_backward": 4,
+                              "ball_query_multi": 4},
+}
 
 
 def facade_blocks(rng, b, n):
@@ -106,7 +151,7 @@ def facade_batch(rng, b, n):
 def write_facade_tile(rng, path, n):
     """A 20 m x 2 m x 15 m facade tile of ``n`` points, 80% on a wall,
     labelled with all 8 classes."""
-    from tumseg.data.las import write_las
+    from tumseg_torch.data.las import write_las
 
     on_wall = rng.random(n) < 0.8
     xyz = np.stack([rng.uniform(0.0, 20.0, n),
@@ -134,29 +179,76 @@ def time_ms(torch, fn, reps):
     return float(np.median(runs)), runs
 
 
+def scanned(torch, idx, n):
+    """Candidates each query of a ball query [B, S, K] over ``n`` points
+    must test: up to its K-th hit, or all ``n`` when its ball holds fewer
+    (a short ball repeats its first hit, an empty one holds only n)."""
+    last, first = idx[..., -1].long(), idx[..., 0].long()
+    full = last != first if idx.shape[-1] > 1 else first != n
+    return torch.where(full, last + 1, torch.full_like(last, n))
+
+
 class Report:
     def __init__(self):
         self.kernels = {name: {"name": name, "route": "cuda",
                                "source": SOURCES[name],
                                "replaces": REPLACES[name], "launches": 0,
-                               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+                               "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                               "bound_ms": 0.0, "bound_by": None,
+                               "library_ms": None}
                         for name in SOURCES}
+        self.terms = {name: [0.0, 0.0] for name in SOURCES}  # bytes, ops ms
 
-    def add(self, torch, name, label, kernel_fn, plain_fn, err, reps=20,
-            plain_reps=3, phase="b", on_path=True):
-        """Times ``kernel_fn`` and ``plain_fn``; the times of the shapes the
-        main path runs (``on_path``) add up to the kernel's ms per forward
-        (phase b) or per training step (phase e)."""
+    def add(self, torch, name, label, kernel_fn, plain_fn, err, *, nbytes,
+            ops, library_fn=None, reps=20, plain_reps=3, phase="b",
+            on_path=True):
+        """Times ``kernel_fn``, ``plain_fn`` and, if given, ``library_fn``
+        (one PyTorch call computing the same function). The times and
+        bounds of the shapes the main path runs (``on_path``) add up to the
+        kernel's ms per forward (phases b, h) or per training step (e)."""
         ms, runs = time_ms(torch, kernel_fn, reps)
         pms, pruns = time_ms(torch, plain_fn, plain_reps)
+        lms = time_ms(torch, library_fn, reps)[0] if library_fn else None
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
         k = self.kernels[name]
         if on_path:
             k["ms"] += ms
             k["plain_ms"] += pms
+            k["bound_ms"] += max(bytes_ms, ops_ms)
+            self.terms[name][0] += bytes_ms
+            self.terms[name][1] += ops_ms
+            k["bound_by"] = ("bytes" if self.terms[name][0]
+                             >= self.terms[name][1] else "operations")
+            if lms is not None:
+                k["library_ms"] = (k["library_ms"] or 0.0) + lms
         k["max_abs_err"] = max(k["max_abs_err"], float(err))
+        lib = "" if lms is None else f"  library {lms:9.4f} ms"
         print(f"[{phase}] {name:22s} {label:28s} kernel {ms:9.4f} ms "
               f"{[round(r, 4) for r in runs]}  plain {pms:9.4f} ms "
-              f"{[round(r, 4) for r in pruns]}  max|err| {err:g}")
+              f"{[round(r, 4) for r in pruns]}{lib}  bound "
+              f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} Gop)  max|err| {err:g}")
+
+
+def group_cost(idx, C, n):
+    """Bytes and operations of the group kernel: idx, src and centres read,
+    the [B, S, K, C] output written; one subtraction per xyz element."""
+    Bq, S, Kq = idx.shape
+    return dict(nbytes=4 * (Bq * S * Kq + Bq * n * C + Bq * S * 3
+                            + Bq * S * Kq * C),
+                ops=Bq * S * Kq * 3)
+
+
+def gather_call(torch, idx, src):
+    """One ``index_select`` of the rows the group kernel gathers (the
+    empty-ball sentinel reads an appended zero row); it leaves out the
+    centring."""
+    Bq, n, C = src.shape
+    flat_src = torch.cat([src, src.new_zeros(Bq, 1, C)], 1).reshape(-1, C)
+    base = torch.arange(Bq, device=idx.device)[:, None, None] * (n + 1)
+    flat_idx = (idx.long() + base).reshape(-1)
+    return lambda: torch.index_select(flat_src, 0, flat_idx)
 
 
 def phase_kernels(torch, report):
@@ -168,15 +260,17 @@ def phase_kernels(torch, report):
     xyzs, idxs = [xyz], []
     for npoint, radius in SA:
         src = xyzs[-1]
+        n = src.shape[1]
         f_k = kernels.farthest_point_sample(src, npoint)
         f_p = core.farthest_point_sample(src, npoint)
         if not torch.equal(f_k, f_p):
-            raise AssertionError(f"fps {src.shape[1]}->{npoint}: indices "
+            raise AssertionError(f"fps {n}->{npoint}: indices "
                                  "differ from the plain version")
-        report.add(torch, "fps", f"N={src.shape[1]} npoint={npoint}",
+        report.add(torch, "fps", f"N={n} npoint={npoint}",
                    lambda: kernels.farthest_point_sample(src, npoint),
                    lambda: core.farthest_point_sample(src, npoint), 0.0,
-                   reps=5, plain_reps=1)
+                   nbytes=B * n * 12 + B * 4 + B * npoint * 4,
+                   ops=B * npoint * n * 10, reps=5, plain_reps=1)
 
         g_k = kernels.group_points(f_k[:, :, None].contiguous(), src,
                                    torch.zeros_like(src[:, :npoint]))
@@ -185,9 +279,11 @@ def phase_kernels(torch, report):
             raise AssertionError("gather_rows differs from the plain version")
         idx1 = f_k[:, :, None].contiguous()
         zc = torch.zeros(B, npoint, 3, device=dev)
-        report.add(torch, "group", f"gather_rows N={src.shape[1]} S={npoint}",
+        report.add(torch, "group", f"gather_rows N={n} S={npoint}",
                    lambda: kernels.group_points(idx1, src, zc),
-                   lambda: core.group_points(idx1, src, zc), 0.0)
+                   lambda: core.group_points(idx1, src, zc), 0.0,
+                   library_fn=gather_call(torch, idx1, src),
+                   **group_cost(idx1, 3, n))
         new_xyz = g_p.contiguous()
 
         b_k = kernels.query_ball_point(radius, K, src, new_xyz)
@@ -196,11 +292,11 @@ def phase_kernels(torch, report):
             bad = (b_k != b_p).any(-1).float().mean().item()
             raise AssertionError(f"ball query r={radius}: {bad:.2e} of "
                                  "queries differ from the plain version")
-        report.add(torch, "ball_query",
-                   f"N={src.shape[1]} S={npoint} r={radius}",
+        report.add(torch, "ball_query", f"N={n} S={npoint} r={radius}",
                    lambda: kernels.query_ball_point(radius, K, src, new_xyz),
                    lambda: core.query_ball_point(radius, K, src, new_xyz), 0.0,
-                   plain_reps=2)
+                   nbytes=B * n * 12 + B * npoint * 12 + B * npoint * K * 4,
+                   ops=9 * scanned(torch, b_p, n).sum().item(), plain_reps=2)
         xyzs.append(new_xyz)
         idxs.append(b_k)
 
@@ -233,7 +329,9 @@ def phase_kernels(torch, report):
                 raise AssertionError("group sentinel row must read as zeros")
         report.add(torch, "group", f"sa{stage + 1} S={idx.shape[1]} C={C}",
                    lambda: kernels.group_points(idx, src, ctr),
-                   lambda: core.group_points(idx, src, ctr), 0.0)
+                   lambda: core.group_points(idx, src, ctr), 0.0,
+                   library_fn=gather_call(torch, idx, src),
+                   **group_cost(idx, C, src.shape[1]))
 
     for xyz1, xyz2, d in zip(xyzs[:-1], xyzs[1:], FP_D):
         n1, s = xyz1.shape[1], xyz2.shape[1]
@@ -246,15 +344,19 @@ def phase_kernels(torch, report):
                                  "differ from the plain version")
         torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
         err = (ok - op).abs().max().item()
+        # 8 operations a distance and 3 compares into the top 3; the
+        # weights, then 3 multiplies and 2 adds per output element
         report.add(torch, "three_nn_interpolate", f"N={n1} S={s} D={d}",
                    lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2),
                    lambda: core.three_nn_interpolate(xyz1, xyz2, p2), err,
+                   nbytes=4 * (B * n1 * 3 + B * s * 3 + B * s * d
+                               + B * n1 * 6 + B * n1 * d),
+                   ops=B * n1 * s * 11 + B * n1 * 10 + B * n1 * d * 5,
                    plain_reps=2)
 
 
-def phase_forward(torch):
-    from tumseg_torch import ops
-    from tumseg_torch.models.pointnet2_sem_seg import get_model
+def phase_forward(torch, model_name, tag):
+    from tumseg_torch import models, ops
     from tumseg_torch.nn.layers import calibrate_batch_norm
 
     x = torch.as_tensor(facade_batch(np.random.default_rng(SEED + 1), B, N),
@@ -262,7 +364,7 @@ def phase_forward(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
-    model = get_model(8).to(DEVICE).eval()
+    model = models.get_module(model_name).get_model(8).to(DEVICE).eval()
     # BN statistics of these blocks make the random net's labels depend on
     # its input (calibrated through the kernels, before any count is read)
     calibrate_batch_norm(model, x)
@@ -281,51 +383,51 @@ def phase_forward(torch):
         diff = (lk - lp).abs().max().item()
         agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
         classes = lk.argmax(-1).unique().numel()
-        print(f"[c] forward B={B}x{N}: max|dlogp| {diff:g}, argmax agree "
-              f"{agree:.6f}, {classes} classes predicted")
+        print(f"[{tag}] {model_name} forward B={B}x{N}: max|dlogp| {diff:g}, "
+              f"argmax agree {agree:.6f}, {classes} classes predicted")
         if diff > 1e-4 or agree < 0.9999:
             raise AssertionError("kernel forward disagrees with plain")
         if classes < 2:
             raise AssertionError("constant labels: the check would be void")
         kms, kruns = time_ms(torch, kernel_fwd, 3)
         pms, pruns = time_ms(torch, plain_fwd, 1)
-    print(f"[c] forward kernels {kms:.3f} ms {[round(r, 3) for r in kruns]}; "
-          f"plain {pms:.3f} ms {[round(r, 3) for r in pruns]}")
+    print(f"[{tag}] forward kernels {kms:.3f} ms "
+          f"{[round(r, 3) for r in kruns]}; plain {pms:.3f} ms "
+          f"{[round(r, 3) for r in pruns]}")
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def phase_serve(torch, work, state_dict):
-    from tumseg.data.dataset import TestGridDataset
-    from tumseg.viz.writers import read_labels_txt
+def phase_serve(torch, work, state_dict, model_name, tag):
+    """Serves the tile ``work/data/facade.las`` through the test CLI; counts
+    of zero before the run, read after it."""
     from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.data.dataset import TestGridDataset
     from tumseg_torch.models.convert import variables_from_state_dict
     from tumseg_torch.ops import kernels
     from tumseg_torch.train.checkpoint import save_checkpoint
+    from tumseg_torch.viz.writers import read_labels_txt
 
-    rng = np.random.default_rng(SEED + 2)
     n = SCENE_POINTS
     data = work / "data"
-    data.mkdir(parents=True)
-    write_facade_tile(rng, data / "facade.las", n)
-
-    ckpt_dir = work / "log" / "sem_seg" / "smoke" / "checkpoints"
+    ckpt_dir = work / "log" / "sem_seg" / model_name / "checkpoints"
     ckpt_dir.mkdir(parents=True)
     save_checkpoint(str(ckpt_dir / "best_model.pth"), epoch=0,
                     variables=variables_from_state_dict(state_dict))
 
     votes = 2
     args = test_cli.parse_args([
-        "--rootdir", str(data), "--test_area", "facade.las",
-        "--exp_dir", str(work / "log") + "/sem_seg/", "--log_dir", "smoke",
-        "--num_votes", str(votes), "--batch_size", str(B),
-        "--num_point", str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)])
+        "--model", model_name, "--rootdir", str(data), "--test_area",
+        "facade.las", "--exp_dir", str(work / "log") + "/sem_seg/",
+        "--log_dir", model_name, "--num_votes", str(votes), "--batch_size",
+        str(B), "--num_point", str(N), "--class8", "--RGB_OFF", "--seed",
+        str(SEED)])
     kernels.reset_launches()
     out = test_cli.main(args)
     launches = dict(kernels.launches)
 
     if not math.isfinite(out["miou"]) or not 0.0 <= out["miou"] <= 1.0:
         raise AssertionError(f"mIoU {out['miou']} is not a finite ratio")
-    txt = work / "log" / "sem_seg" / "smoke" / "visual" / "facade.txt"
+    txt = work / "log" / "sem_seg" / model_name / "visual" / "facade.txt"
     pred = read_labels_txt(str(txt))
     if pred.shape != (n,) or pred.min() < 0 or pred.max() >= 8:
         raise AssertionError(f"{txt}: {pred.shape} labels for {n} points")
@@ -336,16 +438,78 @@ def phase_serve(torch, work, state_dict):
                             class8=True).grid_structure(0)
     blocks = sum(math.ceil(c[0].size / N) for c in cells)
     forwards = votes * math.ceil(blocks / B)
-    for name, per in PER_FORWARD.items():
-        if launches[name] < forwards * per:
+    for name, per in PER_FORWARD[model_name].items():
+        if (launches[name] < forwards * per) or (per == 0
+                                                 and launches[name] != 0):
             raise AssertionError(f"{name}: {launches[name]} launches in the "
-                                 f"serving run, expected >= {forwards * per}")
+                                 f"serving run, expected "
+                                 f"{'>= ' if per else ''}{forwards * per}")
     rate = n * votes / out["infer_seconds"]
-    print(f"[d] served {n} points x {votes} votes ({blocks} blocks/vote, "
-          f"{forwards} forwards) in {out['infer_seconds']:.3f} s: "
-          f"{rate:.0f} scene-points/s; mIoU {out['miou']:.4f}; "
+    print(f"[{tag}] {model_name} served {n} points x {votes} votes ({blocks} "
+          f"blocks/vote, {forwards} forwards) in {out['infer_seconds']:.3f} "
+          f"s: {rate:.0f} scene-points/s; mIoU {out['miou']:.4f}; "
           f"launches {launches}")
     return launches
+
+
+def phase_multi(torch, report):
+    """The multi-radius ball query at the MSG forward's stage shapes."""
+    from tumseg_torch.ops import core, kernels
+
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device(DEVICE)
+    xyz = torch.as_tensor(facade_blocks(rng, B, N), device=dev)
+    xyzs = [xyz]
+    for npoint, radii in MSG_SA:
+        src = xyzs[-1]
+        n = src.shape[1]
+        new_xyz = core.gather_rows(
+            src, kernels.farthest_point_sample(src, npoint)).contiguous()
+        got = kernels.query_ball_point_multi(radii, MSG_K, src, new_xyz)
+        want = core.query_ball_point_multi(radii, MSG_K, src, new_xyz)
+        for r, k, g, w in zip(radii, MSG_K, got, want):
+            if not (torch.equal(g, w) and torch.equal(
+                    g, kernels.query_ball_point(r, k, src, new_xyz))):
+                raise AssertionError(f"ball_query_multi N={n} r={r}: indices "
+                                     "differ from the plain version or the "
+                                     "single-radius kernel")
+        scans = [scanned(torch, w, n) for w in want]
+        evals = torch.stack(scans).amax(0).sum().item()
+        fill = [f"{(s < n).float().mean().item():.3f}" for s in scans]
+        print(f"[h] N={n} S={npoint} r={radii}: share of balls that fill K "
+              f"{fill}, candidates tested {evals} of {B * npoint * n}")
+        report.add(torch, "ball_query_multi",
+                   f"N={n} S={npoint} r={radii}",
+                   lambda: kernels.query_ball_point_multi(radii, MSG_K, src,
+                                                          new_xyz),
+                   lambda: core.query_ball_point_multi(radii, MSG_K, src,
+                                                       new_xyz), 0.0,
+                   nbytes=B * n * 12 + B * npoint * 12
+                   + sum(B * npoint * k * 4 for k in MSG_K),
+                   ops=8 * evals + sum(s.sum().item() for s in scans),
+                   plain_reps=1, phase="h")
+        two, runs = time_ms(torch, lambda: [
+            kernels.query_ball_point(r, k, src, new_xyz)
+            for r, k in zip(radii, MSG_K)], 20)
+        print(f"[h] two single-radius launches at N={n} S={npoint}: "
+              f"{two:.4f} ms {[round(r, 4) for r in runs]}")
+        xyzs.append(new_xyz)
+
+    far = torch.full((1, 1, 3), 1000.0, device=dev)
+    for e in kernels.query_ball_point_multi(MSG_SA[0][1], MSG_K,
+                                            xyz[:1].contiguous(), far):
+        if not (e == N).all():
+            raise AssertionError("empty ball must give the sentinel N")
+    radii, ks = (0.2, 0.05, 0.1), (8, 16, 32)  # unsorted, three radii
+    got = kernels.query_ball_point_multi(radii, ks, xyz, xyzs[1])
+    want = core.query_ball_point_multi(radii, ks, xyz, xyzs[1])
+    for r, k, g, w in zip(radii, ks, got, want):
+        if not (torch.equal(g, w) and torch.equal(
+                g, kernels.query_ball_point(r, k, xyz, xyzs[1]))):
+            raise AssertionError(f"unsorted radii: r={r} differs")
+    print("[h] ball_query_multi empty ball -> sentinel N, unsorted radii "
+          f"{radii}: ok")
+
 
 def phase_backward(torch, report):
     from tumseg_torch.ops import core, kernels
@@ -353,12 +517,41 @@ def phase_backward(torch, report):
     rng = np.random.default_rng(SEED + 3)
     dev = torch.device(DEVICE)
 
-    def check(name, label, kernel_fn, plain_fn, on_path=True):
+    def check(name, label, kernel_fn, plain_fn, on_path=True, **cost):
         got, want = kernel_fn(), plain_fn()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
         err = (got - want).abs().max().item()
         report.add(torch, name, label, kernel_fn, plain_fn, err,
-                   phase="e", on_path=on_path)
+                   phase="e", on_path=on_path, **cost)
+
+    def index_add_call(idx, g, n):
+        """One ``index_add_`` over the flattened indices into a zeroed
+        [B*(n+1), C] (the sentinel lands in the extra row, which the
+        kernel never writes)."""
+        Bq, C = idx.shape[0], g.shape[-1]
+        base = torch.arange(Bq, device=dev)[:, None, None] * (n + 1)
+        flat = (idx.long() + base).reshape(-1)
+        rows = g.reshape(-1, C)
+        return lambda: torch.zeros(Bq * (n + 1), C, device=dev).index_add_(
+            0, flat, rows)
+
+    def sparse_call(nn_idx, w, g, s):
+        """One ``torch.sparse.mm`` of W^T [B*s, B*n] with the batch's
+        [B*n, D] cotangents; building W from idx and weights is left out."""
+        Bq, n1 = nn_idx.shape[:2]
+        rows = (nn_idx.long() + torch.arange(Bq, device=dev)[:, None, None]
+                * s).reshape(-1)
+        cols = (torch.arange(Bq * n1, device=dev)[:, None]
+                .expand(Bq * n1, 3).reshape(-1))
+        wt = torch.sparse_coo_tensor(torch.stack([rows, cols]), w.reshape(-1),
+                                     (Bq * s, Bq * n1)).coalesce()
+        dense = g.reshape(Bq * n1, -1)
+        return lambda: torch.sparse.mm(wt, dense)
+
+    def group_bwd_cost(idx, C, n):
+        Bq, S, Kq = idx.shape
+        return dict(nbytes=4 * (Bq * S * Kq + Bq * S * Kq * C + Bq * n * C),
+                    ops=Bq * S * Kq * C)
 
     xyz = torch.as_tensor(facade_blocks(rng, TRAIN_B, N), device=dev)
     xyzs, idxs = [xyz], []
@@ -374,7 +567,9 @@ def phase_backward(torch, report):
         g = torch.randn(*idx.shape, c, device=dev)
         check("group_backward", f"sa{stage + 1} N={n} S={idx.shape[1]} C={c}",
               lambda: kernels.group_points_backward(idx, g, n),
-              lambda: core.group_points_backward(idx, g, n))
+              lambda: core.group_points_backward(idx, g, n),
+              library_fn=index_add_call(idx, g, n),
+              **group_bwd_cost(idx, c, n))
     idx, n = idxs[1].clone(), xyzs[1].shape[1]
     idx[:, ::7] = n               # empty balls: every entry the sentinel
     idx[:, :, 5] = n              # a sentinel inside every other ball
@@ -383,26 +578,29 @@ def phase_backward(torch, report):
     g = torch.randn(*idx.shape, SA_CHANNELS[1], device=dev)
     check("group_backward", "sa2 sentinels + repeats",
           lambda: kernels.group_points_backward(idx, g, n),
-          lambda: core.group_points_backward(idx, g, n), on_path=False)
+          lambda: core.group_points_backward(idx, g, n), on_path=False,
+          **group_bwd_cost(idx, SA_CHANNELS[1], n))
 
     for lvl, d in enumerate(FP_D):  # fp1..fp4 interpolate lvl+1 onto lvl
         xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
-        s = xyz2.shape[1]
+        n1, s = xyz1.shape[1], xyz2.shape[1]
         dists, nn_idx, _ = kernels.three_nn_interpolate(
             xyz1, xyz2, torch.zeros(TRAIN_B, s, 1, device=dev))
         w = core.interpolation_weights(dists)
-        g = torch.randn(TRAIN_B, xyz1.shape[1], d, device=dev)
-        check("interpolate_backward",
-              f"fp{lvl + 1} N={xyz1.shape[1]} S={s} D={d}",
+        g = torch.randn(TRAIN_B, n1, d, device=dev)
+        check("interpolate_backward", f"fp{lvl + 1} N={n1} S={s} D={d}",
               lambda: kernels.interpolate_backward(nn_idx, w, g, s),
-              lambda: core.interpolate_backward(nn_idx, w, g, s))
+              lambda: core.interpolate_backward(nn_idx, w, g, s),
+              library_fn=sparse_call(nn_idx, w, g, s),
+              nbytes=4 * (TRAIN_B * n1 * 6 + TRAIN_B * n1 * d
+                          + TRAIN_B * s * d),
+              ops=TRAIN_B * n1 * 3 * d * 2)
 
 
-def phase_train_step(torch, state_dict):
+def phase_train_step(torch, state_dict, model_name, tag):
     import copy
 
-    from tumseg_torch import ops
-    from tumseg_torch.models.pointnet2_sem_seg import get_model
+    from tumseg_torch import models, ops
     from tumseg_torch.train.loop import make_optimizer
 
     rng = np.random.default_rng(SEED + 4)
@@ -411,7 +609,7 @@ def phase_train_step(torch, state_dict):
     target = (x[..., 5] * 7.999).long()
     weight = torch.as_tensor(rng.random(8).astype(np.float32) + 0.5,
                              device=DEVICE)
-    base = get_model(8).to(DEVICE)
+    base = models.get_module(model_name).get_model(8).to(DEVICE)
     base.load_state_dict(state_dict)
     base.train()
 
@@ -455,8 +653,8 @@ def phase_train_step(torch, state_dict):
                                  f"{rel:g} x its layer's max|g|")
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"[f] train step B={TRAIN_B}x{N}: loss {lk:.6f} (kernels) "
-          f"{lp:.6f} (plain); worst gradient {worst:.3g} x max|g| "
+    print(f"[{tag}] {model_name} train step B={TRAIN_B}x{N}: loss {lk:.6f} "
+          f"(kernels) {lp:.6f} (plain); worst gradient {worst:.3g} x max|g| "
           f"({worst_name}), {len(gk)} tensors")
 
     def timed(plain):
@@ -475,64 +673,62 @@ def phase_train_step(torch, state_dict):
     for label, plain in (("plain", True), ("kernels", False),
                          ("kernels", False), ("plain", True)):
         runs.setdefault(label, []).append(timed(plain)[0])
-    print(f"[f] train step B={TRAIN_B}x{N} (forward + backward + Adam, "
+    print(f"[{tag}] train step B={TRAIN_B}x{N} (forward + backward + Adam, "
           f"median of 3, two turns each): kernels "
           f"{[round(v, 3) for v in runs['kernels']]} ms, plain "
           f"{[round(v, 3) for v in runs['plain']]} ms")
 
 
-def phase_train_cli(torch, work):
+def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
+    """Trains through the CLI on ``work/train_data`` (counts of zero before
+    the run, read after it), then serves the best checkpoint."""
     from tumseg_torch.cli import test as test_cli
     from tumseg_torch.cli import train as train_cli
     from tumseg_torch.ops import kernels
 
-    rng = np.random.default_rng(SEED + 5)
     data = work / "train_data"
-    data.mkdir(parents=True)
-    write_facade_tile(rng, data / "facade.las", TRAIN_POINTS)
-    write_facade_tile(rng, data / "held_out.las", HELD_OUT_POINTS)
     log = work / "train_log"
     args = train_cli.parse_args([
-        "--rootdir", str(data), "--test_area", "held_out.las",
-        "--exp_dir", str(log), "--log_dir", "smoke", "--epoch",
-        str(TRAIN_EPOCHS), "--batch_size", str(TRAIN_B), "--npoint", str(N),
-        "--class8", "--RGB_OFF", "--seed", str(SEED)])
+        "--model", model_name, "--rootdir", str(data), "--test_area",
+        "held_out.las", "--exp_dir", str(log), "--log_dir", model_name,
+        "--epoch", str(epochs), "--batch_size", str(TRAIN_B), "--npoint",
+        str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)])
     blocks = int(TRAIN_POINTS / N)
-    steps = TRAIN_EPOCHS * (int(0.7 * blocks) // TRAIN_B)
-    if steps < 10:
+    steps = epochs * (int(0.7 * blocks) // TRAIN_B)
+    if steps < min_steps:
         raise AssertionError(f"only {steps} training steps")
     kernels.reset_launches()
     acc, eval_loss, iou = train_cli.main(args)
     launches = dict(kernels.launches)
 
-    text = (log / "sem_seg" / "smoke" / "logs" / "pointnet2_sem_seg.txt"
-            ).read_text()
+    run = log / "sem_seg" / model_name
+    text = (run / "logs" / f"{model_name}.txt").read_text()
     losses = [float(line.rsplit(":", 1)[1]) for line in text.splitlines()
               if "Training mean loss:" in line]
     rates = [line.rsplit(":", 1)[1].strip() for line in text.splitlines()
              if "Training points/sec:" in line]
-    if len(losses) != TRAIN_EPOCHS or not all(
+    if len(losses) != epochs or not all(
             math.isfinite(v) for v in losses + list(eval_loss)):
         raise AssertionError(f"training losses {losses}, eval {eval_loss}")
-    for name, per in (("group_backward", 3), ("interpolate_backward", 4)):
+    for name, per in PER_STEP[model_name].items():
         if launches[name] < steps * per:
             raise AssertionError(f"{name}: {launches[name]} launches in the "
                                  f"training run, expected >= {steps * per}")
-    ckpt = log / "sem_seg" / "smoke" / "checkpoints" / "best_model.pth"
+    ckpt = run / "checkpoints" / "best_model.pth"
     if not ckpt.exists():
         raise AssertionError(f"{ckpt} was not written")
     out = test_cli.main(test_cli.parse_args([
-        "--rootdir", str(data), "--test_area", "held_out.las",
-        "--exp_dir", str(log / "sem_seg") + "/", "--log_dir", "smoke",
-        "--num_votes", "1", "--batch_size", str(TRAIN_B),
-        "--num_point", str(N), "--class8", "--RGB_OFF", "--seed",
-        str(SEED)]))
+        "--model", model_name, "--rootdir", str(data), "--test_area",
+        "held_out.las", "--exp_dir", str(log / "sem_seg") + "/",
+        "--log_dir", model_name, "--num_votes", "1", "--batch_size",
+        str(TRAIN_B), "--num_point", str(N), "--class8", "--RGB_OFF",
+        "--seed", str(SEED)]))
     if not 0.0 <= out["miou"] <= 1.0:
         raise AssertionError(f"served mIoU {out['miou']}")
     for epoch, rate in enumerate(rates):
-        print(f"[g] epoch {epoch + 1} Training points/sec: {rate}")
-    print(f"[g] trained {steps} steps of B={TRAIN_B}x{N} over "
-          f"{TRAIN_EPOCHS} epochs: mean losses {losses}, eval losses "
+        print(f"[{tag}] epoch {epoch + 1} Training points/sec: {rate}")
+    print(f"[{tag}] {model_name} trained {steps} steps of B={TRAIN_B}x{N} "
+          f"over {epochs} epochs: mean losses {losses}, eval losses "
           f"{list(eval_loss)}, best mIoU {max(iou):.4f}; best_model.pth "
           f"served with mIoU {out['miou']:.4f}; launches {launches}")
     return launches
@@ -555,18 +751,39 @@ def main() -> int:
     build.library()
     print(f"[a] kernels built and loaded in {build.build_seconds:.2f} s")
 
-    report = Report()
-    phase_kernels(torch, report)
-    state_dict = phase_forward(torch)
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
-    launches = phase_serve(torch, work, state_dict)
+    (work / "data").mkdir(parents=True)
+    (work / "train_data").mkdir()
+    write_facade_tile(np.random.default_rng(SEED + 2),
+                      work / "data" / "facade.las", SCENE_POINTS)
+    rng = np.random.default_rng(SEED + 5)
+    write_facade_tile(rng, work / "train_data" / "facade.las", TRAIN_POINTS)
+    write_facade_tile(rng, work / "train_data" / "held_out.las",
+                      HELD_OUT_POINTS)
+
+    ssg, msg = "pointnet2_sem_seg", "pointnet2_sem_seg_msg"
+    report = Report()
+    phase_kernels(torch, report)
+    state_dict = phase_forward(torch, ssg, "c")
+    launches = phase_serve(torch, work, state_dict, ssg, "d")
     phase_backward(torch, report)
-    phase_train_step(torch, state_dict)
-    launches.update({name: n for name, n in phase_train_cli(torch, work).items()
-                     if name in ("group_backward", "interpolate_backward")})
+    phase_train_step(torch, state_dict, ssg, "f")
+    launches.update({name: n for name, n in phase_train_cli(
+        torch, work, ssg, TRAIN_EPOCHS, 10, "g").items()
+        if name in ("group_backward", "interpolate_backward")})
+
+    phase_multi(torch, report)
+    msg_state = phase_forward(torch, msg, "i")
+    launches["ball_query_multi"] = phase_serve(
+        torch, work, msg_state, msg, "j")["ball_query_multi"]
+    phase_train_step(torch, msg_state, msg, "k")
+    phase_train_cli(torch, work, msg, MSG_TRAIN_EPOCHS, 6, "k")
+
     for name, k in report.kernels.items():
         k["launches"] = launches[name]
+        if k["launches"] == 0:
+            raise AssertionError(f"{name} was never launched on its path")
     print(json.dumps({"kernels": list(report.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,82 @@ def test_ball_query_and_group(cuda, B, N, S, K, r):
                        core.group_points(idx, src, new_xyz))
 
 
+@pytest.mark.parametrize("B,N,S,radii,Ks", [
+    (2, 500, 130, (0.1, 0.2), (16, 32)),
+    (1, 77, 5, (0.5, 0.05, 0.3, 0.2), (40, 3, 8, 1)),  # unsorted, K > N
+    (2, 1000, 64, (0.2, 0.05), (8, 16))])
+def test_ball_query_multi(cuda, B, N, S, radii, Ks):
+    """One launch for all radii; each output equals the plain multi-radius
+    query and the single-radius kernel of its radius."""
+    rng = np.random.default_rng(6)
+    xyz = _rand(rng, (B, N, 3), cuda)
+    new_xyz = _rand(rng, (B, S, 3), cuda)
+    new_xyz[:, 0] = 50.0  # an empty ball
+    kernels.reset_launches()
+    got = kernels.query_ball_point_multi(radii, Ks, xyz, new_xyz)
+    assert kernels.launches["ball_query_multi"] == 1
+    want = core.query_ball_point_multi(radii, Ks, xyz, new_xyz)
+    for r, k, g, w in zip(radii, Ks, got, want):
+        assert g.shape == (B, S, k) and g.dtype == torch.int32
+        assert torch.equal(g, w)
+        assert torch.equal(g, kernels.query_ball_point(r, k, xyz, new_xyz))
+        assert (g[:, 0] == N).all()
+
+
+def test_ball_query_multi_refuses_bad_inputs(cuda):
+    xyz = torch.rand(1, 64, 3, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="1 to 4 radii"):
+        kernels.query_ball_point_multi((0.1,) * 5, (4,) * 5, xyz, xyz)
+    with pytest.raises(ValueError, match="1 to 4 radii"):
+        kernels.query_ball_point_multi((), (), xyz, xyz)
+    with pytest.raises(ValueError, match="nsample"):
+        kernels.query_ball_point_multi((0.1, 0.2), (4, 0), xyz, xyz)
+    with pytest.raises(ValueError, match="nsamples"):
+        kernels.query_ball_point_multi((0.1, 0.2), (4,), xyz, xyz)
+    with pytest.raises(TypeError):
+        kernels.query_ball_point_multi((0.1,), (4,), xyz.double(), xyz)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.query_ball_point_multi((0.1,), (4,), xyz, xyz[:, ::2])
+    with pytest.raises(ValueError, match="shape"):
+        kernels.query_ball_point_multi((0.1,), (4,), xyz, xyz[None])
+    assert sum(kernels.launches.values()) == 0
+    # through ops: one launch for any number of radii, none under plain()
+    ops.query_ball_point_multi((0.1, 0.2), (4, 8), xyz, xyz)
+    ops.query_ball_point_multi((0.1,), (4,), xyz, xyz)
+    with ops.plain():
+        ops.query_ball_point_multi((0.1, 0.2), (4, 8), xyz, xyz)
+    assert kernels.launches["ball_query_multi"] == 2
+    assert kernels.launches["ball_query"] == 0
+
+
+def test_msg_forward_kernels_match_plain(cuda):
+    """The MSG forward with the kernels against ops.plain() on the card,
+    and the launches of one forward."""
+    from tumseg_torch.models.pointnet2_sem_seg_msg import get_model
+    from tumseg_torch.nn.layers import calibrate_batch_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    x = _rand(rng, (2, 2048, 6), cuda)
+    torch.manual_seed(0)
+    model = get_model(8).to(cuda).eval()
+    calibrate_batch_norm(model, x)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model(x)[0]
+        counts = dict(kernels.launches)
+        with ops.plain():
+            want = model(x)[0]
+    assert counts == {"fps": 4, "ball_query": 0, "ball_query_multi": 4,
+                      "group": 12, "three_nn_interpolate": 4,
+                      "group_backward": 0, "interpolate_backward": 0}
+    assert sum(kernels.launches.values()) == sum(counts.values())
+    assert (got - want).abs().max().item() <= 1e-4
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
+
+
 @pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
                                      (2, 300, 300, 1)])
 def test_three_nn_interpolate(cuda, B, N, S, D):

@@ -158,11 +158,13 @@ def test_checkpoint_rejects_pickle(tmp_path):
 
 
 def test_registry():
+    from tumseg_torch.models import pointnet2_sem_seg_msg
+
     assert models.get_module("pointnet2_sem_seg").get_model is get_model
     assert models.get_module("pointnet2_sem_seg_geo_trial").get_model \
         is get_model
-    for name in ["pointnet2_sem_seg_msg", "pointnet_sem_seg",
-                 "pointnet2_sem_seg_original"]:
+    assert models.get_module("pointnet2_sem_seg_msg") is pointnet2_sem_seg_msg
+    for name in ["pointnet_sem_seg", "pointnet2_sem_seg_original"]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             models.get_module(name)
     with pytest.raises(ValueError, match="unknown model"):

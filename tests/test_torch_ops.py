@@ -104,6 +104,89 @@ def test_ball_query_fill_and_sentinel():
                                      jnp.asarray(queries[:, :1]))))
 
 
+@pytest.mark.parametrize("B,N,S,radii,Ks", [
+    (2, 512, 128, (0.1, 0.2), (16, 32)),
+    (1, 512, 128, (0.2, 0.05, 0.1), (8, 16, 4)),  # unsorted radii
+])
+def test_ball_query_multi_matches_pallas_and_single(B, N, S, radii, Ks):
+    """core.query_ball_point_multi against the Pallas multi-radius kernel
+    (query_ball_point_bp_multi, the same direct-form distances) and against
+    one plain single-radius query per radius."""
+    from tumseg.ops.pallas.ballquery import query_ball_point_bp_multi
+
+    rng = np.random.default_rng(7)
+    xyz = rng.random((B, N, 3)).astype(np.float32)
+    new_xyz = np.ascontiguousarray(xyz[:, :S])
+    got = core.query_ball_point_multi(radii, Ks, _t(xyz), _t(new_xyz))
+    want = query_ball_point_bp_multi(radii, Ks, jnp.asarray(xyz),
+                                     jnp.asarray(new_xyz))
+    assert len(got) == len(want) == len(radii)
+    for r, k, g, w in zip(radii, Ks, got, want):
+        assert g.shape == (B, S, k) and g.dtype == torch.int32
+        np.testing.assert_array_equal(_np(g), _np(w), err_msg=f"r={r}")
+        np.testing.assert_array_equal(
+            _np(g), _np(core.query_ball_point(r, k, _t(xyz), _t(new_xyz))))
+    np.testing.assert_array_equal(
+        _np(got[0]), _np(tops.query_ball_point_multi(
+            radii, Ks, _t(xyz), _t(new_xyz))[0]))
+
+
+def test_ball_query_multi_empty_ball_and_shortfall():
+    """An empty ball gives N in every slot of every radius; a ball with
+    fewer hits than K repeats its first hit."""
+    from tumseg.ops.pallas.ballquery import query_ball_point_bp_multi
+
+    rng = np.random.default_rng(8)
+    N = 64
+    xyz = rng.random((1, N, 3)).astype(np.float32)
+    new_xyz = xyz[:, :32].copy()
+    new_xyz[0, 0] = 50.0
+    radii, Ks = (0.3, 0.1), (8, 40)
+    got = core.query_ball_point_multi(radii, Ks, _t(xyz), _t(new_xyz))
+    want = query_ball_point_bp_multi(radii, Ks, jnp.asarray(xyz),
+                                     jnp.asarray(new_xyz))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+        assert (_np(g)[0, 0] == N).all()
+    small = _np(got[1])[0, 1:]
+    hits = (small != small[:, :1]).sum(-1) + 1
+    assert (hits < 40).all()  # every ball of r = 0.1 falls short of K = 40
+    for row, n in zip(small, hits):
+        assert (row[n:] == row[0]).all() and (np.diff(row[:n]) > 0).all()
+
+
+def test_ball_query_multi_ragged_n_matches_single():
+    """N % 32 != 0: the plain multi-radius query against per-radius plain
+    calls and tumseg's per-radius fallback."""
+    from tumseg.ops.pallas.ballquery import query_ball_point_bp_multi
+
+    rng = np.random.default_rng(9)
+    xyz = rng.random((2, 100, 3)).astype(np.float32)
+    new_xyz = np.ascontiguousarray(xyz[:, :16])
+    radii, Ks = (0.4, 0.2), (8, 4)
+    got = core.query_ball_point_multi(radii, Ks, _t(xyz), _t(new_xyz))
+    want = query_ball_point_bp_multi(radii, Ks, jnp.asarray(xyz),
+                                     jnp.asarray(new_xyz))
+    for r, k, g, w in zip(radii, Ks, got, want):
+        np.testing.assert_array_equal(
+            _np(g), _np(core.query_ball_point(r, k, _t(xyz), _t(new_xyz))))
+        np.testing.assert_array_equal(_np(g), _np(w))
+    with pytest.raises(ValueError, match="nsamples"):
+        core.query_ball_point_multi((0.1, 0.2), (4,), _t(xyz), _t(new_xyz))
+
+
+def test_msg_ball_groups_is_per_radius_group():
+    rng = np.random.default_rng(10)
+    xyz = _t(rng.random((2, 96, 3)).astype(np.float32))
+    new_xyz = xyz[:, :24].contiguous()
+    src = torch.cat([xyz, _t(rng.random((2, 96, 5)).astype(np.float32))], -1)
+    groups = tops.msg_ball_groups([0.2, 0.4], [8, 16], xyz, new_xyz, src)
+    assert [g.shape for g in groups] == [(2, 24, 8, 8), (2, 24, 16, 8)]
+    for r, k, g in zip([0.2, 0.4], [8, 16], groups):
+        idx = core.query_ball_point(r, k, xyz, new_xyz)
+        assert torch.equal(g, core.group_points(idx, src, new_xyz))
+
+
 @pytest.mark.parametrize("B,N,S,K,C", [(2, 64, 16, 8, 9), (1, 40, 8, 4, 35)])
 def test_group_matches_pallas_with_sentinel(B, N, S, K, C):
     from tumseg.ops.pallas.group import group_points as group_pallas
@@ -283,6 +366,8 @@ def test_dispatch_cpu_takes_plain_and_no_kernel_fallback():
     # a kernel wrapper never runs its plain version: CPU input is refused
     for call in (lambda: kernels.farthest_point_sample(xyz, 8),
                  lambda: kernels.query_ball_point(0.1, 4, xyz, xyz),
+                 lambda: kernels.query_ball_point_multi(
+                     (0.1, 0.2), (4, 8), xyz, xyz),
                  lambda: kernels.group_points(
                      torch.zeros(1, 2, 3, dtype=torch.int32), xyz,
                      torch.zeros(1, 2, 3)),

@@ -83,8 +83,8 @@ def test_runner_matches_tumseg_runner(scene):
     want = JaxRunner(jmodel, var, num_classes=8, batch_size=4,
                      device_features=False,
                      device_reblock=False).infer_scene(dataset(), 0, 1)
-    got = InferenceRunner(model, num_classes=8,
-                          batch_size=4).infer_scene(dataset(), 0, 1)
+    got = InferenceRunner(model, num_classes=8, batch_size=4,
+                          device="cpu").infer_scene(dataset(), 0, 1)
     assert got.shape == want.shape == (3000,)
     assert len(np.unique(want)) > 1  # not a constant labelling
     assert (got == want).mean() >= 0.999
@@ -94,7 +94,8 @@ def test_runner_predict_blocks_pads_and_trims(scene):
     from tumseg_torch.models.pointnet2_sem_seg import get_model
 
     torch.manual_seed(0)
-    runner = InferenceRunner(get_model(8), num_classes=8, batch_size=4)
+    runner = InferenceRunner(get_model(8), num_classes=8, batch_size=4,
+                             device="cpu")
     data = np.random.default_rng(2).random((6, 128, 6)).astype(np.float32)
     preds = runner.predict_blocks(data)
     assert preds.shape == (6, 128)
@@ -107,7 +108,8 @@ def test_runner_unported_options_raise(option):
     from tumseg_torch.models.pointnet2_sem_seg import get_model
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceRunner(get_model(8), num_classes=8, **{option: True})
+        InferenceRunner(get_model(8), num_classes=8, device="cpu",
+                        **{option: True})
 
 
 def test_confusion_tallies_match_tumseg():
@@ -147,7 +149,7 @@ def _cli_args(workspace, *extra):
         "--rootdir", str(workspace / "data"), "--test_area", "test_tile.las",
         "--class8", "--exp_dir", str(workspace / "log") + "/sem_seg/",
         "--log_dir", "run1", "--seed", "0", "--batch_size", "4",
-        "--num_point", "256", "--num_votes", "1", *extra])
+        "--num_point", "256", "--num_votes", "1", "--gpu", "cpu", *extra])
 
 
 def test_cli_end_to_end(workspace, monkeypatch):

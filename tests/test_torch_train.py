@@ -276,7 +276,7 @@ def test_checkpoint_optimizer_state_tumseg_to_port(jax_run, setup, tmp_path):
                           opt_state=jeng.opt_state)
 
     eng = tloop.TrainEngine(get_model(C), C, w, optimizer="Adam",
-                            weight_decay=WD)
+                            weight_decay=WD, device="cpu")
     assert eng.load_state(tckpt.load_checkpoint(path)) == 1
     want = jax.tree_util.tree_leaves(jax_run["opt_state"])
     got = tckpt.optimizer_leaves(eng.optimizer, eng.model)
@@ -317,7 +317,8 @@ def test_engine_lowers_loss_on_fixed_batch():
     x = r.random((B, N, 6)).astype(np.float32)
     t = (x[..., 2] * C).astype(np.int32)
     torch.manual_seed(0)
-    eng = tloop.TrainEngine(get_model(C), C, np.ones(C), seed=0)
+    eng = tloop.TrainEngine(get_model(C), C, np.ones(C), seed=0,
+                            device="cpu")
     losses = [float(eng.train_batch(x, t, 1e-2, 0.1)[0]) for _ in range(8)]
     assert all(math.isfinite(v) for v in losses)
     assert np.mean(losses[-2:]) < 0.8 * losses[0], losses
@@ -377,7 +378,7 @@ def _train_args(workspace, *extra):
         "--rootdir", str(workspace / "data"), "--test_area", "test_tile.las",
         "--class8", "--RGB_OFF", "--exp_dir", str(workspace / "log"),
         "--log_dir", "run1", "--seed", "0", "--npoint", "256",
-        "--batch_size", "2", "--epoch", "1", *extra])
+        "--batch_size", "2", "--epoch", "1", "--gpu", "cpu", *extra])
 
 
 def test_train_cli_end_to_end(workspace, monkeypatch):
@@ -402,7 +403,7 @@ def test_train_cli_end_to_end(workspace, monkeypatch):
         "--rootdir", str(workspace / "data"), "--test_area", "test_tile.las",
         "--class8", "--RGB_OFF", "--exp_dir", str(workspace / "log") + "/sem_seg/",
         "--log_dir", "run1", "--num_point", "256", "--batch_size", "4",
-        "--num_votes", "1", "--seed", "0"]))
+        "--num_votes", "1", "--seed", "0", "--gpu", "cpu"]))
     assert 0.0 <= out["miou"] <= 1.0
 
 

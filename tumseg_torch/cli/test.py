@@ -6,8 +6,8 @@ module imports JAX; a test keeps the two equal), same report and the same
 ``--test_area`` tiles with the ``tumseg-ckpt-v2`` checkpoint of
 ``<exp_dir><log_dir>/checkpoints<output_model>``.
 
-It runs on ``cuda:<gpu>`` when CUDA is present and on the CPU only when no
-CUDA device exists.
+It runs on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu``; without
+a CUDA device any other ``--gpu`` raises.
 """
 
 from __future__ import annotations
@@ -20,11 +20,11 @@ from pathlib import Path
 
 import torch
 
-from tumseg.cli.common import make_logger
-from tumseg.data.dataset import TestGridDataset
-from tumseg.data.features import GEO_FEATURE_NAMES, attach_geofeatures
-from tumseg.utils.labels import class_tables
-from tumseg.utils.timing import current_time, time_print
+from tumseg_torch.cli.common import make_logger
+from tumseg_torch.data.dataset import TestGridDataset
+from tumseg_torch.data.features import GEO_FEATURE_NAMES, attach_geofeatures
+from tumseg_torch.utils.labels import class_tables
+from tumseg_torch.utils.timing import current_time, time_print
 from tumseg_torch import models
 from tumseg_torch.infer.voting import InferenceRunner, run_testing
 from tumseg_torch.models.convert import state_dict_from_variables
@@ -92,10 +92,15 @@ def parse_args(argv=None):
 
 
 def resolve_device(gpu: str) -> torch.device:
-    """``cuda:<gpu>`` when CUDA is present, the CPU only when it is not."""
-    if torch.cuda.is_available():
-        return torch.device(f"cuda:{gpu}")
-    return torch.device("cpu")
+    """``cuda:<gpu>``, or the CPU when ``--gpu cpu`` asks for it. Without a
+    CUDA device anything but ``cpu`` raises: the entry points never fall
+    back to the CPU on their own."""
+    if gpu == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--gpu {gpu}: no CUDA device is available "
+                           "(pass --gpu cpu to run on the CPU)")
+    return torch.device(f"cuda:{gpu}")
 
 
 def main(args):

@@ -8,8 +8,9 @@ split 70/30 into train and eval, the host ``BatchLoader`` feeds
 that ``tumseg`` and the port both read. A checkpoint at
 ``<exp_dir>/sem_seg/<log_dir>/checkpoints<output_model>`` is resumed.
 
-It trains on ``cuda:<gpu>`` when CUDA is present and on the CPU only when no
-CUDA device exists, in f32 with exact gathers (TF32 off). The ``--bf16``,
+It trains on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu`` (without
+a CUDA device any other ``--gpu`` raises), in f32 with exact gathers (TF32
+off). The ``--bf16``,
 multi-device, multi-process and device-pipeline options are not ported yet
 and raise.
 """
@@ -24,12 +25,12 @@ import time
 import numpy as np
 import torch
 
-from tumseg.cli.common import make_experiment_dirs, make_logger
-from tumseg.data.dataset import TrainBlockDataset
-from tumseg.data.features import GEO_FEATURE_NAMES, attach_geofeatures
-from tumseg.data.loader import BatchLoader
-from tumseg.utils.labels import CLASSES_18, CLASSES_8
-from tumseg.utils.timing import current_time, time_print
+from tumseg_torch.cli.common import make_experiment_dirs, make_logger
+from tumseg_torch.data.dataset import TrainBlockDataset
+from tumseg_torch.data.features import GEO_FEATURE_NAMES, attach_geofeatures
+from tumseg_torch.data.loader import BatchLoader
+from tumseg_torch.utils.labels import CLASSES_18, CLASSES_8
+from tumseg_torch.utils.timing import current_time, time_print
 from tumseg_torch import models
 from tumseg_torch.cli.test import resolve_device
 from tumseg_torch.train import checkpoint as ckpt

@@ -22,8 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from tumseg.utils.progress import progress
-from tumseg.viz.writers import write_labels_txt, write_obj_pointcloud
+from tumseg_torch.utils.progress import progress
+from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
 
 _NOT_PORTED = ("is not ported to tumseg_torch yet (ROADMAP Queue 1, item 7)")
@@ -44,7 +44,7 @@ class InferenceRunner:
     pooling. The model is moved to ``device`` and put in eval mode."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
-                 batch_size: int = 32, device="cpu", mesh=None,
+                 batch_size: int = 32, device="cuda", mesh=None,
                  compute_dtype=None, device_features: bool = False,
                  device_reblock: bool = False):
         for name, value in (("mesh", mesh), ("compute_dtype", compute_dtype),

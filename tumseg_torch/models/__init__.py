@@ -9,7 +9,7 @@ from types import ModuleType
 
 _ALIASES = {"pointnet2_sem_seg_geo_trial": "pointnet2_sem_seg"}
 
-PORTED = ["pointnet2_sem_seg"]
+PORTED = ["pointnet2_sem_seg", "pointnet2_sem_seg_msg"]
 AVAILABLE = ["pointnet2_sem_seg", "pointnet2_sem_seg_msg", "pointnet_sem_seg",
              "pointnet2_sem_seg_original", "pointnet2_sem_seg_trial",
              "pointnet_sem_seg_original"]

@@ -5,13 +5,16 @@ kernels are ``[in, out]``; the port keeps the reference's torch layout
 (``tools/export_torch_checkpoint.py:20-58``): conv weights ``[out, in, 1, 1]``
 in the set abstractions and ``[out, in, 1]`` elsewhere, BN as
 weight/bias/running_mean/running_var/num_batches_tracked. Stage entries
-(``sa*``, ``fp*``) are lists of ``{"conv", "bn"}`` layers; top-level entries
-with ``"w"`` are head convs and those with ``"scale"`` head batch norms.
+(``sa*``, ``fp*``) are lists of ``{"conv", "bn"}`` layers, the port's
+``<stage>.mlp_convs.j`` / ``<stage>.mlp_bns.j``; an MSG set abstraction is a
+list of such lists, one per scale, the port's ``<stage>.conv_blocks.s.j`` /
+``<stage>.bn_blocks.s.j``. Top-level entries with ``"w"`` are head convs and
+those with ``"scale"`` head batch norms.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -38,18 +41,25 @@ def _bn(sd: Dict, prefix: str, params, stats) -> None:
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _stack(sd: Dict, convs: str, bns: str, layers, stats, rank: int) -> None:
+    for j, (layer, s) in enumerate(zip(layers, stats)):
+        sd[f"{convs}.{j}.weight"] = _weight(layer["conv"]["w"], rank)
+        sd[f"{convs}.{j}.bias"] = _tensor(layer["conv"]["b"])
+        _bn(sd, f"{bns}.{j}", layer["bn"], s)
+
+
 def state_dict_from_variables(variables: Dict) -> Dict[str, torch.Tensor]:
     """``tumseg`` variables (numpy or array-like leaves) -> port state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
     for name, p in params.items():
-        if isinstance(p, (list, tuple)):
-            for j, layer in enumerate(p):
-                conv = layer["conv"]
-                sd[f"{name}.mlp_convs.{j}.weight"] = _weight(
-                    conv["w"], _conv_rank(name))
-                sd[f"{name}.mlp_convs.{j}.bias"] = _tensor(conv["b"])
-                _bn(sd, f"{name}.mlp_bns.{j}", layer["bn"], stats[name][j])
+        if isinstance(p, (list, tuple)) and isinstance(p[0], (list, tuple)):
+            for s, scale in enumerate(p):  # MSG: one stack per scale
+                _stack(sd, f"{name}.conv_blocks.{s}", f"{name}.bn_blocks.{s}",
+                       scale, stats[name][s], _conv_rank(name))
+        elif isinstance(p, (list, tuple)):
+            _stack(sd, f"{name}.mlp_convs", f"{name}.mlp_bns", p, stats[name],
+                   _conv_rank(name))
         elif "w" in p:
             sd[f"{name}.weight"] = _weight(p["w"], 1)
             sd[f"{name}.bias"] = _tensor(p["b"])
@@ -86,15 +96,24 @@ def variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
             if s is not None:
                 stats[prefix] = s
             continue
-        stage, kind, j = parts[0], parts[1], int(parts[2])
-        p_layers = params.setdefault(stage, [])
-        s_layers = stats.setdefault(stage, [])
-        while len(p_layers) <= j:
-            p_layers.append({})
-            s_layers.append({})
-        if kind == "mlp_convs":
-            p_layers[j]["conv"] = p
+        # <stage>.mlp_convs.j (a stack) or <stage>.conv_blocks.s.j (MSG)
+        stage, kind, *pos = parts[0], parts[1], *map(int, parts[2:])
+        p_node = params.setdefault(stage, [])
+        s_node = stats.setdefault(stage, [])
+        for i in pos[:-1]:
+            p_node, s_node = _slot(p_node, i, list), _slot(s_node, i, list)
+        p_layer = _slot(p_node, pos[-1], dict)
+        s_layer = _slot(s_node, pos[-1], dict)
+        if kind in ("mlp_convs", "conv_blocks"):
+            p_layer["conv"] = p
         else:
-            p_layers[j]["bn"] = p
-            s_layers[j].update(s)
+            p_layer["bn"] = p
+            s_layer.update(s)
     return {"params": params, "batch_stats": stats}
+
+
+def _slot(seq: List, i: int, make):
+    """``seq[i]``, growing ``seq`` with ``make()`` up to index ``i``."""
+    while len(seq) <= i:
+        seq.append(make())
+    return seq[i]

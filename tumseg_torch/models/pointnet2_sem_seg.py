@@ -31,26 +31,32 @@ DROPOUT_RATE = 0.5
 
 
 class PointNet2SemSeg(nn.Module):
+    fp_cfgs = FP_CFGS
+
     def __init__(self, num_classes: int, num_extra_features: int = 0):
         super().__init__()
-        in_ch = 6 + 3 + num_extra_features
-        for i, cfg in enumerate(SA_CFGS, start=1):
-            setattr(self, f"sa{i}", SetAbstraction(
-                cfg["npoint"], cfg["radius"], cfg["nsample"], in_ch,
-                cfg["mlp"]))
-            in_ch = cfg["mlp"][-1] + 3
-        for i, cfg in zip([4, 3, 2, 1], FP_CFGS):
+        self.add_set_abstractions(6 + num_extra_features)
+        for i, cfg in zip([4, 3, 2, 1], self.fp_cfgs):
             setattr(self, f"fp{i}",
                     FeaturePropagation(cfg["in_channel"], cfg["mlp"]))
         self.conv1 = Dense(128, 128, conv_rank=1)
         self.bn1 = BatchNorm(128)
         self.conv2 = Dense(128, num_classes, conv_rank=1)
 
+    def add_set_abstractions(self, in_ch: int) -> None:
+        """Registers ``sa1``..``sa4`` for ``in_ch`` input channels."""
+        in_ch += 3
+        for i, cfg in enumerate(SA_CFGS, start=1):
+            setattr(self, f"sa{i}", SetAbstraction(
+                cfg["npoint"], cfg["radius"], cfg["nsample"], in_ch,
+                cfg["mlp"]))
+            in_ch = cfg["mlp"][-1] + 3
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
         room-normalized xyz, then extra features) ->
-        (log_probs [B, N, num_classes], l4_points [B, 16, 512]).
+        (log_probs [B, N, num_classes], l4_points [B, 16, sa4's width]).
 
         With a ``generator`` (on x's device) in train mode, each stage's FPS
         starts at a drawn index in [0, N_stage) and dropout 0.5 follows the

@@ -109,24 +109,34 @@ def calibrate_batch_norm(model: nn.Module, x: torch.Tensor) -> None:
             h.remove()
 
 
+def _mlp_layers(in_dim: int, dims: Sequence[int], conv_rank: int):
+    """-> (convs, bns): the ModuleLists of a [Dense -> BatchNorm] * L stack."""
+    convs, bns = nn.ModuleList(), nn.ModuleList()
+    last = in_dim
+    for out in dims:
+        convs.append(Dense(last, out, conv_rank))
+        bns.append(BatchNorm(out))
+        last = out
+    return convs, bns
+
+
+def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList,
+             x: torch.Tensor) -> torch.Tensor:
+    for conv, bn in zip(convs, bns):
+        x = F.relu(bn(conv(x)))
+    return x
+
+
 class MLPStack(nn.Module):
     """[Dense -> BatchNorm -> ReLU] * L over the last axis, with the
     reference's ``mlp_convs.j`` / ``mlp_bns.j`` names."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], conv_rank: int):
         super().__init__()
-        self.mlp_convs = nn.ModuleList()
-        self.mlp_bns = nn.ModuleList()
-        last = in_dim
-        for out in dims:
-            self.mlp_convs.append(Dense(last, out, conv_rank))
-            self.mlp_bns.append(BatchNorm(out))
-            last = out
+        self.mlp_convs, self.mlp_bns = _mlp_layers(in_dim, dims, conv_rank)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            x = F.relu(bn(conv(x)))
-        return x
+        return _run_mlp(self.mlp_convs, self.mlp_bns, x)
 
 
 class SetAbstraction(MLPStack):
@@ -149,6 +159,47 @@ class SetAbstraction(MLPStack):
             self.npoint, self.radius, self.nsample, xyz, points,
             fps_start=fps_start)
         return new_xyz, self.mlp(grouped).amax(dim=2)
+
+
+class SetAbstractionMsg(nn.Module):
+    """MSG set abstraction (``tumseg/nn/layers.py:201-245``): one FPS, then
+    per radius a ball query, group, shared MLP and max over K, the scales
+    concatenated on channels: xyz [B, N, 3], points [B, N, D] ->
+    (new_xyz [B, npoint, 3], new_points [B, npoint, sum(mlp[-1])]).
+
+    Each scale's MLP takes ``in_channel + 3`` channels in the reference's
+    MSG order ``[points, centred xyz]`` and has the reference's
+    ``conv_blocks.s.j`` / ``bn_blocks.s.j`` names."""
+
+    def __init__(self, npoint: int, radius_list: Sequence[float],
+                 nsample_list: Sequence[int], in_channel: int,
+                 mlp_list: Sequence[Sequence[int]]):
+        super().__init__()
+        self.npoint = npoint
+        self.radius_list = list(radius_list)
+        self.nsample_list = list(nsample_list)
+        self.conv_blocks, self.bn_blocks = nn.ModuleList(), nn.ModuleList()
+        for mlp in mlp_list:
+            convs, bns = _mlp_layers(in_channel + 3, mlp, conv_rank=2)
+            self.conv_blocks.append(convs)
+            self.bn_blocks.append(bns)
+
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
+                fps_start: Optional[torch.Tensor] = None):
+        """``fps_start`` [B] int32 seeds FPS (default index 0)."""
+        new_xyz = ops.gather_rows(xyz, ops.farthest_point_sample(
+            xyz, self.npoint, start=fps_start))
+        src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
+        groups = ops.msg_ball_groups(self.radius_list, self.nsample_list,
+                                     xyz, new_xyz, src)
+        outs = []
+        for grouped, convs, bns in zip(groups, self.conv_blocks,
+                                       self.bn_blocks):
+            if points is not None:  # [centred xyz, points] -> [points, xyz]
+                grouped = torch.cat([grouped[..., 3:], grouped[..., :3]],
+                                    dim=-1)
+            outs.append(_run_mlp(convs, bns, grouped).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1)
 
 
 class FeaturePropagation(MLPStack):

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +54,15 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     return _impl(xyz).query_ball_point(radius, nsample, xyz, new_xyz)
 
 
+def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
+                           xyz: torch.Tensor, new_xyz: torch.Tensor
+                           ) -> Tuple[torch.Tensor, ...]:
+    """One [B, S, nsamples[i]] int32 ball query per radius, each equal to
+    :func:`query_ball_point` of its radius; on the card all radii share one
+    launch of the multi-radius kernel."""
+    return _impl(xyz).query_ball_point_multi(radii, nsamples, xyz, new_xyz)
+
+
 def group_points(idx: torch.Tensor, src: torch.Tensor,
                  new_xyz: torch.Tensor):
     return GroupPoints.apply(idx, src, new_xyz, _impl(src))
@@ -87,3 +96,13 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
     return new_xyz, group_points(idx, src, new_xyz)
+
+
+def msg_ball_groups(radius_list: Sequence[float],
+                    nsample_list: Sequence[int], xyz: torch.Tensor,
+                    new_xyz: torch.Tensor, src: torch.Tensor):
+    """Multi-scale ball query + group (``tumseg/ops/__init__.py:243-272``):
+    -> one [B, S, nsample_list[i], C] tensor per radius, channels 0-2 of
+    ``src`` [B, N, C] centred on ``new_xyz``."""
+    idxs = query_ball_point_multi(radius_list, nsample_list, xyz, new_xyz)
+    return [group_points(idx, src, new_xyz) for idx in idxs]

@@ -30,6 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tumseg_fps": (_P, _P, _P, _I, _I, _I, _P),
     "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "tumseg_ball_query_multi": (_P, _P, _P, _I, _I, _I, _P),
     "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tumseg_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _P),

@@ -20,7 +20,7 @@ min over an index ramp, never left to ``argmax``/``topk`` tie rules.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -76,12 +76,31 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     ``<= radius**2`` (r^2 rounded to f32 once, as JAX's weak-typed scalar
     is). A shortfall repeats the first hit; an empty ball yields N in every
     slot (``tumseg/ops/core.py:96-122``, ``ballquery.py:48-86``)."""
-    N = xyz.shape[1]
+    return _first_in_ball(_direct_sqdist(xyz, new_xyz), radius, nsample)
+
+
+def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
+                           xyz: torch.Tensor, new_xyz: torch.Tensor
+                           ) -> Tuple[torch.Tensor, ...]:
+    """One ball query per radius over one distance build: -> a tuple of
+    [B, S, nsamples[i]] int32, each equal to ``query_ball_point(radii[i],
+    nsamples[i], xyz, new_xyz)`` (``ballquery.py:293-307,362-403``)."""
+    if len(radii) != len(nsamples):
+        raise ValueError(f"{len(radii)} radii but {len(nsamples)} nsamples")
+    d = _direct_sqdist(xyz, new_xyz)                           # [B, S, N]
+    return tuple(_first_in_ball(d, r, k) for r, k in zip(radii, nsamples))
+
+
+def _first_in_ball(d: torch.Tensor, radius: float, nsample: int
+                   ) -> torch.Tensor:
+    """The first ``nsample`` indices along the last axis of the squared
+    distances ``d`` [B, S, N] with ``d <= radius**2`` (r^2 rounded to f32
+    once), shortfall and empty ball as :func:`query_ball_point`."""
+    N = d.shape[-1]
     r2 = torch.tensor(float(radius) * float(radius), dtype=torch.float32,
-                      device=xyz.device)
-    inside = _direct_sqdist(xyz, new_xyz) <= r2                # [B, S, N]
-    ramp = torch.arange(N, device=xyz.device, dtype=torch.int32)
-    masked = torch.where(inside, ramp, N)
+                      device=d.device)
+    ramp = torch.arange(N, device=d.device, dtype=torch.int32)
+    masked = torch.where(d <= r2, ramp, N)
     k = min(nsample, N)
     idx = torch.topk(masked, k, dim=-1, largest=False, sorted=True).values
     if k < nsample:

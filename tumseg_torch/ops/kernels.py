@@ -15,19 +15,30 @@ are in ``tumseg_torch.ops.core``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from tumseg_torch.ops import build
 
-KERNELS = ("fps", "ball_query", "group", "three_nn_interpolate",
-           "group_backward", "interpolate_backward")
+KERNELS = ("fps", "ball_query", "ball_query_multi", "group",
+           "three_nn_interpolate", "group_backward", "interpolate_backward")
 launches = dict.fromkeys(KERNELS, 0)
 
 # FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
 # of the 227 KB a block may use on Hopper, less the reduction scratch
 FPS_MAX_N = 14336
+# radii of one multi-radius ball query launch (kMaxRadii of
+# csrc/ball_query_multi.cu)
+BALL_QUERY_MAX_RADII = 4
+
+
+class _MultiRadii(ctypes.Structure):
+    """``tumseg::MultiRadii`` of csrc/ball_query_multi.cu, field for field."""
+    _fields_ = [("R", ctypes.c_int),
+                ("r2", ctypes.c_float * BALL_QUERY_MAX_RADII),
+                ("K", ctypes.c_int * BALL_QUERY_MAX_RADII),
+                ("out", ctypes.c_void_p * BALL_QUERY_MAX_RADII)]
 
 
 def reset_launches() -> None:
@@ -111,6 +122,38 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     _launch("ball_query", "tumseg_ball_query", device, _ptr(xyz),
             _ptr(new_xyz), _ptr(out), B, N, S, nsample, r2)
     return out
+
+
+def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
+                           xyz: torch.Tensor, new_xyz: torch.Tensor
+                           ) -> Tuple[torch.Tensor, ...]:
+    """xyz [B, N, 3], new_xyz [B, S, 3] f32 -> one [B, S, nsamples[i]]
+    int32 per radius, from one launch for up to ``BALL_QUERY_MAX_RADII``
+    radii; each equals :func:`query_ball_point` of its radius."""
+    _check("xyz", xyz, torch.float32, (None, None, 3))
+    B, N, _ = xyz.shape
+    _check("new_xyz", new_xyz, torch.float32, (B, None, 3))
+    S = new_xyz.shape[1]
+    R = len(radii)
+    if len(nsamples) != R:
+        raise ValueError(f"{R} radii but {len(nsamples)} nsamples")
+    if not 1 <= R <= BALL_QUERY_MAX_RADII:
+        raise ValueError(f"ball_query_multi takes 1 to {BALL_QUERY_MAX_RADII} "
+                         f"radii, got {R}")
+    if any(k < 1 for k in nsamples):
+        raise ValueError(f"every nsample must be >= 1, got {tuple(nsamples)}")
+    device = _same_device(xyz, new_xyz)
+    outs = tuple(torch.empty((B, S, int(k)), dtype=torch.int32, device=device)
+                 for k in nsamples)
+    params = _MultiRadii(R)
+    for i, (r, k, out) in enumerate(zip(radii, nsamples, outs)):
+        params.r2[i] = float(r) * float(r)  # rounded to f32 by ctypes
+        params.K[i] = int(k)
+        params.out[i] = out.data_ptr()
+    _launch("ball_query_multi", "tumseg_ball_query_multi", device, _ptr(xyz),
+            _ptr(new_xyz), ctypes.c_void_p(ctypes.addressof(params)), B, N,
+            S)
+    return outs
 
 
 def group_points(idx: torch.Tensor, src: torch.Tensor,

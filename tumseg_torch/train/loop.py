@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from tumseg.utils.progress import progress
+from tumseg_torch.utils.progress import progress
 from tumseg_torch.data.augment import rotate_z
 from tumseg_torch.models.convert import (state_dict_from_variables,
                                          variables_from_state_dict)
@@ -66,7 +66,7 @@ class TrainEngine:
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.num_classes = num_classes
