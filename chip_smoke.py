@@ -14,7 +14,9 @@ d. serves a synthetic ~300K-point facade tile through
    ``tumseg_torch.cli.test.main`` (2 votes, the seeded random weights of c,
    BN statistics calibrated on facade blocks), checks the report and the
    label dump, and checks that every kernel was launched at least
-   (forwards x launches per forward) times in that run;
+   (forwards x launches per forward) times in that run. The CLI's runner
+   keeps its "auto" defaults, so on the card it serves through the device
+   re-blocking path, as ``tumseg``'s CLI does on its accelerator;
 e. runs each backward kernel and its plain version on unit-normal
    cotangents at the shapes of a B=16 x 4096 training step (group at
    sa2-sa4, plus sentinel rows and repeated indices; interpolation at
@@ -40,15 +42,39 @@ i. runs that MSG forward with the kernels and with the plain versions:
    log-probs within 1e-4, argmax equal on >= 99.99% of points, >= 2 classes
    predicted, both timed;
 j. serves the tile of d with the MSG model through
-   ``tumseg_torch.cli.test --model pointnet2_sem_seg_msg`` (2 votes) and
-   checks its launches per forward (ball query only through the multi-radius
-   kernel);
+   ``tumseg_torch.cli.test --model pointnet2_sem_seg_msg`` (2 votes, the
+   device path) and checks its launches per forward (ball query only through
+   the multi-radius kernel);
 k. takes one MSG training step at B=16 x 4096 with the kernels and plain
    (loss within rtol 1e-5, every gradient within 1e-4 of its layer's
    largest, both timed), then trains through
    ``tumseg_torch.cli.train --model pointnet2_sem_seg_msg`` (1 epoch, >= 6
    steps, multi-radius ball query >= steps x 4 and group backward >= steps x
-   6 launches) and serves its ``best_model.pth``.
+   6 launches) and serves its ``best_model.pth``;
+l. (run right after b, while the host is quiet: the wrapper's torch ops
+   are host-bound) runs the z-window 3-NN kernel at fp1's shapes (B=32
+   facade blocks of
+   4096 queries, their 1024 FPS centroids, window 384, tiles of 256) on
+   three inputs: facade blocks, half the sources on one z (some queries fail
+   the guard) and one z for all (every query fails): indices and distances
+   bitwise equal to the plain windowed 3-NN and to the kernel run as the
+   full expansion-form row kernel, the fused interpolation within rtol 1e-5
+   / atol 1e-6 of the plain one; times it beside the direct-form 3-NN kernel
+   and the full row kernel at the same shapes, and splits one call's device
+   time into the kernel, the sorts and the rest with ``torch.profiler``;
+m. serves the tile of d three ways in one call, SSG with the weights of c,
+   through ``run_testing`` (2 votes, each scene gridded beforehand): the
+   host path, the device re-blocking path and the device path with
+   ``window_ops``; prints scene-points/s, wall seconds and the launches of
+   every kernel of each, checks the window kernel's launches (>= forwards
+   with the window, 0 without) and the direct-form 3-NN's (>= 3 and 4 per
+   forward); checks that the device path's vote loop fed the blocks of a
+   host-featurized vote gives the host's labels on >= 99.99% of points, and
+   reports the label agreement between window on and off;
+n. serves a ~1M-point facade tile (2 votes) by the host and the device path:
+   scene-points/s, the re-blocking time of one vote, and the device idle
+   share over the vote loop from ``torch.profiler`` (CUDA-busy time over
+   the wall time of one profiled vote).
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -68,6 +94,7 @@ import math
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +106,8 @@ TRAIN_B = 16
 SCENE_POINTS = 300_000
 TRAIN_POINTS = 600_000
 HELD_OUT_POINTS = 50_000
+SCALE_POINTS = 1_000_000
+SCALE_VOTES = 2
 TRAIN_EPOCHS = 2
 MSG_TRAIN_EPOCHS = 1
 SA = [(1024, 0.1), (256, 0.2), (64, 0.4), (16, 0.8)]  # (npoint, radius)
@@ -99,6 +128,8 @@ REPLACES = {
     "three_nn_interpolate": "tumseg/ops/pallas/threenn.py:70",
     "group_backward": "tumseg/ops/pallas/group.py:75",
     "interpolate_backward": "tumseg/ops/pallas/interpolate.py:48",
+    "three_nn_window": "tumseg/ops/pallas/threenn.py:218; "
+                       "tumseg/ops/pallas/threenn.py:32",
 }
 SOURCES = {
     "fps": "tumseg_torch/csrc/fps.cu",
@@ -108,16 +139,19 @@ SOURCES = {
     "three_nn_interpolate": "tumseg_torch/csrc/three_nn_interpolate.cu",
     "group_backward": "tumseg_torch/csrc/group_backward.cu",
     "interpolate_backward": "tumseg_torch/csrc/interpolate_backward.cu",
+    "three_nn_window": "tumseg_torch/csrc/three_nn_window.cu",
 }
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
 PER_FORWARD = {
     "pointnet2_sem_seg": {"fps": 4, "ball_query": 4, "ball_query_multi": 0,
-                          "group": 8, "three_nn_interpolate": 4},
+                          "group": 8, "three_nn_interpolate": 4,
+                          "three_nn_window": 0},
     "pointnet2_sem_seg_msg": {"fps": 4, "ball_query": 0,
                               "ball_query_multi": 4, "group": 12,
-                              "three_nn_interpolate": 4},
+                              "three_nn_interpolate": 4,
+                              "three_nn_window": 0},
 }
 # backward launches of one training step: group backward where the source
 # needs a gradient (sa2-sa4, once per radius), interpolation at fp1-fp4
@@ -148,13 +182,13 @@ def facade_batch(rng, b, n):
                           axis=-1).astype(np.float32)
 
 
-def write_facade_tile(rng, path, n):
-    """A 20 m x 2 m x 15 m facade tile of ``n`` points, 80% on a wall,
+def write_facade_tile(rng, path, n, length=20.0):
+    """A ``length`` x 2 m x 15 m facade tile of ``n`` points, 80% on a wall,
     labelled with all 8 classes."""
     from tumseg_torch.data.las import write_las
 
     on_wall = rng.random(n) < 0.8
-    xyz = np.stack([rng.uniform(0.0, 20.0, n),
+    xyz = np.stack([rng.uniform(0.0, length, n),
                     np.where(on_wall, 1.0 + rng.normal(0.0, 0.03, n),
                              rng.uniform(0.0, 2.0, n)),
                     rng.uniform(0.0, 15.0, n)], axis=1)
@@ -734,6 +768,261 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     return launches
 
 
+def phase_window(torch, report):
+    """The z-window 3-NN kernel at fp1's shapes, against its plain version
+    and against itself as the full row kernel, on guard-passing, mixed and
+    all-failing inputs."""
+    from tumseg_torch import ops
+    from tumseg_torch.ops import core, kernels
+
+    rng = np.random.default_rng(SEED + 7)
+    dev = torch.device(DEVICE)
+    xyz1 = torch.as_tensor(facade_blocks(rng, B, N), device=dev)
+    S, d = SA[0][0], FP_D[0]
+    xyz2 = core.gather_rows(
+        xyz1, kernels.farthest_point_sample(xyz1, S)).contiguous()
+    p2 = torch.as_tensor(rng.standard_normal((B, S, d)).astype(np.float32),
+                         device=dev)
+    C, tile = ops.three_nn_window(S), ops.WINDOW_N_TILE
+    mixed = xyz2.clone()
+    mixed[:, : S // 2, 2] = 5.0          # half the sources on one z
+    flat1, flat2 = xyz1.clone(), xyz2.clone()
+    flat1[..., 2] = 5.0                  # one z for all: every query fails
+    flat2[..., 2] = 5.0
+    for label, x1, x2, on_path in (("facade", xyz1, xyz2, True),
+                                   ("mixed", xyz1, mixed, False),
+                                   ("one z", flat1, flat2, False)):
+        dk, ik, ok = kernels.three_nn_window_interpolate(x1, x2, p2, C, tile)
+        dp, ip, op = core.three_nn_window_interpolate(x1, x2, p2, C, tile)
+        df, i_full = kernels.three_nn_expansion(x1, x2)
+        if not (torch.equal(ik, ip) and torch.equal(ik, i_full)):
+            bad = (ik != ip).any(-1).float().mean().item()
+            raise AssertionError(f"3-NN window ({label}): {bad:.2e} of "
+                                 "queries differ from the plain version or "
+                                 "the full row kernel")
+        if not (torch.equal(dk, dp) and torch.equal(dk, df)):
+            raise AssertionError(f"3-NN window ({label}): distances are not "
+                                 "bitwise those of the plain version and "
+                                 "the full row kernel")
+        torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+        err = (ok - op).abs().max().item()
+        fails = int((~core.window_guard(x1, x2, C, tile)).sum().item())
+        if label == "mixed" and not 0 < fails < B * N:
+            raise AssertionError(f"mixed input: {fails} guard failures")
+        if label == "one z" and fails != B * N:
+            raise AssertionError(f"one z: only {fails} guard failures")
+        print(f"[l] 3-NN window {label}: {fails} of {B * N} queries fail the "
+              f"guard and rescan all {S} sources")
+        # ~10 operations a candidate (the expansion-form distance and the
+        # compares into the top 3), the weights, 5 an output element
+        cand = B * N * C + fails * S
+        report.add(torch, "three_nn_window", f"{label} N={N} S={S} C={C}",
+                   lambda: kernels.three_nn_window_interpolate(
+                       x1, x2, p2, C, tile),
+                   lambda: core.three_nn_window_interpolate(
+                       x1, x2, p2, C, tile), err,
+                   nbytes=4 * (B * N * 3 + B * S * 3 + B * S * d
+                               + B * N * 6 + B * N * d),
+                   ops=10 * cand + B * N * 10 + B * N * d * 5,
+                   plain_reps=1, phase="l", on_path=on_path)
+    # the full expansion-form row kernel (window = S: no sort, one window)
+    report.add(torch, "three_nn_window", f"full row N={N} S={S} C={S}",
+               lambda: kernels.three_nn_window_interpolate(xyz1, xyz2, p2, S),
+               lambda: core.three_nn_window_interpolate(xyz1, xyz2, p2, S),
+               0.0, nbytes=4 * (B * N * 3 + B * S * 3 + B * S * d
+                                + B * N * 6 + B * N * d),
+               ops=10 * B * N * S + B * N * 10 + B * N * d * 5,
+               plain_reps=1, phase="l", on_path=False)
+    ms, runs = time_ms(torch, lambda: kernels.three_nn_interpolate(
+        xyz1, xyz2, p2), 20)
+    print(f"[l] direct-form three_nn_interpolate at N={N} S={S} D={d}: "
+          f"{ms:.4f} ms {[round(r, 4) for r in runs]}")
+    # the wrapper's own torch ops (sorts, searchsorted, starts) next to the
+    # kernel: device time per call by kernel name
+    calls = 10
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            kernels.three_nn_window_interpolate(xyz1, xyz2, p2, C, tile)
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = ("three_nn_window_kernel" if "three_nn_window" in e.name
+                    else "sort" if "ort" in e.name else "other")
+            per_name[name] = (per_name.get(name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3 / calls)
+    print(f"[l] device time of one facade call by part (torch.profiler, "
+          f"{calls} calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(per_name.items()))
+          + f", total {sum(per_name.values()):.4f} ms")
+
+
+def scene_dataset(path):
+    from tumseg_torch.data.dataset import TestGridDataset
+
+    return TestGridDataset(las_file_list=[str(path)], num_classes=8,
+                           block_points=N, color=False, class8=True,
+                           seed=SEED)
+
+
+def serving_model(torch, state_dict):
+    from tumseg_torch import models
+
+    model = models.get_module("pointnet2_sem_seg").get_model(8)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def phase_serve_paths(torch, work, state_dict):
+    """The tile of d served by the host path, the device path and the
+    device path with the window, in turn; counts of zero before each run,
+    read after it. -> the window run's launches."""
+    from tumseg_torch.infer.voting import InferenceRunner, run_testing
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.viz.writers import read_labels_txt
+
+    path, n, votes = work / "data" / "facade.las", SCENE_POINTS, 2
+    model = serving_model(torch, state_dict)
+    blocks = sum(math.ceil(c[0].size / N)
+                 for c in scene_dataset(path).grid_structure(0))
+    forwards = votes * math.ceil(blocks / B)
+    labels, window_launches = {}, None
+    for name, kw in (("host", dict(device_features=False)),
+                     ("device", {}), ("device+window", dict(window_ops=True))):
+        ds = scene_dataset(path)
+        ds.grid_structure(0)  # gridded ahead, as the prefetch stages a scene
+        runner = InferenceRunner(model, 8, batch_size=B, device=DEVICE, **kw)
+        if runner.device_reblock != (name != "host"):
+            raise AssertionError(f"{name}: device_reblock resolved to "
+                                 f"{runner.device_reblock}")
+        vis = work / f"m_{name.replace('+', '_')}"
+        vis.mkdir()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run_testing(ds, runner, num_votes=votes, visual_dir=vis,
+                          log_string=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        labels[name] = read_labels_txt(str(vis / "facade.txt"))
+        window = name == "device+window"
+        want_nn = forwards * (3 if window else 4)
+        if launches["three_nn_interpolate"] < want_nn:
+            raise AssertionError(f"{name}: three_nn_interpolate launched "
+                                 f"{launches['three_nn_interpolate']} times, "
+                                 f"expected >= {want_nn}")
+        if (launches["three_nn_window"] < forwards if window
+                else launches["three_nn_window"] != 0):
+            raise AssertionError(f"{name}: three_nn_window launched "
+                                 f"{launches['three_nn_window']} times")
+        if window:
+            window_launches = launches
+        print(f"[m] {name:13s} {n} points x {votes} votes, {forwards} "
+              f"forwards: {n * votes / out['infer_seconds']:.0f} "
+              f"scene-points/s, infer {out['infer_seconds']:.3f} s, wall "
+              f"{wall:.3f} s; launches {launches}")
+    agree = (labels["device"] == labels["device+window"]).mean()
+    print(f"[m] labels, window on against off: {agree:.6f} agree "
+          f"(fp1's 3-NN in another form; no threshold)")
+
+    # the device path's vote loop fed the blocks of a host-featurized vote
+    host = InferenceRunner(model, 8, batch_size=B, device=DEVICE,
+                           device_features=False)
+    want = host.infer_scene(scene_dataset(path), 0, 1)
+    ds = scene_dataset(path)
+    idx, offsets = ds.grid_indices(0)  # the draws the host vote made
+    runner = InferenceRunner(model, 8, batch_size=B, device=DEVICE)
+    with torch.inference_mode():
+        pool = torch.zeros((n + 1) * 8, device=DEVICE)
+        runner._vote(runner._scene_tensors(ds, 0),
+                     torch.as_tensor(idx.astype(np.int32), device=DEVICE),
+                     torch.as_tensor(offsets, device=DEVICE), pool,
+                     float(ds.block_size))
+        got = runner._finish(ds, 0, pool, True)
+    same = (got == want).mean()
+    print(f"[m] device vote loop on the host vote's blocks: labels agree on "
+          f"{same:.6f} of points")
+    if same < 0.9999:
+        raise AssertionError("device path disagrees with the host path")
+    return window_launches
+
+
+def cuda_busy_seconds(torch, prof):
+    """The union of the intervals of the profiler's CUDA events."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e6
+
+
+def phase_scale(torch, work, state_dict):
+    """A ~1M-point tile by the host and the device path: scene-points/s,
+    one vote's re-blocking time and the device idle share of a vote."""
+    from tumseg_torch.infer.voting import InferenceRunner, reblock_on_device
+
+    path = work / "scale" / "facade_1m.las"
+    path.parent.mkdir()
+    write_facade_tile(np.random.default_rng(SEED + 8), path, SCALE_POINTS,
+                      length=60.0)
+    model = serving_model(torch, state_dict)
+    n, votes = SCALE_POINTS, SCALE_VOTES
+    for name, kw in (("host", dict(device_features=False)), ("device", {})):
+        ds = scene_dataset(path)
+        t0 = time.perf_counter()
+        cells = ds.grid_structure(0)
+        grid_s = time.perf_counter() - t0
+        blocks = sum(math.ceil(c[0].size / N) for c in cells)
+        runner = InferenceRunner(model, 8, batch_size=B, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.infer_scene(ds, 0, votes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+        reblock = []
+        for vote in range(3):
+            if name == "host":
+                t0 = time.perf_counter()
+                ds[0]
+                reblock.append(time.perf_counter() - t0)
+                continue
+            flat_base, starts_pos, counts_pos, _, _, segments = \
+                runner._grid_tensors(ds, 0)
+            u, keys = runner.vote_draws(0, vote, flat_base.shape[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reblock_on_device(u, keys, flat_base, starts_pos, counts_pos, N,
+                              segments)
+            torch.cuda.synchronize()
+            reblock.append(time.perf_counter() - t0)
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.infer_scene(ds, 0, 1)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        busy = cuda_busy_seconds(torch, prof)
+        idle = ("not measured (no device events traced)" if busy == 0
+                else f"{1 - busy / traced:.4f}")
+        print(f"[n] {name:6s} {n} points x {votes} votes ({blocks} blocks a "
+              f"vote, gridding {grid_s:.3f} s beforehand): "
+              f"{n * votes / wall:.0f} scene-points/s, {wall:.3f} s; "
+              f"re-blocking a vote {float(np.median(reblock)):.4f} s "
+              f"{[round(r, 4) for r in reblock]}; one traced vote "
+              f"{traced:.3f} s, CUDA busy {busy:.3f} s, idle share {idle}")
+
+
 def main() -> int:
     import torch
 
@@ -765,6 +1054,7 @@ def main() -> int:
     ssg, msg = "pointnet2_sem_seg", "pointnet2_sem_seg_msg"
     report = Report()
     phase_kernels(torch, report)
+    phase_window(torch, report)
     state_dict = phase_forward(torch, ssg, "c")
     launches = phase_serve(torch, work, state_dict, ssg, "d")
     phase_backward(torch, report)
@@ -779,6 +1069,10 @@ def main() -> int:
         torch, work, msg_state, msg, "j")["ball_query_multi"]
     phase_train_step(torch, msg_state, msg, "k")
     phase_train_cli(torch, work, msg, MSG_TRAIN_EPOCHS, 6, "k")
+
+    launches["three_nn_window"] = phase_serve_paths(
+        torch, work, state_dict)["three_nn_window"]
+    phase_scale(torch, work, state_dict)
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

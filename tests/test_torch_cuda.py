@@ -5,8 +5,8 @@ it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Indices and grouping must be identical; the interpolation agrees within
-rtol 1e-5 / atol 1e-6. The backward kernels add with f32 atomics in an order
+Indices and grouping must be identical (the z-window 3-NN's distances too,
+bit for bit); the interpolation agrees within rtol 1e-5 / atol 1e-6. The backward kernels add with f32 atomics in an order
 that changes from run to run, so they agree within rtol 1e-5 / atol 1e-4."""
 
 import numpy as np
@@ -128,7 +128,8 @@ def test_msg_forward_kernels_match_plain(cuda):
             want = model(x)[0]
     assert counts == {"fps": 4, "ball_query": 0, "ball_query_multi": 4,
                       "group": 12, "three_nn_interpolate": 4,
-                      "group_backward": 0, "interpolate_backward": 0}
+                      "group_backward": 0, "interpolate_backward": 0,
+                      "three_nn_window": 0}
     assert sum(kernels.launches.values()) == sum(counts.values())
     assert (got - want).abs().max().item() <= 1e-4
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
@@ -248,3 +249,127 @@ def test_wrappers_refuse_bad_inputs_and_count(cuda):
     with ops.plain():
         ops.farthest_point_sample(xyz, 8)
     assert kernels.launches["fps"] == 1
+
+
+def _window_inputs(rng, case, B, N, S, device):
+    """Facade-like columns (z over 10 m); "mixed" puts half the sources on
+    one z, so some queries fail the window guard; "constant_z" fails all."""
+    xyz1 = rng.random((B, N, 3)).astype(np.float32)
+    xyz2 = rng.random((B, S, 3)).astype(np.float32)
+    xyz1[..., 2] *= 10.0
+    xyz2[..., 2] *= 10.0
+    if case == "mixed":
+        xyz2[:, : S // 2, 2] = 5.0
+    elif case == "constant_z":
+        xyz1[..., 2] = 2.5
+        xyz2[..., 2] = 2.5
+    return (torch.as_tensor(xyz1, device=device),
+            torch.as_tensor(xyz2, device=device))
+
+
+@pytest.mark.parametrize("case", ["column", "mixed", "constant_z"])
+@pytest.mark.parametrize("B,N,S,D,window,n_tile", [
+    (2, 512, 256, 16, 128, 64),       # several blocks share no tile
+    (1, 500, 256, 7, 128, 256),       # n_tile falls back to N (ragged)
+    (2, 4096, 1024, 128, 384, 256),   # fp1
+])
+def test_three_nn_window(cuda, case, B, N, S, D, window, n_tile):
+    """The window kernel against the plain windowed 3-NN (indices and
+    distances bitwise), against itself run as the full row kernel, and its
+    fused interpolation against the plain one."""
+    rng = np.random.default_rng(8)
+    xyz1, xyz2 = _window_inputs(rng, case, B, N, S, cuda)
+    p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
+                         device=cuda)
+    kernels.reset_launches()
+    dk, ik, ok = kernels.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                                     n_tile)
+    assert kernels.launches["three_nn_window"] == 1
+    dp, ip, op = core.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                                  n_tile)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+    df, i_full = kernels.three_nn_expansion(xyz1, xyz2)
+    assert torch.equal(ik, i_full) and torch.equal(dk, df)
+    guard = core.window_guard(xyz1, xyz2, window, n_tile)
+    if case == "constant_z":
+        assert not guard.any()
+    elif case == "mixed":
+        assert guard.any() and not guard.all()
+
+
+@pytest.mark.parametrize("B,N,S", [(2, 300, 77), (1, 70, 3), (3, 4099, 1024)])
+def test_three_nn_expansion_row_kernel(cuda, B, N, S):
+    rng = np.random.default_rng(9)
+    xyz1 = _rand(rng, (B, N, 3), cuda) * 20
+    xyz2 = _rand(rng, (B, S, 3), cuda) * 20
+    xyz2[:, 2] = xyz2[:, 1]  # a distance tie
+    dk, ik = kernels.three_nn_expansion(xyz1, xyz2)
+    dp, ip = core.three_nn_expansion(xyz1, xyz2)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def test_window_dispatch_launches(cuda):
+    """ops.three_nn_interpolate launches the window kernel exactly where
+    tumseg takes the window, and the direct-form kernel elsewhere."""
+    rng = np.random.default_rng(10)
+    xyz1, xyz2 = _window_inputs(rng, "column", 1, 4096, 1024, cuda)
+    p2 = torch.zeros(1, 1024, 8, device=cuda)
+    kernels.reset_launches()
+    with ops.window_enabled():
+        ops.three_nn_interpolate(xyz1, xyz2, p2)
+        ops.three_nn_interpolate(xyz1[:, :2048].contiguous(), xyz2, p2)
+    ops.three_nn_interpolate(xyz1, xyz2, p2)
+    assert kernels.launches["three_nn_window"] == 1
+    assert kernels.launches["three_nn_interpolate"] == 2
+
+
+def test_device_reblock_path_matches_host_featurized_pool(cuda):
+    """On a small tile: the device path's vote loop, fed the blocks of a
+    host-featurized vote, gives the host path's labels; and the device
+    re-blocking path serves with every kernel of the forward launched."""
+    import tempfile
+
+    from tumseg_torch.data.dataset import TestGridDataset
+    from tumseg_torch.data.las import write_las
+    from tumseg_torch.infer.voting import InferenceRunner
+    from tumseg_torch.models.pointnet2_sem_seg import get_model
+    from tumseg_torch.nn.layers import calibrate_batch_norm
+
+    rng = np.random.default_rng(11)
+    n = 30000
+    xyz = np.stack([rng.uniform(0, 3, n), rng.uniform(0, 1.5, n),
+                    rng.uniform(0, 8, n)], 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/tile.las"
+        write_las(path, xyz, rng.choice([1, 2, 3, 7], n))
+
+        def dataset():
+            return TestGridDataset(las_file_list=[path], num_classes=8,
+                                   block_points=1024, class8=True,
+                                   color=False, seed=0)
+
+        torch.manual_seed(0)
+        model = get_model(8).to(cuda).eval()
+        calibrate_batch_norm(model, torch.as_tensor(
+            dataset()[0][0][:4].astype(np.float32), device=cuda))
+        host = InferenceRunner(model, 8, batch_size=4, device=cuda,
+                               device_features=False)
+        device = InferenceRunner(model, 8, batch_size=4, device=cuda)
+        assert device.device_features and device.device_reblock
+        ds_host, ds_dev = dataset(), dataset()
+        want = host.infer_scene(ds_host, 0, 1)
+        idx, offsets = ds_dev.grid_indices(0)   # the same draws as host
+        with torch.inference_mode():
+            pool = torch.zeros((n + 1) * 8, device=cuda)
+            device._vote(device._scene_tensors(ds_dev, 0),
+                         torch.as_tensor(idx.astype(np.int32), device=cuda),
+                         torch.as_tensor(offsets, device=cuda), pool, 1.0)
+            got = device._finish(ds_dev, 0, pool, True)
+        assert len(np.unique(want)) > 1
+        assert (got == want).mean() >= 0.9999
+        kernels.reset_launches()
+        labels = device.infer_scene(dataset(), 0, 2)
+        assert labels.shape == (n,)
+        assert kernels.launches["three_nn_interpolate"] > 0
+        assert kernels.launches["three_nn_window"] == 0

@@ -105,11 +105,19 @@ def test_runner_predict_blocks_pads_and_trims(scene):
 @pytest.mark.parametrize("option", ["mesh", "compute_dtype",
                                     "device_features", "device_reblock"])
 def test_runner_unported_options_raise(option):
+    """The mesh and bf16 compute are not ported and raise; the device
+    featurization and re-blocking paths are, and construct on the CPU when
+    asked for (tests/test_torch_vote_device.py drives them)."""
     from tumseg_torch.models.pointnet2_sem_seg import get_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceRunner(get_model(8), num_classes=8, device="cpu",
-                        **{option: True})
+    if option in ("mesh", "compute_dtype"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            InferenceRunner(get_model(8), num_classes=8, device="cpu",
+                            **{option: True})
+    else:
+        runner = InferenceRunner(get_model(8), num_classes=8, device="cpu",
+                                 **{option: True})
+        assert getattr(runner, option) is True
 
 
 def test_confusion_tallies_match_tumseg():

@@ -7,7 +7,10 @@ module imports JAX; a test keeps the two equal), same report and the same
 ``<exp_dir><log_dir>/checkpoints<output_model>``.
 
 It runs on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu``; without
-a CUDA device any other ``--gpu`` raises.
+a CUDA device any other ``--gpu`` raises. The runner keeps its "auto"
+defaults, as ``tumseg``'s CLI does: on CUDA it serves through the device
+re-blocking path (scene uploaded once, re-blocking, featurization and vote
+pooling on the device), on the CPU through host re-blocking.
 """
 
 from __future__ import annotations

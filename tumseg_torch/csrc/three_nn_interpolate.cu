@@ -15,10 +15,9 @@
 // Design: a block owns 256 queries of one batch row, one thread per query.
 // Sources stream through shared memory in tiles of 256 and each thread keeps
 // its best three by insertion with strict '<' in index order, so an equal
-// distance never displaces a lower index. The block then stores its queries'
-// indices and weights in shared memory and writes the [256, D] output tile
-// with d fastest, so stores coalesce and each gathered source row is read
-// contiguously.
+// distance never displaces a lower index. The block then writes its
+// [256, D] output tile through the interpolation tail of common.cuh, which
+// the z-window 3-NN kernel (three_nn_window.cu) shares.
 #include <math.h>
 
 #include "common.cuh"
@@ -34,8 +33,7 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
                             float* __restrict__ dists, int* __restrict__ idx,
                             float* __restrict__ out, int N, int S, int D) {
   __shared__ float sx[kThreads], sy[kThreads], sz[kThreads];
-  __shared__ int s_idx[kThreads][3];
-  __shared__ float s_w[kThreads][3];
+  __shared__ tumseg::NeighbourTile<kThreads> tile;
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * kThreads;
@@ -78,38 +76,10 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
     __syncthreads();
   }
 
-  const float eps = static_cast<float>(1e-8);  // f32 rounding of the double
-  const float r0 = 1.0f / (d0 + eps);
-  const float r1 = 1.0f / (d1 + eps);
-  const float r2 = 1.0f / (d2 + eps);
-  const float norm = (r0 + r1) + r2;
-  s_idx[threadIdx.x][0] = i0;
-  s_idx[threadIdx.x][1] = i1;
-  s_idx[threadIdx.x][2] = i2;
-  s_w[threadIdx.x][0] = r0 / norm;
-  s_w[threadIdx.x][1] = r1 / norm;
-  s_w[threadIdx.x][2] = r2 / norm;
-  if (valid) {
-    const size_t row = (static_cast<size_t>(b) * N + n) * 3;
-    dists[row] = d0;
-    dists[row + 1] = d1;
-    dists[row + 2] = d2;
-    idx[row] = i0;
-    idx[row + 1] = i1;
-    idx[row + 2] = i2;
-  }
-  __syncthreads();
-
   const int nq = N - n0 < kThreads ? N - n0 : kThreads;
-  const float* p2 = points2 + static_cast<size_t>(b) * S * D;
-  float* o = out + (static_cast<size_t>(b) * N + n0) * D;
-  for (int t = threadIdx.x; t < nq * D; t += kThreads) {
-    const int q = t / D;
-    const int c = t - q * D;
-    const float a = p2[static_cast<size_t>(s_idx[q][0]) * D + c] * s_w[q][0] +
-                    p2[static_cast<size_t>(s_idx[q][1]) * D + c] * s_w[q][1];
-    o[t] = a + p2[static_cast<size_t>(s_idx[q][2]) * D + c] * s_w[q][2];
-  }
+  tumseg::three_nn_interpolate_tail<kThreads>(
+      tile, valid, static_cast<long long>(b) * N + n, d0, d1, d2, i0, i1, i2,
+      points2 + static_cast<size_t>(b) * S * D, dists, idx, out, nq, D);
 }
 
 }  // namespace

@@ -1,27 +1,43 @@
-"""Whole-scene voting inference (``tumseg/infer/voting.py``), host
-re-blocking path.
+"""Whole-scene voting inference (``tumseg/infer/voting.py``).
 
-For each scene, ``num_votes`` random re-blockings from ``TestGridDataset``
-run through the model in ``batch_size`` chunks and every point's class votes
-pool on the device; the label is the argmax of the pool, and per-class IoU
-is tallied against the scene's ground truth. The next vote's host
-re-blocking overlaps the device work of the current one.
+For each scene, ``num_votes`` random re-blockings run through the model in
+``batch_size`` chunks and every point's class votes pool on the device; the
+label is the argmax of the pool, and per-class IoU is tallied against the
+scene's ground truth. Three paths, chosen as ``tumseg`` chooses them:
 
-Not in this slice, each raising ``NotImplementedError``: on-device
-featurization and re-blocking, the single-dispatch vote scan, the device
-mesh and bf16 compute (ROADMAP Queue 1, item 7).
+- device re-blocking (the default on CUDA, ``tumseg``'s path on its
+  accelerator): the scene's columns and its grid structure are uploaded
+  once; each vote fills and shuffles the grid cells on the device
+  (:func:`reblock_on_device`), then each B-block chunk is featurized on the
+  device, forwarded, and its argmax votes are added into a flat
+  ``[(n + 1) * C]`` pool (row ``n`` is the dump row of padding blocks);
+- device featurization: host ``grid_indices`` every vote (the next one
+  drawn on a worker thread), the same device featurization and vote;
+- host re-blocking: ``TestGridDataset.__getitem__`` builds the feature
+  blocks on the host (the next vote's on a worker thread).
+
+Not ported: the device mesh and bf16 compute (ROADMAP Queue 1, item 7) raise
+``NotImplementedError``. The TPU's scene-shape buckets and block granules
+(``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
+exist to spare XLA recompiles, and PyTorch does not recompile. So is the
+``TUMSEG_VOTE_SCATTER`` A/B of the vote accumulation (``voting.py:541-559``),
+a TPU scatter-lowering choice; the port adds each chunk's votes as it goes,
+``tumseg``'s "scan" mode.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tumseg_torch import ops
+from tumseg_torch.data.dataset import _COLOR_FEATURES
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
@@ -39,17 +55,146 @@ def _scatter_votes(pool: torch.Tensor, point_idx: torch.Tensor,
     return pool
 
 
+def _build_reblock_arrays(cells, block_points: int):
+    """Host-side one-time flats for DEVICE re-blocking: concatenate every
+    cell's candidates padded to a block_points multiple (zeros in the
+    shortfall slots, replaced on device by random in-cell picks). Region
+    layout is static per scene, so after the in-cell shuffle the flat
+    sequence reshapes straight into [NB, block_points] blocks.
+
+    Cells are laid out GROUPED BY BLOCK COUNT (stable within a group) so
+    the in-cell shuffle can run as per-group [n_cells, k*block_points]
+    row sorts instead of one global composite-key sort. Block order is
+    irrelevant to voting (the vote pool is a per-point scatter-add over all
+    real blocks). Returns (..., segments, order): ``segments`` is a tuple
+    of (blocks_per_cell, n_cells) runs describing the grouped layout;
+    ``order`` maps layout position -> index into ``cells``
+    (``tumseg/infer/voting.py:81-131``; the block offsets stay in the
+    cells' f64, where ``tumseg`` rounds them to f32, see :func:`featurize`).
+    """
+    # grid_structure's contract: only non-empty cells are emitted — the
+    # fill path divides by count, so an empty cell must fail loudly here
+    # rather than silently vote foreign points (ValueError, not assert:
+    # the check must survive `python -O`)
+    if any(int(c[0].size) == 0 for c in cells):
+        raise ValueError("empty grid cell passed to device re-blocking")
+    nb_per_cell = [int(np.ceil(int(c[0].size) / block_points))
+                   for c in cells]
+    order = sorted(range(len(cells)), key=lambda i: nb_per_cell[i])
+    segments = []
+    for i in order:
+        k = nb_per_cell[i]
+        if segments and segments[-1][0] == k:
+            segments[-1][1] += 1
+        else:
+            segments.append([k, 1])
+    segments = tuple((k, n) for k, n in segments)
+
+    sizes, counts, base_parts, offsets = [], [], [], []
+    for i in order:
+        point_idxs, s_x, s_y = cells[i]
+        n = int(point_idxs.size)
+        ps = nb_per_cell[i] * block_points
+        buf = np.zeros(ps, np.int32)
+        buf[:n] = point_idxs
+        base_parts.append(buf)
+        sizes.append(ps)
+        counts.append(n)
+        offsets.append(np.repeat([[s_x, s_y]], nb_per_cell[i], axis=0))
+    flat_base = np.concatenate(base_parts).astype(np.int32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    return (flat_base, starts, np.asarray(counts, np.int32),
+            np.asarray(sizes, np.int32), np.concatenate(offsets, axis=0),
+            segments, np.asarray(order, np.int64))
+
+
+def reblock_on_device(u: torch.Tensor, keys: torch.Tensor,
+                      flat_base: torch.Tensor, starts_pos: torch.Tensor,
+                      counts_pos: torch.Tensor, block_points: int,
+                      segments: Optional[Sequence[Tuple[int, int]]] = None,
+                      cell_rank: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One vote's re-blocking on the device (``tumseg/infer/voting.py:
+    134-188``): fill each cell's shortfall slots with random in-cell
+    candidates, then shuffle within each cell. -> [NB, block_points] int32.
+
+    The randomness comes in as tensors: ``u`` [L] f32 uniforms in [0, 1)
+    pick the fills (``min(int32(u * count), count - 1)``, pinned to 0 on
+    member slots, as ``tumseg`` does) and ``keys`` [L] (integers below 2**32)
+    order the shuffle. With ``segments`` (the grouped layout of
+    :func:`_build_reblock_arrays`) each (blocks_per_cell, n_cells) run is
+    one stable sort of its keys per cell row; without, one stable sort by
+    (``cell_rank``, key), the global fallback. Fed ``tumseg``'s draws, the
+    result equals ``tumseg``'s."""
+    L = flat_base.shape[0]
+    r = torch.minimum((u * counts_pos).to(torch.int32), counts_pos - 1)
+    pos_in_cell = torch.arange(L, dtype=torch.int32,
+                               device=flat_base.device) - starts_pos
+    fill = pos_in_cell >= counts_pos
+    r = torch.where(fill, r, 0)
+    seq = torch.where(fill, flat_base[(starts_pos + r).long()], flat_base)
+    keys = keys.to(torch.int64)
+    if segments is not None:
+        parts, off = [], 0
+        for k_blocks, n_cells in segments:
+            m = k_blocks * block_points
+            rows = seq[off:off + n_cells * m].reshape(n_cells, m)
+            perm = torch.sort(keys[off:off + n_cells * m].reshape(n_cells, m),
+                              dim=1, stable=True).indices
+            parts.append(torch.gather(rows, 1, perm).reshape(-1))
+            off += n_cells * m
+        shuffled = parts[0] if len(parts) == 1 else torch.cat(parts)
+    else:
+        composite = (cell_rank.to(torch.int64) << 32) | keys
+        shuffled = seq[torch.sort(composite, stable=True).indices]
+    return shuffled.reshape(-1, block_points)
+
+
+def featurize(scene_xyz: torch.Tensor, scene_extra: torch.Tensor,
+              coord_max: torch.Tensor, color_mask: torch.Tensor,
+              idx: torch.Tensor, offsets: torch.Tensor,
+              block_size: float) -> torch.Tensor:
+    """The f32 model input of a chunk of blocks, gathered from the uploaded
+    scene (``forward_featurized`` of ``tumseg/infer/voting.py:274-290``):
+    idx [B, P] (in range), offsets [B, 2] -> [B, P, 6 + E]: xyz centred on
+    the block's column, xyz / coord_max, then the extra columns, colours
+    / 255.
+
+    The channels are computed in the scene's own precision (f64 for LAS
+    tiles, offsets taken to it) and rounded to f32 once at the end, as
+    ``TestGridDataset.__getitem__`` computes them on the host: the device
+    paths then hand the model the host path's inputs bit for bit. ``tumseg``
+    computes them in f32, a last-ulp difference that is enough to move
+    FPS and ball-query choices at near-ties, and so labels."""
+    pts = scene_xyz[idx.long()]                                # [B, P, 3]
+    normalized = pts / coord_max
+    centre = offsets.to(pts.dtype) + block_size / 2.0          # [B, 2]
+    centered = torch.cat([pts[..., :2] - centre[:, None, :], pts[..., 2:]],
+                         dim=-1)
+    feats = [centered, normalized]
+    if scene_extra.shape[1]:
+        extra = scene_extra[idx.long()]
+        feats.append(torch.where(color_mask, extra / 255.0, extra))
+    return torch.cat([f.to(torch.float32) for f in feats], dim=-1)
+
+
 class InferenceRunner:
     """Batched forward of an ``nn.Module`` on ``device`` + device vote
-    pooling. The model is moved to ``device`` and put in eval mode."""
+    pooling. The model is moved to ``device`` and put in eval mode.
+
+    ``device_features`` ("auto"/True/False) builds each chunk's channels on
+    the device from a once-uploaded scene; "auto" takes it on CUDA.
+    ``device_reblock`` ("auto" follows ``device_features``) re-blocks on the
+    device too, from draws of a ``torch.Generator`` seeded by
+    ``(seed, scene, vote)``. ``window_ops`` ("auto" is off, as ``tumseg``
+    measured it) takes the z-window 3-NN at fp1 inside the vote loop. True
+    works on the CPU as well, with the plain ops."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  batch_size: int = 32, device="cuda", mesh=None,
-                 compute_dtype=None, device_features: bool = False,
-                 device_reblock: bool = False):
-        for name, value in (("mesh", mesh), ("compute_dtype", compute_dtype),
-                            ("device_features", device_features),
-                            ("device_reblock", device_reblock)):
+                 compute_dtype=None, device_features="auto",
+                 device_reblock="auto", window_ops="auto", seed: int = 0):
+        for name, value in (("mesh", mesh), ("compute_dtype", compute_dtype)):
             if value:
                 raise NotImplementedError(f"InferenceRunner {name} "
                                           + _NOT_PORTED)
@@ -60,6 +205,19 @@ class InferenceRunner:
         self.model = model.to(self.device).eval()
         self.num_classes = num_classes
         self.batch_size = batch_size
+        if device_features == "auto":
+            device_features = self.device.type == "cuda"
+        self.device_features = bool(device_features)
+        if device_reblock == "auto":
+            device_reblock = self.device_features
+        self.device_reblock = bool(device_reblock)
+        if window_ops == "auto":
+            window_ops = False
+        self.window_ops = bool(window_ops)
+        self.seed = int(seed)
+        self._scene_cache = {}
+        self._grid_cache = {}
+        self._cache_lock = threading.Lock()
 
     def predict_blocks(self, scene_data: np.ndarray) -> np.ndarray:
         """scene_data [num_blocks, N, C] -> predicted labels [num_blocks, N].
@@ -84,12 +242,210 @@ class InferenceRunner:
                 pred = self.model(x)[0].argmax(dim=-1)
             yield pred, real
 
-    def infer_scene(self, dataset, scene_idx: int, num_votes: int = 5,
-                    gt_weight_gate: bool = True) -> np.ndarray:
-        """Run ``num_votes`` re-blocked passes and return per-point labels
-        for the whole scene [N_scene]. ``gt_weight_gate`` counts a point's
-        votes only where ``labelweights[gt]`` is finite and nonzero, as the
-        reference does."""
+    def _cached(self, cache, dataset, scene_idx: int, build):
+        """Per-scene device cache (``tumseg/infer/voting.py:338-381``). An
+        entry holds the scene's source array, checked with ``is`` (an id()
+        can be reused after garbage collection), so a replaced scene is
+        rebuilt. At most two scenes are held: the one being voted and the
+        one ``prefetch_scene`` stages meanwhile; only completed entries are
+        evicted, oldest first. Entries are ``[src, value, done_event]``
+        claimed under a lock, so two threads missing the same scene build it
+        once: the loser waits on the event."""
+        key = (id(dataset), scene_idx)
+        src = dataset.scene_points_list[scene_idx]
+        with self._cache_lock:
+            entry = cache.get(key)
+            owner = entry is None or entry[0] is not src
+            if owner:
+                entry = [src, None, threading.Event()]
+                cache.pop(key, None)
+                cache[key] = entry
+                done = [k for k in cache
+                        if k != key and cache[k][2].is_set()]
+                while len(cache) > 2 and done:
+                    cache.pop(done.pop(0), None)
+        if owner:
+            try:
+                entry[1] = build()
+            finally:
+                entry[2].set()
+            return entry[1]
+        entry[2].wait()
+        if entry[1] is None:
+            # the owning thread's build raised; rebuild uncached so the
+            # failure surfaces in THIS thread too
+            with self._cache_lock:
+                if cache.get(key) is entry:
+                    cache.pop(key, None)
+            return build()
+        return entry[1]
+
+    def _scene_tensors(self, dataset, scene_idx: int):
+        """The scene's columns on the device, uploaded once, in the host
+        arrays' own precision: (xyz [n, 3], extra [n, E], coord_max [3],
+        color_mask [E] bool). Not padded to a bucket: the only extra row the
+        votes touch is the pool's dump row."""
+        def build():
+            pts = np.ascontiguousarray(
+                dataset.scene_points_list[scene_idx][:, :3])
+            n = pts.shape[0]
+            E = dataset.num_extra_features
+            if E:
+                extra = np.stack(
+                    [np.asarray(c)
+                     for c in dataset.extra_features_data[scene_idx]], axis=1)
+                color_mask = np.array([name in _COLOR_FEATURES
+                                       for name in dataset.feature_name],
+                                      dtype=bool)
+            else:
+                extra = np.zeros((n, 0), dtype=pts.dtype)
+                color_mask = np.zeros((0,), dtype=bool)
+            return tuple(torch.as_tensor(a, device=self.device)
+                         for a in (pts, extra, pts.max(axis=0), color_mask))
+
+        return self._cached(self._scene_cache, dataset, scene_idx, build)
+
+    def _grid_tensors(self, dataset, scene_idx: int):
+        """The scene's grid structure, uploaded once: (flat_base, starts_pos,
+        counts_pos [L] int32 and offsets [NB, 2] f64 on the device;
+        cell_rank [L] int32 on the host, which only the global-sort fallback
+        of :func:`reblock_on_device` reads; segments). Every vote then needs
+        only its draws."""
+        def build():
+            cells = dataset.grid_structure(scene_idx)
+            (flat_base, starts, counts, sizes, offsets, segments,
+             _order) = _build_reblock_arrays(cells, dataset.block_points)
+            dev = self.device
+            sizes_t = torch.as_tensor(sizes.astype(np.int64), device=dev)
+            starts_pos = torch.repeat_interleave(
+                torch.as_tensor(starts, device=dev), sizes_t)
+            counts_pos = torch.repeat_interleave(
+                torch.as_tensor(counts, device=dev), sizes_t)
+            cell_rank = np.repeat(np.arange(starts.shape[0], dtype=np.int32),
+                                  sizes)
+            return (torch.as_tensor(flat_base, device=dev), starts_pos,
+                    counts_pos, cell_rank,
+                    torch.as_tensor(offsets, device=dev), segments)
+
+        return self._cached(self._grid_cache, dataset, scene_idx, build)
+
+    def prefetch_scene(self, dataset, scene_idx: int) -> None:
+        """Stage a scene ahead of time (``run_testing`` calls this from its
+        prefetch thread): its host gridding and, on the device paths, its
+        uploads, so they overlap the current scene's votes."""
+        if not hasattr(dataset, "grid_structure"):
+            return
+        dataset.grid_structure(scene_idx)   # host gridding (memoized)
+        if self.device_features:
+            self._scene_tensors(dataset, scene_idx)
+            if self.device_reblock:
+                self._grid_tensors(dataset, scene_idx)
+
+    def vote_draws(self, scene_idx: int, vote: int, length: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The draws of one vote's :func:`reblock_on_device`: (u [L] f32 in
+        [0, 1), keys [L] int64 below 2**32) from a generator on the device
+        seeded by (seed, scene, vote), so scenes and votes draw
+        independently (``jax.random.fold_in`` in ``tumseg``)."""
+        state = np.random.SeedSequence([self.seed, scene_idx, vote])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+        u = torch.rand(length, generator=gen, device=self.device)
+        keys = torch.randint(0, 2 ** 32, (length,), generator=gen,
+                             device=self.device, dtype=torch.int64)
+        return u, keys
+
+    def _vote(self, scene, idx_blocks: torch.Tensor, offsets: torch.Tensor,
+              pool_flat: torch.Tensor, block_size: float) -> None:
+        """One vote's chunk loop (``_vote_scan_fn``'s "scan" mode,
+        ``tumseg/infer/voting.py:480-540``): each B-block chunk of
+        ``idx_blocks`` [NB, P] is featurized, forwarded, and the ones of its
+        argmax are added at ``idx * C + pred`` into ``pool_flat``
+        [(n + 1) * C], in place. A short last chunk is padded to B with the
+        dump row ``n``, so every forward has the kernels' B-block shapes.
+        Counts are small integers in f32: atomics cannot change the pool."""
+        scene_xyz, scene_extra, coord_max, color_mask = scene
+        n = scene_xyz.shape[0]
+        bs, C = self.batch_size, self.num_classes
+        for s in range(0, idx_blocks.shape[0], bs):
+            idx = idx_blocks[s:s + bs]
+            offs = offsets[s:s + bs]
+            if idx.shape[0] < bs:
+                pad = bs - idx.shape[0]
+                idx = torch.cat([idx, idx.new_full((pad, idx.shape[1]), n)])
+                offs = torch.cat([offs, offs.new_zeros(pad, 2)])
+            points = featurize(scene_xyz, scene_extra, coord_max, color_mask,
+                               idx.clamp(max=n - 1), offs, block_size)
+            pred = self.model(points)[0].argmax(dim=-1)
+            flat = idx.reshape(-1).long() * C + pred.reshape(-1)
+            pool_flat.index_add_(0, flat,
+                                 torch.ones_like(flat, dtype=pool_flat.dtype))
+
+    def _finish(self, dataset, scene_idx: int, pool_flat: torch.Tensor,
+                gt_weight_gate: bool) -> np.ndarray:
+        """The labels of a flat pool: votes count only where
+        ``labelweights[gt]`` is finite and nonzero (a per-point constant, so
+        it gates the finished pool, ``tumseg/infer/voting.py:630-639``),
+        then the argmax over the scene's rows."""
+        labels = dataset.semantic_labels_list[scene_idx].astype(np.int64)
+        n = labels.shape[0]
+        pool = pool_flat.reshape(n + 1, self.num_classes)[:n]
+        if gt_weight_gate:
+            smpw = np.asarray(dataset.labelweights, np.float32)[labels]
+            keep = torch.as_tensor((smpw != 0) & ~np.isinf(smpw),
+                                   device=self.device)
+            pool = torch.where(keep[:, None], pool, 0.0)
+        return pool.argmax(dim=1).cpu().numpy()
+
+    def _infer_scene_device_reblock(self, dataset, scene_idx, num_votes,
+                                    gt_weight_gate):
+        """``tumseg/infer/voting.py:594-640``: scene and grid uploaded once,
+        each vote re-blocked and voted on the device."""
+        scene = self._scene_tensors(dataset, scene_idx)
+        (flat_base, starts_pos, counts_pos, _cell_rank, offsets,
+         segments) = self._grid_tensors(dataset, scene_idx)
+        n = scene[0].shape[0]
+        pool_flat = torch.zeros((n + 1) * self.num_classes,
+                                dtype=torch.float32, device=self.device)
+        bp = int(dataset.block_points)
+        for vote in progress(range(num_votes), desc="votes"):
+            u, keys = self.vote_draws(scene_idx, vote, flat_base.shape[0])
+            idx_blocks = reblock_on_device(u, keys, flat_base, starts_pos,
+                                           counts_pos, bp, segments)
+            with ops.window_enabled(self.window_ops):
+                self._vote(scene, idx_blocks, offsets, pool_flat,
+                           float(dataset.block_size))
+        return self._finish(dataset, scene_idx, pool_flat, gt_weight_gate)
+
+    def _infer_scene_device_features(self, dataset, scene_idx, num_votes,
+                                     gt_weight_gate):
+        """``tumseg/infer/voting.py:642-686``: host ``grid_indices`` every
+        vote (the next one drawn on a worker), device featurization and
+        vote."""
+        scene = self._scene_tensors(dataset, scene_idx)
+        n = scene[0].shape[0]
+        pool_flat = torch.zeros((n + 1) * self.num_classes,
+                                dtype=torch.float32, device=self.device)
+        executor = ThreadPoolExecutor(max_workers=1)
+        try:
+            fut = executor.submit(dataset.grid_indices, scene_idx)
+            for vote in progress(range(num_votes), desc="votes"):
+                idx_blocks, offsets = fut.result()
+                if vote + 1 < num_votes:
+                    fut = executor.submit(dataset.grid_indices, scene_idx)
+                with ops.window_enabled(self.window_ops):
+                    self._vote(
+                        scene,
+                        torch.as_tensor(idx_blocks.astype(np.int32),
+                                        device=self.device),
+                        torch.as_tensor(offsets, device=self.device),
+                        pool_flat, float(dataset.block_size))
+        finally:
+            executor.shutdown(wait=False)
+        return self._finish(dataset, scene_idx, pool_flat, gt_weight_gate)
+
+    def _infer_scene_host(self, dataset, scene_idx, num_votes,
+                          gt_weight_gate):
         n_scene = dataset.semantic_labels_list[scene_idx].shape[0]
         pool = torch.zeros((n_scene, self.num_classes), dtype=torch.float32,
                            device=self.device)
@@ -120,6 +476,24 @@ class InferenceRunner:
             executor.shutdown(wait=False)
         return pool.argmax(dim=1).cpu().numpy()
 
+    def infer_scene(self, dataset, scene_idx: int, num_votes: int = 5,
+                    gt_weight_gate: bool = True) -> np.ndarray:
+        """Run ``num_votes`` re-blocked passes and return per-point labels
+        for the whole scene [N_scene], through the path chosen at
+        construction (``tumseg/infer/voting.py:688-701``).
+        ``gt_weight_gate`` counts a point's votes only where
+        ``labelweights[gt]`` is finite and nonzero, as the reference does."""
+        with torch.inference_mode():
+            if (self.device_reblock and self.device_features
+                    and hasattr(dataset, "grid_structure")):
+                return self._infer_scene_device_reblock(
+                    dataset, scene_idx, num_votes, gt_weight_gate)
+            if self.device_features and hasattr(dataset, "grid_indices"):
+                return self._infer_scene_device_features(
+                    dataset, scene_idx, num_votes, gt_weight_gate)
+            return self._infer_scene_host(dataset, scene_idx, num_votes,
+                                          gt_weight_gate)
+
 
 def run_testing(dataset, runner: InferenceRunner, *, num_votes: int,
                 visual_dir=None, visual: bool = False,
@@ -127,56 +501,74 @@ def run_testing(dataset, runner: InferenceRunner, *, num_votes: int,
                 result_color: bool = True, log_string=print):
     """Voting inference over every scene, the per-scene and aggregate IoU
     report, ``visual/<scene>.txt`` label dumps and optional coloured .obj
-    files (``tumseg/infer/voting.py:741-824``). The result also carries
-    ``infer_seconds``, the wall time spent in ``infer_scene``."""
+    files (``tumseg/infer/voting.py:741-824``). While a scene votes, a
+    one-worker pool stages the next one (``runner.prefetch_scene``); its
+    result is read before that scene votes, so a failed prefetch raises
+    there. The result also carries ``infer_seconds``, the wall time spent
+    in ``infer_scene``."""
     num_classes = runner.num_classes
     scene_ids = [os.path.basename(str(f))[:-4] for f in dataset.file_list]
     totals = M.zero_tallies(num_classes)
     per_scene_miou = []
     infer_seconds = 0.0
+    prefetch = (ThreadPoolExecutor(max_workers=1)
+                if hasattr(dataset, "grid_structure") else None)
+    staged = None
 
     log_string("---- EVALUATION WHOLE SCENE----")
-    for batch_idx in range(len(dataset)):
-        print("Inference [%d/%d] %s ..." % (batch_idx + 1, len(dataset),
-                                            scene_ids[batch_idx]))
-        whole_scene_label = dataset.semantic_labels_list[batch_idx].astype(int)
-        whole_scene_data = dataset.scene_points_list[batch_idx]
+    try:
+        for batch_idx in range(len(dataset)):
+            print("Inference [%d/%d] %s ..." % (batch_idx + 1, len(dataset),
+                                                scene_ids[batch_idx]))
+            if staged is not None:
+                staged.result()
+                staged = None
+            if prefetch is not None and batch_idx + 1 < len(dataset):
+                staged = prefetch.submit(runner.prefetch_scene, dataset,
+                                         batch_idx + 1)
+            whole_scene_label = dataset.semantic_labels_list[
+                batch_idx].astype(int)
+            whole_scene_data = dataset.scene_points_list[batch_idx]
 
-        t0 = time.perf_counter()
-        pred_label = runner.infer_scene(dataset, batch_idx, num_votes)
-        infer_seconds += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pred_label = runner.infer_scene(dataset, batch_idx, num_votes)
+            infer_seconds += time.perf_counter() - t0
 
-        t = M.confusion_tallies(torch.as_tensor(pred_label),
-                                torch.as_tensor(whole_scene_label),
-                                num_classes)
-        scene_iou = M.iou_from_tallies(t)
-        totals = M.accumulate_host(totals, t)
-        seen = np.asarray(t["seen"])
-        tmp_iou = (float(np.mean(scene_iou[seen != 0]))
-                   if (seen != 0).any() else 0.0)
-        print(scene_iou)
-        per_scene_miou.append(tmp_iou)
-        log_string("Mean IoU of %s: %.4f" % (scene_ids[batch_idx], tmp_iou))
-        print("----------------------------")
+            t = M.confusion_tallies(torch.as_tensor(pred_label),
+                                    torch.as_tensor(whole_scene_label),
+                                    num_classes)
+            scene_iou = M.iou_from_tallies(t)
+            totals = M.accumulate_host(totals, t)
+            seen = np.asarray(t["seen"])
+            tmp_iou = (float(np.mean(scene_iou[seen != 0]))
+                       if (seen != 0).any() else 0.0)
+            print(scene_iou)
+            per_scene_miou.append(tmp_iou)
+            log_string("Mean IoU of %s: %.4f" % (scene_ids[batch_idx],
+                                                  tmp_iou))
+            print("----------------------------")
 
-        if visual_dir is not None:
-            write_labels_txt(os.path.join(str(visual_dir),
-                                          scene_ids[batch_idx] + ".txt"),
-                             pred_label)
-            if visual:
-                kw = (dict(labels=pred_label, label2color=label2color)
-                      if result_color else {})
-                kw_gt = (dict(labels=whole_scene_label,
-                              label2color=label2color)
-                         if result_color else {})
-                write_obj_pointcloud(
-                    os.path.join(str(visual_dir),
-                                 scene_ids[batch_idx] + "_pred.obj"),
-                    whole_scene_data, **kw)
-                write_obj_pointcloud(
-                    os.path.join(str(visual_dir),
-                                 scene_ids[batch_idx] + "_gt.obj"),
-                    whole_scene_data, **kw_gt)
+            if visual_dir is not None:
+                write_labels_txt(os.path.join(str(visual_dir),
+                                              scene_ids[batch_idx] + ".txt"),
+                                 pred_label)
+                if visual:
+                    kw = (dict(labels=pred_label, label2color=label2color)
+                          if result_color else {})
+                    kw_gt = (dict(labels=whole_scene_label,
+                                  label2color=label2color)
+                             if result_color else {})
+                    write_obj_pointcloud(
+                        os.path.join(str(visual_dir),
+                                     scene_ids[batch_idx] + "_pred.obj"),
+                        whole_scene_data, **kw)
+                    write_obj_pointcloud(
+                        os.path.join(str(visual_dir),
+                                     scene_ids[batch_idx] + "_gt.obj"),
+                        whole_scene_data, **kw_gt)
+    finally:
+        if prefetch is not None:
+            prefetch.shutdown(wait=False)
 
     iou = M.iou_from_tallies(totals)
     iou_str = "------- IoU --------\n"

@@ -8,6 +8,14 @@ that fails to build or launch raises.
 version on the card. Grouping and interpolation are differentiable through
 ``tumseg_torch.ops.autograd``, which keeps the choice made here at forward
 time for the backward pass.
+
+``window_enabled()`` (this thread) and ``set_window()`` (the process
+default) switch :func:`three_nn_interpolate` to the z-window 3-NN where
+``tumseg``'s ``three_nn_dispatch`` takes it (``tumseg/ops/__init__.py:
+304-314``): N >= 4096 queries, S >= 1024 sources, S a multiple of 128. The
+window is exact (a guarded fallback to the full expansion form), so it
+never changes what the op computes, only how. Unlike ``tumseg``, no
+environment variable turns it on.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ from tumseg_torch.ops import core, kernels
 from tumseg_torch.ops.autograd import GroupPoints, ThreeNNInterpolate
 
 _state = threading.local()
+_window_default = False
+# tumseg/ops/__init__.py:128 and :188-189, :304-310
+WINDOW_MIN_N = 4096
+WINDOW_N_TILE = 256
 
 
 @contextlib.contextmanager
@@ -34,6 +46,35 @@ def plain():
         yield
     finally:
         _state.plain = prev
+
+
+def set_window(enabled: bool) -> None:
+    """Process default of the z-window 3-NN (off unless set)."""
+    global _window_default
+    _window_default = bool(enabled)
+
+
+@contextlib.contextmanager
+def window_enabled(enabled: bool = True):
+    """Take (or, with False, leave) the z-window 3-NN inside this block
+    (this thread only), whatever the process default."""
+    prev = getattr(_state, "window", None)
+    _state.window = bool(enabled)
+    try:
+        yield
+    finally:
+        _state.window = prev
+
+
+def _window_on() -> bool:
+    window = getattr(_state, "window", None)
+    return _window_default if window is None else window
+
+
+def three_nn_window(s: int) -> int:
+    """Window width for ``s`` sources: 384 at S=1024
+    (``tumseg/ops/__init__.py:188-189``)."""
+    return min(s, max(384, (s * 3 // 8 + 127) // 128 * 128))
 
 
 def _impl(t: torch.Tensor):
@@ -77,7 +118,16 @@ def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
 
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                          points2: torch.Tensor):
-    return ThreeNNInterpolate.apply(xyz1, xyz2, points2, _impl(xyz1))
+    """-> (dists, idx, out): the direct-form 3-NN and the interpolation, or,
+    with the window on at N >= 4096, S >= 1024, S % 128 == 0, the z-window
+    3-NN in the expansion form (window ``three_nn_window(S)``, tiles of 256
+    queries) and the interpolation."""
+    N, S = xyz1.shape[1], xyz2.shape[1]
+    window = None
+    if _window_on() and N >= WINDOW_MIN_N and S >= 1024 and S % 128 == 0:
+        window = three_nn_window(S)
+    return ThreeNNInterpolate.apply(xyz1, xyz2, points2, _impl(xyz1), window,
+                                    WINDOW_N_TILE)
 
 
 def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,

@@ -18,6 +18,7 @@ no parameter upstream, and get no gradient, as in the JAX package.
 from __future__ import annotations
 
 from types import ModuleType
+from typing import Optional
 
 import torch
 
@@ -48,17 +49,26 @@ class GroupPoints(torch.autograd.Function):
 
 class ThreeNNInterpolate(torch.autograd.Function):
     """(xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D]) -> (dists, idx,
-    out [B, N, D]); dists and idx are not differentiable. Backward:
-    d points2 = W^T g with the weights recomputed from the saved distances
-    by the fused kernel's own formula (``core.interpolation_weights``)."""
+    out [B, N, D]); dists and idx are not differentiable. ``window`` None
+    takes the direct-form 3-NN, a width the z-window 3-NN of ``n_tile``
+    queries a tile (``threenn.py:376-393`` is its zero coordinate VJP).
+    Backward: d points2 = W^T g with the weights recomputed from the saved
+    distances by the fused kernels' own formula
+    (``core.interpolation_weights``), whichever 3-NN ran."""
 
     @staticmethod
     def forward(ctx, xyz1: torch.Tensor, xyz2: torch.Tensor,
-                points2: torch.Tensor, impl: ModuleType):
-        dists, idx, out = impl.three_nn_interpolate(
-            xyz1.detach(), xyz2.detach(), points2.detach())
+                points2: torch.Tensor, impl: ModuleType,
+                window: Optional[int] = None, n_tile: int = 256):
+        args = (xyz1.detach(), xyz2.detach(), points2.detach())
+        if window is None:
+            dists, idx, out = impl.three_nn_interpolate(*args)
+        else:
+            dists, idx, out = impl.three_nn_window_interpolate(
+                *args, window, n_tile)
         ctx.mark_non_differentiable(dists, idx)
         ctx.impl = impl
+        ctx.window = window
         ctx.s = xyz2.shape[1]
         ctx.save_for_backward(dists, idx)
         return dists, idx, out
@@ -71,4 +81,4 @@ class ThreeNNInterpolate(torch.autograd.Function):
             dp2 = ctx.impl.interpolate_backward(
                 idx, core.interpolation_weights(dists),
                 grad_out.contiguous(), ctx.s)
-        return None, None, dp2, None
+        return None, None, dp2, None, None, None

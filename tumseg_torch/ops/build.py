@@ -36,6 +36,7 @@ SIGNATURES = {
                                     _P),
     "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tumseg_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tumseg_three_nn_window": (_P,) * 11 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -19,10 +19,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from tumseg_torch.ops import build
+from tumseg_torch.ops import build, core
 
 KERNELS = ("fps", "ball_query", "ball_query_multi", "group",
-           "three_nn_interpolate", "group_backward", "interpolate_backward")
+           "three_nn_interpolate", "group_backward", "interpolate_backward",
+           "three_nn_window")
 launches = dict.fromkeys(KERNELS, 0)
 
 # FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
@@ -194,6 +195,59 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
             _ptr(xyz1), _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx),
             _ptr(out), B, N, S, D)
     return dists, idx, out
+
+
+def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                                points2: torch.Tensor, window: int,
+                                n_tile: int = 256):
+    """xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D] f32 -> (dists
+    [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32): the z-window
+    3-NN of ``core.three_nn_windowed`` and the interpolation, one launch.
+    The z-sorts, window starts and the largest source norm are computed
+    here in torch; where ``core.window_plan`` gives no window the kernel
+    runs as the full expansion-form row kernel."""
+    _check("xyz1", xyz1, torch.float32, (None, None, 3))
+    B, N, _ = xyz1.shape
+    _check("xyz2", xyz2, torch.float32, (B, None, 3))
+    S = xyz2.shape[1]
+    _check("points2", points2, torch.float32, (B, S, None))
+    D = points2.shape[2]
+    if S < 3:
+        raise ValueError(f"three_nn needs at least 3 sources, got S={S}")
+    device = _same_device(xyz1, xyz2, points2)
+    dists = torch.empty((B, N, 3), dtype=torch.float32, device=device)
+    idx = torch.empty((B, N, 3), dtype=torch.int32, device=device)
+    out = torch.empty((B, N, D), dtype=torch.float32, device=device)
+    plan = core.window_plan(N, S, window, n_tile)
+    null = ctypes.c_void_p(None)
+    if plan is None:
+        sorted_args = (null,) * 5
+        C, n_tile = S, N
+    else:
+        C, n_tile = plan
+        srt, sorder = core.sort_by_z(xyz2)
+        qs, qorder = core.sort_by_z(xyz1)
+        starts = core.window_starts(srt[..., 2].contiguous(),
+                                    qs[..., 2].contiguous(), n_tile, C)
+        ssq_max = core._sqnorm(srt).amax(1)
+        keep = tuple(t.contiguous()
+                     for t in (srt, sorder, qorder, starts, ssq_max))
+        sorted_args = tuple(_ptr(t) for t in keep)
+    _launch("three_nn_window", "tumseg_three_nn_window", device, _ptr(xyz1),
+            _ptr(xyz2), *sorted_args, _ptr(points2), _ptr(dists), _ptr(idx),
+            _ptr(out), B, N, S, D, C, n_tile)
+    return dists, idx, out
+
+
+def three_nn_expansion(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """xyz1 [B, N, 3], xyz2 [B, S, 3] f32 -> (dists [B, N, 3] f32, idx
+    [B, N, 3] int32) of ``core.three_nn_expansion``: the window kernel run
+    as the full row kernel, with nothing to interpolate."""
+    _check("xyz2", xyz2, torch.float32, (None, None, 3))
+    empty = xyz2.new_empty(xyz2.shape[0], xyz2.shape[1], 0)
+    dists, idx, _ = three_nn_window_interpolate(xyz1, xyz2, empty,
+                                                xyz2.shape[1])
+    return dists, idx
 
 
 def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
