@@ -24,15 +24,21 @@ e. runs each backward kernel and its plain version on unit-normal
    a varying order) and times both;
 f. takes one training step (train-mode BN, weighted NLL, backward) of the
    seeded model on one B=16 x 4096 batch with the kernels and under
-   ``ops.plain()``: loss within rtol 1e-5, every parameter gradient within
-   1e-4 of the largest gradient of its layer; then times the step
-   (forward + backward + Adam) both ways;
+   ``ops.plain()``, with exact gathers and then with the single-pass bf16
+   gathers that the training engine takes by default (``fast_gather``, as
+   ``tumseg`` trains on its accelerator), both sides in the same mode: loss
+   within rtol 1e-5, every parameter gradient within 1e-4 of the largest
+   gradient of its layer (with fast gathers, or within three times the
+   kernels' own run-to-run spread over three more steps: see
+   ``fast_step_limit``); then times the step (forward + backward + Adam)
+   with the kernels in both modes and plain;
 g. trains through ``tumseg_torch.cli.train.main`` on a synthetic ~600K-point
-   facade tile (2 epochs, B=16 x 4096, >= 10 steps), checks that the logged
-   losses are finite, that ``best_model.pth`` serves through
-   ``tumseg_torch.cli.test``, and that the backward kernels were launched at
-   least steps x 3 (group: sa2-sa4) and steps x 4 (interpolation: fp1-fp4)
-   times in that run;
+   facade tile (2 epochs, B=16 x 4096, >= 10 steps; fast gathers, the
+   engine's default), checks that the logged losses are finite, that
+   ``best_model.pth`` serves through ``tumseg_torch.cli.test``, that the
+   backward kernels were launched at least steps x 3 (group: sa2-sa4) and
+   steps x 4 (interpolation: fp1-fp4) times in that run, and that the group
+   kernel stored bf16 at least steps x 4 times;
 h. runs the multi-radius ball-query kernel at the four stage shapes of a
    B=32 x 4096-point forward of ``pointnet2_sem_seg_msg`` (radii .05/.1,
    .1/.2, .2/.4, .4/.8, K = 16/32): indices identical to its plain version
@@ -46,11 +52,12 @@ j. serves the tile of d with the MSG model through
    device path) and checks its launches per forward (ball query only through
    the multi-radius kernel);
 k. takes one MSG training step at B=16 x 4096 with the kernels and plain
-   (loss within rtol 1e-5, every gradient within 1e-4 of its layer's
-   largest, both timed), then trains through
+   (fast gathers both; loss within rtol 1e-5, every gradient within 1e-4 of
+   its layer's largest, both timed), then trains through
    ``tumseg_torch.cli.train --model pointnet2_sem_seg_msg`` (1 epoch, >= 6
    steps, multi-radius ball query >= steps x 4 and group backward >= steps x
-   6 launches) and serves its ``best_model.pth``;
+   6 launches, the group kernel's bf16 output >= steps x 8) and serves its
+   ``best_model.pth``;
 l. (run right after b, while the host is quiet: the wrapper's torch ops
    are host-bound) runs the z-window 3-NN kernel at fp1's shapes (B=32
    facade blocks of
@@ -74,14 +81,43 @@ m. serves the tile of d three ways in one call, SSG with the weights of c,
 n. serves a ~1M-point facade tile (2 votes) by the host and the device path:
    scene-points/s, the re-blocking time of one vote, and the device idle
    share over the vote loop from ``torch.profiler`` (CUDA-busy time over
-   the wall time of one profiled vote).
+   the wall time of one profiled vote);
+o. (after e) the fast (single-pass bf16) modes at a B=16 x 4096 training
+   step's shapes: the group kernel at sa1-sa4 bitwise equal to the plain
+   fast group, in bf16; the group backward at sa2-sa4 with a bf16 and with
+   an f32 cotangent, the interpolation forward at fp1-fp4 (and fp1 through
+   the window kernel) and its backward, each within rtol 1e-5 / atol 1e-6 of
+   its plain fast version; each fast time beside the same kernel's exact
+   time at the same shapes;
+p. (after l) the fused ball query + group kernel at sa1-sa4 of the
+   B=32 x 4096 forward, exact and fast, and on an input with an empty ball:
+   grouped and idx bitwise equal to the ball-query kernel then the group
+   kernel of the same mode and to the plain fused op, with short balls
+   present; timed beside that split pair, its bound and its plain version;
+q. (after d) the fused switch end to end: one SSG forward under
+   ``ops.fused_group_enabled()`` gives the log-probs of the switch off bit
+   for bit, with 4 fused launches and 4 fewer ball-query launches; one
+   training step (``TrainEngine``, fast gathers) under the switch gives the
+   loss of the same step without it bit for bit, from the same state and
+   generator, and its gradients bit for bit or, where they are not, no
+   further from the split path's than three times the split path's own
+   spread over three more steps (``fast_step_limit``);
+r. (after k) fast against exact training: one SSG and one MSG step from the
+   same weights and batch at ``exact_gathers=False`` and ``True``, printing
+   the loss difference and the largest gradient difference relative to its
+   layer's largest gradient (what the bf16 gathers cost; no threshold); the
+   kernels' fast launches are > 0 in the fast step and 0 in the exact step
+   and in eval.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
 the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted from
 this run's inputs (a ball query counts the candidates its queries scan
 before their balls fill), and beside one PyTorch call that computes the same
-function where there is one. The line before the last is a JSON summary of
+function where there is one. A kernel with a fast mode also reports
+``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
+time at the same shapes (phase o's; phase p's for the fused kernel). The
+line before the last is a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises, and the script then exits non-zero without printing either
 line. Without a CUDA device it exits with code 2.
@@ -130,6 +166,8 @@ REPLACES = {
     "interpolate_backward": "tumseg/ops/pallas/interpolate.py:48",
     "three_nn_window": "tumseg/ops/pallas/threenn.py:218; "
                        "tumseg/ops/pallas/threenn.py:32",
+    "fused_ball_group": "tumseg/ops/pallas/fusedgroup.py:51; "
+                        "tumseg/ops/pallas/fusedgroup.py:120",
 }
 SOURCES = {
     "fps": "tumseg_torch/csrc/fps.cu",
@@ -140,7 +178,11 @@ SOURCES = {
     "group_backward": "tumseg_torch/csrc/group_backward.cu",
     "interpolate_backward": "tumseg_torch/csrc/interpolate_backward.cu",
     "three_nn_window": "tumseg_torch/csrc/three_nn_window.cu",
+    "fused_ball_group": "tumseg_torch/csrc/fused_ball_group.cu",
 }
+# the kernels with a fast (single-pass bf16) mode
+FAST = ("group", "three_nn_interpolate", "group_backward",
+        "interpolate_backward", "three_nn_window", "fused_ball_group")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -159,6 +201,15 @@ PER_STEP = {
     "pointnet2_sem_seg": {"group_backward": 3, "interpolate_backward": 4},
     "pointnet2_sem_seg_msg": {"group_backward": 6, "interpolate_backward": 4,
                               "ball_query_multi": 4},
+}
+# fast launches of one training step with fast gathers: the neighbourhood
+# groups (once per radius), the interpolations and both backward kernels
+FAST_PER_STEP = {
+    "pointnet2_sem_seg": {"group": 4, "three_nn_interpolate": 4,
+                          "group_backward": 3, "interpolate_backward": 4},
+    "pointnet2_sem_seg_msg": {"group": 8, "three_nn_interpolate": 4,
+                              "group_backward": 6,
+                              "interpolate_backward": 4},
 }
 
 
@@ -231,6 +282,8 @@ class Report:
                                "bound_ms": 0.0, "bound_by": None,
                                "library_ms": None}
                         for name in SOURCES}
+        for name in FAST:
+            self.kernels[name].update(fast_ms=0.0, fast_exact_ms=0.0)
         self.terms = {name: [0.0, 0.0] for name in SOURCES}  # bytes, ops ms
 
     def add(self, torch, name, label, kernel_fn, plain_fn, err, *, nbytes,
@@ -263,6 +316,20 @@ class Report:
               f"{[round(r, 4) for r in pruns]}{lib}  bound "
               f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB, "
               f"{ops / 1e9:.3f} Gop)  max|err| {err:g}")
+
+    def add_fast(self, torch, name, label, fast_fn, exact_fn, err, phase):
+        """Times a kernel's fast mode beside its exact mode at the same
+        shapes; both add up to the kernel's ``fast_ms`` and
+        ``fast_exact_ms``."""
+        fms, fruns = time_ms(torch, fast_fn, 20)
+        ems, eruns = time_ms(torch, exact_fn, 20)
+        k = self.kernels[name]
+        k["fast_ms"] += fms
+        k["fast_exact_ms"] += ems
+        k["max_abs_err"] = max(k["max_abs_err"], float(err))
+        print(f"[{phase}] {name:22s} {label:28s} fast {fms:9.4f} ms "
+              f"{[round(r, 4) for r in fruns]}  exact {ems:9.4f} ms "
+              f"{[round(r, 4) for r in eruns]}  max|err| {err:g}")
 
 
 def group_cost(idx, C, n):
@@ -631,6 +698,40 @@ def phase_backward(torch, report):
               ops=TRAIN_B * n1 * 3 * d * 2)
 
 
+def grad_gap(got, want):
+    """-> (ratio, name): the largest |got - want| of a gradient over its
+    layer's scale, the largest |want| of the layer's weight and bias (the
+    bias of a Dense before a train-mode BN has an exact gradient of 0, the
+    batch mean removes it, and carries only rounding noise); inf where not
+    finite."""
+    layer_max = {}
+    for name, g in want.items():
+        layer = name.rsplit(".", 1)[0]
+        layer_max[layer] = max(layer_max.get(layer, 0.0),
+                               g.abs().max().item())
+    gaps = []
+    for name, g in want.items():
+        rel = ((got[name] - g).abs().max().item()
+               / layer_max[name.rsplit(".", 1)[0]])
+        gaps.append((rel if math.isfinite(rel) else math.inf, name))
+    return max(gaps)
+
+
+def fast_step_limit(first, repeats):
+    """-> (spread, limit) for comparing the gradients of a training step
+    with fast gathers: the largest :func:`grad_gap` of the ``repeats`` of
+    the same step from ``first``, and three times that (at least phase f's
+    1e-4). The backward kernels add in f32 with atomics, in an order that
+    varies from run to run, and the fast backward rounds each cotangent to
+    bf16, so a low-bit difference out of one kernel can become a bf16 step
+    (2^-8) at the next: two runs of the same step on the card differ by
+    ~1e-3 of a layer's largest gradient, where exact gathers keep them
+    within ~1e-5. Another path through the same kernels may differ from
+    this step no more than the step differs from itself."""
+    spread = max(grad_gap(g, first) for g in repeats)
+    return spread, max(1e-4, 3 * spread[0])
+
+
 def phase_train_step(torch, state_dict, model_name, tag):
     import copy
 
@@ -647,8 +748,8 @@ def phase_train_step(torch, state_dict, model_name, tag):
     base.load_state_dict(state_dict)
     base.train()
 
-    def step(model, opt=None):
-        logp, _ = model(x)
+    def step(model, fast, opt=None):
+        logp, _ = model(x, fast_gather=fast)
         loss = model.loss(logp, target, weight)
         if opt is not None:
             opt.zero_grad(set_to_none=True)
@@ -657,59 +758,61 @@ def phase_train_step(torch, state_dict, model_name, tag):
             opt.step()
         return loss.detach()
 
-    def grads(plain):
+    def grads(plain, fast):
         model = copy.deepcopy(base)
         if plain:
             with ops.plain():
-                loss = step(model)
+                loss = step(model, fast)
         else:
-            loss = step(model)
+            loss = step(model, fast)
         return float(loss), {n: p.grad for n, p in model.named_parameters()}
 
-    lk, gk = grads(False)
-    lp, gp = grads(True)
-    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
-        raise AssertionError(f"train-step loss {lk} (kernels) vs {lp} (plain)")
-    # a layer's scale: the largest gradient of its weight and bias. The bias
-    # of a Dense before a train-mode BN has an exact gradient of 0 (the
-    # batch mean removes it) and carries only rounding noise.
-    layer_max = {}
-    for name, g in gp.items():
-        layer = name.rsplit(".", 1)[0]
-        layer_max[layer] = max(layer_max.get(layer, 0.0),
-                               g.abs().max().item())
-    worst, worst_name = 0.0, ""
-    for name, g in gk.items():
-        scale = layer_max[name.rsplit(".", 1)[0]]
-        rel = (g - gp[name]).abs().max().item() / scale
-        if not math.isfinite(rel) or rel > 1e-4:
-            raise AssertionError(f"gradient of {name}: max|dg| = "
-                                 f"{rel:g} x its layer's max|g|")
-        if rel > worst:
-            worst, worst_name = rel, name
-    print(f"[{tag}] {model_name} train step B={TRAIN_B}x{N}: loss {lk:.6f} "
-          f"(kernels) {lp:.6f} (plain); worst gradient {worst:.3g} x max|g| "
-          f"({worst_name}), {len(gk)} tensors")
+    # exact gathers, then the fast ones that the training engine takes by
+    # default, kernels and plain in the same mode
+    for fast in (False, True):
+        lk, gk = grads(False, fast)
+        lp, gp = grads(True, fast)
+        if not (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+            raise AssertionError(f"train-step loss {lk} (kernels) vs {lp} "
+                                 f"(plain), fast={fast}")
+        worst, worst_name = grad_gap(gk, gp)
+        limit, spread = 1e-4, ""
+        if fast:
+            (again, again_name), limit = fast_step_limit(
+                gk, [grads(False, fast)[1] for _ in range(3)])
+            spread = (f"; three more kernel steps differ from the first by "
+                      f"up to {again:.3g} ({again_name}), limit {limit:.3g}")
+        if worst > limit:
+            raise AssertionError(f"gradient of {worst_name}: max|dg| = "
+                                 f"{worst:g} x its layer's max|g|, "
+                                 f"fast={fast}")
+        print(f"[{tag}] {model_name} train step B={TRAIN_B}x{N} "
+              f"{'fast' if fast else 'exact'} gathers: loss {lk:.6f} "
+              f"(kernels) {lp:.6f} (plain); worst gradient {worst:.3g} x "
+              f"max|g| ({worst_name}), {len(gk)} tensors{spread}")
 
-    def timed(plain):
+    def timed(plain, fast):
         model = copy.deepcopy(base)
         opt = make_optimizer(model.parameters(), "Adam", 1e-4)
 
         def one():
             if plain:
                 with ops.plain():
-                    step(model, opt)
+                    step(model, fast, opt)
             else:
-                step(model, opt)
+                step(model, fast, opt)
         return time_ms(torch, one, 1)
 
     runs = {}
-    for label, plain in (("plain", True), ("kernels", False),
-                         ("kernels", False), ("plain", True)):
-        runs.setdefault(label, []).append(timed(plain)[0])
+    for label, plain, fast in (
+            ("plain", True, True), ("kernels exact", False, False),
+            ("kernels", False, True), ("kernels", False, True),
+            ("kernels exact", False, False), ("plain", True, True)):
+        runs.setdefault(label, []).append(timed(plain, fast)[0])
     print(f"[{tag}] train step B={TRAIN_B}x{N} (forward + backward + Adam, "
-          f"median of 3, two turns each): kernels "
-          f"{[round(v, 3) for v in runs['kernels']]} ms, plain "
+          f"median of 3, two turns each): kernels with fast gathers "
+          f"{[round(v, 3) for v in runs['kernels']]} ms, with exact gathers "
+          f"{[round(v, 3) for v in runs['kernels exact']]} ms, plain (fast) "
           f"{[round(v, 3) for v in runs['plain']]} ms")
 
 
@@ -734,6 +837,7 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     kernels.reset_launches()
     acc, eval_loss, iou = train_cli.main(args)
     launches = dict(kernels.launches)
+    fast = dict(kernels.fast_launches)
 
     run = log / "sem_seg" / model_name
     text = (run / "logs" / f"{model_name}.txt").read_text()
@@ -747,6 +851,10 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     for name, per in PER_STEP[model_name].items():
         if launches[name] < steps * per:
             raise AssertionError(f"{name}: {launches[name]} launches in the "
+                                 f"training run, expected >= {steps * per}")
+    for name, per in FAST_PER_STEP[model_name].items():
+        if fast[name] < steps * per:
+            raise AssertionError(f"{name}: {fast[name]} fast launches in the "
                                  f"training run, expected >= {steps * per}")
     ckpt = run / "checkpoints" / "best_model.pth"
     if not ckpt.exists():
@@ -764,7 +872,8 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     print(f"[{tag}] {model_name} trained {steps} steps of B={TRAIN_B}x{N} "
           f"over {epochs} epochs: mean losses {losses}, eval losses "
           f"{list(eval_loss)}, best mIoU {max(iou):.4f}; best_model.pth "
-          f"served with mIoU {out['miou']:.4f}; launches {launches}")
+          f"served with mIoU {out['miou']:.4f}; launches {launches}, of "
+          f"them fast (bf16 gathers) {fast}")
     return launches
 
 
@@ -1023,6 +1132,314 @@ def phase_scale(torch, work, state_dict):
               f"{traced:.3f} s, CUDA busy {busy:.3f} s, idle share {idle}")
 
 
+def stage_inputs(torch, rng, b):
+    """FPS centroids, ball-query indices and [xyz, features] sources of the
+    four SSG stages of facade blocks [b, N]: -> (xyzs, idxs, srcs)."""
+    from tumseg_torch.ops import core, kernels
+
+    dev = torch.device(DEVICE)
+    xyzs = [torch.as_tensor(facade_blocks(rng, b, N), device=dev)]
+    idxs, srcs = [], []
+    for (npoint, radius), c in zip(SA, SA_CHANNELS):
+        src_xyz = xyzs[-1]
+        new_xyz = core.gather_rows(src_xyz, kernels.farthest_point_sample(
+            src_xyz, npoint)).contiguous()
+        idxs.append(kernels.query_ball_point(radius, K, src_xyz, new_xyz))
+        feats = torch.as_tensor(rng.standard_normal(
+            (b, src_xyz.shape[1], c - 3)).astype(np.float32), device=dev)
+        srcs.append(torch.cat([src_xyz, feats], dim=-1))
+        xyzs.append(new_xyz)
+    return xyzs, idxs, srcs
+
+
+def phase_fast(torch, report):
+    """The fast modes at a B=16 x 4096 training step's shapes, each against
+    its plain fast version and timed beside its exact mode."""
+    from tumseg_torch import ops
+    from tumseg_torch.ops import core, kernels
+
+    rng = np.random.default_rng(SEED + 9)
+    dev = torch.device(DEVICE)
+    xyzs, idxs, srcs = stage_inputs(torch, rng, TRAIN_B)
+
+    def close(got, want, what):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m: f"{what}: {m}")
+        return (got - want).abs().max().item()
+
+    for stage, (idx, src, ctr) in enumerate(zip(idxs, srcs, xyzs[1:])):
+        g_k = kernels.group_points(idx, src, ctr, fast=True)
+        if g_k.dtype != torch.bfloat16 or not torch.equal(
+                g_k, core.group_points(idx, src, ctr, fast=True)):
+            raise AssertionError(f"fast group sa{stage + 1} is not bitwise "
+                                 "the plain fast group in bf16")
+        report.add_fast(torch, "group", f"sa{stage + 1} S={idx.shape[1]} "
+                        f"C={src.shape[2]}",
+                        lambda: kernels.group_points(idx, src, ctr, True),
+                        lambda: kernels.group_points(idx, src, ctr), 0.0, "o")
+    for stage in (1, 2, 3):  # the sources that need a gradient
+        idx, n, c = idxs[stage], srcs[stage].shape[1], srcs[stage].shape[2]
+        g32 = torch.randn(*idx.shape, c, device=dev)
+        g16 = g32.bfloat16()
+        err = 0.0
+        for g in (g16, g32):
+            err = max(err, close(
+                kernels.group_points_backward(idx, g, n, fast=True),
+                core.group_points_backward(idx, g, n, fast=True),
+                f"fast group backward sa{stage + 1} {g.dtype}"))
+        report.add_fast(torch, "group_backward",
+                        f"sa{stage + 1} N={n} C={c} bf16 cotangent",
+                        lambda: kernels.group_points_backward(idx, g16, n,
+                                                              True),
+                        lambda: kernels.group_points_backward(idx, g32, n),
+                        err, "o")
+    for lvl, d in enumerate(FP_D):  # fp1..fp4
+        xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
+        n1, s = xyz1.shape[1], xyz2.shape[1]
+        p2 = torch.randn(TRAIN_B, s, d, device=dev)
+        g = torch.randn(TRAIN_B, n1, d, device=dev)
+        dk, ik, ok = kernels.three_nn_interpolate(xyz1, xyz2, p2, fast=True)
+        dp, ip, op = core.three_nn_interpolate(xyz1, xyz2, p2, fast=True)
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            raise AssertionError(f"fast 3-NN fp{lvl + 1}: indices differ")
+        err = close(ok, op, f"fast interpolation fp{lvl + 1}")
+        report.add_fast(torch, "three_nn_interpolate",
+                        f"fp{lvl + 1} N={n1} S={s} D={d}",
+                        lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2,
+                                                             True),
+                        lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2),
+                        err, "o")
+        if lvl == 0:
+            C, tile = ops.three_nn_window(s), ops.WINDOW_N_TILE
+            err = close(kernels.three_nn_window_interpolate(
+                xyz1, xyz2, p2, C, tile, True)[2],
+                core.three_nn_window_interpolate(xyz1, xyz2, p2, C, tile,
+                                                 True)[2],
+                "fast window interpolation fp1")
+            report.add_fast(torch, "three_nn_window",
+                            f"fp1 N={n1} S={s} C={C}",
+                            lambda: kernels.three_nn_window_interpolate(
+                                xyz1, xyz2, p2, C, tile, True),
+                            lambda: kernels.three_nn_window_interpolate(
+                                xyz1, xyz2, p2, C, tile), err, "o")
+        w = core.interpolation_weights(dk)
+        err = close(kernels.interpolate_backward(ik, w, g, s, fast=True),
+                    core.interpolate_backward(ik, w, g, s, fast=True),
+                    f"fast interpolation backward fp{lvl + 1}")
+        report.add_fast(torch, "interpolate_backward",
+                        f"fp{lvl + 1} N={n1} S={s} D={d}",
+                        lambda: kernels.interpolate_backward(ik, w, g, s,
+                                                             True),
+                        lambda: kernels.interpolate_backward(ik, w, g, s),
+                        err, "o")
+
+
+def fused_cost(torch, idx, C, n, fast):
+    """Bytes and operations of the fused kernel: xyz, centroids and src
+    read, idx and the grouped tensor written; 9 operations a candidate the
+    queries scan, one subtraction an xyz output."""
+    Bq, S, Kq = idx.shape
+    return dict(nbytes=Bq * n * 12 + Bq * S * 12 + Bq * n * C * 4
+                + Bq * S * Kq * 4 + Bq * S * Kq * C * (2 if fast else 4),
+                ops=9 * scanned(torch, idx, n).sum().item() + Bq * S * Kq * 3)
+
+
+def phase_fused(torch, report):
+    """The fused ball query + group at sa1-sa4 of the B=32 x 4096 forward,
+    against the split kernels and its plain version, in both modes."""
+    from tumseg_torch.ops import core, kernels
+
+    rng = np.random.default_rng(SEED + 10)
+    xyzs, idxs, srcs = stage_inputs(torch, rng, B)
+    for stage, ((npoint, r), src, ctr) in enumerate(zip(SA, srcs, xyzs[1:])):
+        xyz, n, c = xyzs[stage], srcs[stage].shape[1], srcs[stage].shape[2]
+        for fast in (False, True):
+            g_f, i_f = kernels.fused_ball_group(r, K, xyz, ctr, src, fast)
+            i_s = kernels.query_ball_point(r, K, xyz, ctr)
+            g_p, i_p = core.fused_ball_group(r, K, xyz, ctr, src, fast)
+            if not (torch.equal(i_f, i_s) and torch.equal(i_f, i_p)
+                    and torch.equal(g_f, kernels.group_points(i_s, src, ctr,
+                                                              fast))
+                    and torch.equal(g_f, g_p)):
+                raise AssertionError(f"fused sa{stage + 1} fast={fast}: not "
+                                     "bitwise the split kernels and the "
+                                     "plain fused op")
+        short = ((i_f[..., -1] == i_f[..., 0]) & (i_f[..., 0] != n)).float()
+        print(f"[p] fused sa{stage + 1} N={n} S={npoint} r={r}: bitwise the "
+              f"split pair and plain in both modes; short balls "
+              f"{short.mean().item():.3f}")
+        label = f"sa{stage + 1} N={n} S={npoint} C={c}"
+        report.add(torch, "fused_ball_group", label,
+                   lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
+                   lambda: core.fused_ball_group(r, K, xyz, ctr, src), 0.0,
+                   plain_reps=2, phase="p",
+                   **fused_cost(torch, i_f, c, n, False))
+        report.add_fast(torch, "fused_ball_group", label,
+                        lambda: kernels.fused_ball_group(r, K, xyz, ctr, src,
+                                                         True),
+                        lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
+                        0.0, "p")
+        fb = fused_cost(torch, i_f, c, n, True)
+        bound = max(fb["nbytes"] / HBM_BYTES_PER_S,
+                    fb["ops"] / F32_OPS_PER_S) * 1e3
+        print(f"[p] fused {label} fast: bound {bound:.5f} ms "
+              f"({fb['nbytes'] / 1e6:.2f} MB, {fb['ops'] / 1e9:.3f} Gop)")
+        for fast in (False, True):
+            split, runs = time_ms(torch, lambda: kernels.group_points(
+                kernels.query_ball_point(r, K, xyz, ctr), src, ctr, fast), 20)
+            print(f"[p] split pair (ball query + group) {label} fast={fast}: "
+                  f"{split:.4f} ms {[round(v, 4) for v in runs]}")
+    # balls that fill K (few facade balls do at the model's radii), then an
+    # empty ball (a centroid far from every point), in both modes
+    xyz, src, ctr = xyzs[0], srcs[0], xyzs[1]
+    for fast in (False, True):
+        g_f, i_f = kernels.fused_ball_group(0.5, K, xyz, ctr, src, fast)
+        i_s = kernels.query_ball_point(0.5, K, xyz, ctr)
+        if not (torch.equal(i_f, i_s) and torch.equal(
+                g_f, kernels.group_points(i_s, src, ctr, fast))):
+            raise AssertionError(f"fused r=0.5 fast={fast}: not bitwise the "
+                                 "split kernels")
+    full = (i_f[..., -1] != i_f[..., 0]).float().mean().item()
+    print(f"[p] fused sa1 shapes at r=0.5: bitwise the split pair in both "
+          f"modes; balls that fill K {full:.3f}")
+    ctr = ctr.clone()
+    ctr[:, 0] = 1000.0
+    for fast in (False, True):
+        g_f, i_f = kernels.fused_ball_group(0.1, K, xyz, ctr, src, fast)
+        i_s = kernels.query_ball_point(0.1, K, xyz, ctr)
+        want = torch.cat([-ctr[:, 0, None, :].expand(B, K, 3),
+                          torch.zeros(B, K, src.shape[2] - 3,
+                                      device=ctr.device)], -1)
+        if not ((i_f[:, 0] == N).all() and torch.equal(i_f, i_s)
+                and torch.equal(g_f, kernels.group_points(i_s, src, ctr,
+                                                          fast))
+                and torch.equal(g_f[:, 0].float(),
+                                want.to(g_f.dtype).float())):
+            raise AssertionError(f"fused empty ball fast={fast}: not the "
+                                 "sentinel N and the row -centre")
+    print("[p] fused empty ball -> sentinel N, row -centre, both modes: ok")
+
+
+def labelled_batch(seed):
+    """A B=16 x 4096 training batch of facade blocks, labelled by height
+    band, and class weights: -> (points, target, weights) as numpy."""
+    rng = np.random.default_rng(seed)
+    points = facade_batch(rng, TRAIN_B, N)
+    return (points, (points[..., 5] * 7.999).astype(np.int64),
+            rng.random(8).astype(np.float32) + 0.5)
+
+
+def phase_fused_switch(torch, state_dict):
+    """The fused switch end to end: a forward and a training step.
+    -> the launches of that run (counts of zero before it)."""
+    import copy
+
+    from tumseg_torch import models, ops
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.train.loop import TrainEngine
+
+    x = torch.as_tensor(facade_batch(np.random.default_rng(SEED + 1), B, N),
+                        device=DEVICE)
+    model = models.get_module("pointnet2_sem_seg").get_model(8).to(DEVICE)
+    model.load_state_dict(state_dict)
+    bx, bt, weights = labelled_batch(SEED + 11)
+
+    def step(fused):
+        eng = TrainEngine(copy.deepcopy(model), 8, weights, seed=SEED,
+                          device=DEVICE)
+        with ops.fused_group_enabled(fused):
+            loss, _ = eng.train_batch(bx, bt, 1e-3, 0.1)
+        return float(loss), {n: p.grad for n, p in
+                             eng.model.named_parameters()}
+
+    model.eval()
+    with torch.inference_mode():
+        kernels.reset_launches()
+        off = model(x)[0]
+        split = dict(kernels.launches)
+    # four split-path steps: the run-to-run spread of the backward
+    split_steps = [step(False) for _ in range(4)]
+    lo, go = split_steps[0]
+    # the fused path: the switched forward and training step
+    kernels.reset_launches()
+    with torch.inference_mode(), ops.fused_group_enabled():
+        on = model.eval()(x)[0]
+    fwd = dict(kernels.launches)
+    lf, gf = step(True)
+    launches = dict(kernels.launches)
+    if not torch.equal(on, off):
+        raise AssertionError("log-probs under the fused switch differ")
+    if (fwd["fused_ball_group"] != 4
+            or fwd["ball_query"] != split["ball_query"] - 4):
+        raise AssertionError(f"fused switch launches {fwd}, off {split}")
+    print(f"[q] SSG forward B={B}x{N} under the fused switch: log-probs "
+          f"bitwise those of the split path; fused {fwd['fused_ball_group']}"
+          f" launches, ball query {split['ball_query']} -> "
+          f"{fwd['ball_query']}, group {split['group']} -> {fwd['group']}")
+    if launches["fused_ball_group"] != 8:
+        raise AssertionError(f"the switched step launched {launches}")
+    # the forward has no atomics: the loss is bitwise the same
+    if any(loss != lo for loss in [lf] + [v for v, _ in split_steps]):
+        raise AssertionError(f"fused step loss {lf} against split "
+                             f"{[v for v, _ in split_steps]}")
+    bitwise = all(torch.equal(gf[n], go[n]) for n in go)
+    gap, gap_name = grad_gap(gf, go)
+    spread, limit = fast_step_limit(go, [g for _, g in split_steps[1:]])
+    print(f"[q] train step B={TRAIN_B}x{N} (fast gathers) under the fused "
+          f"switch: loss {lf!r} bitwise that of the split path; {len(go)} "
+          f"gradients {'bitwise equal' if bitwise else 'not bitwise'}: the "
+          f"largest difference {gap:.3g} x its layer's max|g| ({gap_name}); "
+          f"three more split-path steps differ from the first by up to "
+          f"{spread[0]:.3g} ({spread[1]}), limit {limit:.3g}; fused "
+          f"launches in the switched forward and step "
+          f"{launches['fused_ball_group']}")
+    if not bitwise and gap > limit:
+        raise AssertionError(f"fused step gradient {gap_name}: {gap:g} x "
+                             f"its layer's max|g|, beyond {limit:g}")
+    return launches
+
+
+def phase_fast_vs_exact(torch, state_dict, model_name, tag):
+    """One step at exact_gathers=False and at True from the same weights
+    and batch: what the bf16 gathers cost, and where they ran."""
+    import copy
+
+    from tumseg_torch import models
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.train.loop import TrainEngine
+
+    base = models.get_module(model_name).get_model(8).to(DEVICE)
+    base.load_state_dict(state_dict)
+    bx, bt, weights = labelled_batch(SEED + 12)
+    out = {}
+    for exact in (False, True):
+        eng = TrainEngine(copy.deepcopy(base), 8, weights, seed=SEED,
+                          device=DEVICE, exact_gathers=exact)
+        kernels.reset_launches()
+        loss, _ = eng.train_batch(bx, bt, 1e-3, 0.1)
+        loss = float(loss)
+        fast = dict(kernels.fast_launches)
+        want = FAST_PER_STEP[model_name]
+        if exact and any(fast.values()):
+            raise AssertionError(f"exact_gathers=True ran fast {fast}")
+        if not exact and any(fast[k] != v for k, v in want.items()):
+            raise AssertionError(f"fast step launched {fast}, expected "
+                                 f"{want}")
+        kernels.reset_launches()
+        eng.eval_batch(bx, bt)
+        if any(kernels.fast_launches.values()):
+            raise AssertionError(f"eval ran fast {kernels.fast_launches}")
+        out[exact] = (loss, {n: p.grad for n, p in
+                             eng.model.named_parameters()}, fast)
+    (lf, gf, fast), (le, ge, _) = out[False], out[True]
+    worst, worst_name = grad_gap(gf, ge)
+    print(f"[{tag}] {model_name} step B={TRAIN_B}x{N}, fast against exact "
+          f"gathers: loss {lf:.7f} against {le:.7f} (difference "
+          f"{lf - le:.3g}); largest gradient difference {worst:.3g} x its "
+          f"layer's max|g| ({worst_name}); fast launches in the fast step "
+          f"{fast}, 0 in the exact step and in eval")
+
+
 def main() -> int:
     import torch
 
@@ -1055,9 +1472,13 @@ def main() -> int:
     report = Report()
     phase_kernels(torch, report)
     phase_window(torch, report)
+    phase_fused(torch, report)
     state_dict = phase_forward(torch, ssg, "c")
     launches = phase_serve(torch, work, state_dict, ssg, "d")
+    launches["fused_ball_group"] = phase_fused_switch(
+        torch, state_dict)["fused_ball_group"]
     phase_backward(torch, report)
+    phase_fast(torch, report)
     phase_train_step(torch, state_dict, ssg, "f")
     launches.update({name: n for name, n in phase_train_cli(
         torch, work, ssg, TRAIN_EPOCHS, 10, "g").items()
@@ -1069,6 +1490,8 @@ def main() -> int:
         torch, work, msg_state, msg, "j")["ball_query_multi"]
     phase_train_step(torch, msg_state, msg, "k")
     phase_train_cli(torch, work, msg, MSG_TRAIN_EPOCHS, 6, "k")
+    phase_fast_vs_exact(torch, state_dict, ssg, "r")
+    phase_fast_vs_exact(torch, msg_state, msg, "r")
 
     launches["three_nn_window"] = phase_serve_paths(
         torch, work, state_dict)["three_nn_window"]

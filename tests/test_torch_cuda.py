@@ -7,7 +7,13 @@ it runs on a machine that has only PyTorch:
 
 Indices and grouping must be identical (the z-window 3-NN's distances too,
 bit for bit); the interpolation agrees within rtol 1e-5 / atol 1e-6. The backward kernels add with f32 atomics in an order
-that changes from run to run, so they agree within rtol 1e-5 / atol 1e-4."""
+that changes from run to run, so they agree within rtol 1e-5 / atol 1e-4.
+
+The fast (single-pass bf16) modes: the group's bf16 output and the fused
+ball query + group (against the split kernels and its plain version, both
+modes) bit for bit; the interpolations and the backward kernels within
+rtol 1e-5 / atol 1e-6 (their operands are bf16, so the products are exact
+and the f32 sums rarely round)."""
 
 import numpy as np
 import pytest
@@ -129,7 +135,7 @@ def test_msg_forward_kernels_match_plain(cuda):
     assert counts == {"fps": 4, "ball_query": 0, "ball_query_multi": 4,
                       "group": 12, "three_nn_interpolate": 4,
                       "group_backward": 0, "interpolate_backward": 0,
-                      "three_nn_window": 0}
+                      "three_nn_window": 0, "fused_ball_group": 0}
     assert sum(kernels.launches.values()) == sum(counts.values())
     assert (got - want).abs().max().item() <= 1e-4
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
@@ -373,3 +379,135 @@ def test_device_reblock_path_matches_host_featurized_pool(cuda):
         assert labels.shape == (n,)
         assert kernels.launches["three_nn_interpolate"] > 0
         assert kernels.launches["three_nn_window"] == 0
+
+
+def _group_case(rng, B, N, S, K, C, device):
+    idx = rng.integers(0, N, (B, S, K)).astype(np.int32)
+    idx[:, 0] = N                    # an empty ball
+    idx[:, 1, 2:] = idx[:, 1, 1:2]   # a short ball padded with repeats
+    src = rng.standard_normal((B, N, C)).astype(np.float32) * 3
+    ctr = rng.standard_normal((B, S, 3)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (idx, src, ctr))
+
+
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 77, 19, 32, 35),
+                                       (1, 1000, 64, 8, 3),
+                                       (16, 4096, 1024, 32, 9)])  # sa1
+def test_group_fast(cuda, B, N, S, K, C):
+    idx, src, ctr = _group_case(np.random.default_rng(12), B, N, S, K, C,
+                                cuda)
+    kernels.reset_launches()
+    got = kernels.group_points(idx, src, ctr, fast=True)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, core.group_points(idx, src, ctr, fast=True))
+    assert kernels.fast_launches["group"] == 1
+    kernels.group_points(idx, src, ctr)
+    assert kernels.launches["group"] == 2
+    assert kernels.fast_launches["group"] == 1
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 77, 19, 32, 35),
+                                       (1, 1000, 64, 8, 1),
+                                       (16, 1024, 256, 32, 67)])  # sa2
+def test_group_backward_fast(cuda, grad_dtype, B, N, S, K, C):
+    """A bf16 cotangent, and an f32 one that the kernel itself rounds."""
+    rng = np.random.default_rng(13)
+    idx, _, _ = _group_case(rng, B, N, S, K, C, cuda)
+    g = torch.as_tensor(rng.standard_normal((B, S, K, C)).astype(np.float32),
+                        device=cuda).to(grad_dtype)
+    kernels.reset_launches()
+    got = kernels.group_points_backward(idx, g, N, fast=True)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(
+        got, core.group_points_backward(idx, g, N, fast=True),
+        rtol=1e-5, atol=1e-6)
+    assert kernels.fast_launches["group_backward"] == 1
+    if grad_dtype == torch.float32:
+        exact = kernels.group_points_backward(idx, g, N)
+        assert not torch.equal(exact, got)
+    else:
+        with pytest.raises(TypeError):
+            kernels.group_points_backward(idx, g, N)
+
+
+@pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
+                                     (16, 4096, 1024, 128)])  # fp1
+def test_interpolation_fast(cuda, B, N, S, D):
+    """Both 3-NN kernels' fused interpolation and the backward kernel."""
+    rng = np.random.default_rng(14)
+    xyz1 = _rand(rng, (B, N, 3), cuda)
+    xyz2 = _rand(rng, (B, S, 3), cuda)
+    p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
+                         device=cuda)
+    g = torch.as_tensor(rng.standard_normal((B, N, D)).astype(np.float32),
+                        device=cuda)
+    kernels.reset_launches()
+    dk, ik, ok = kernels.three_nn_interpolate(xyz1, xyz2, p2, fast=True)
+    dp, ip, op = core.three_nn_interpolate(xyz1, xyz2, p2, fast=True)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+    assert (ok - core.three_nn_interpolate(xyz1, xyz2, p2)[2]).abs().max() \
+        > 1e-4
+    window = S if S % 128 else min(S, 384)
+    wk = kernels.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                             fast=True)[2]
+    wp = core.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                          fast=True)[2]
+    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-6)
+    w = core.interpolation_weights(dk)
+    got = kernels.interpolate_backward(ik, w, g, S, fast=True)
+    torch.testing.assert_close(
+        got, core.interpolate_backward(ik, w, g, S, fast=True),
+        rtol=1e-5, atol=1e-6)
+    assert all(kernels.fast_launches[k] == 1 for k in (
+        "three_nn_interpolate", "three_nn_window", "interpolate_backward"))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("B,N,S,K,C,r", [(2, 500, 130, 32, 7, 0.15),
+                                         (1, 77, 5, 40, 3, 0.5),
+                                         (32, 4096, 1024, 32, 9, 0.1)])
+def test_fused_ball_group(cuda, fast, B, N, S, K, C, r):
+    """Bit for bit the ball-query kernel then the group kernel of the same
+    mode, and the plain fused op; with an empty ball and short balls."""
+    rng = np.random.default_rng(15)
+    xyz = _rand(rng, (B, N, 3), cuda)
+    new_xyz = xyz[:, :S].clone()
+    new_xyz[:, 0] = 50.0
+    src = torch.cat([xyz, torch.as_tensor(rng.standard_normal(
+        (B, N, C - 3)).astype(np.float32), device=cuda)], -1)
+    kernels.reset_launches()
+    grouped, idx = kernels.fused_ball_group(r, K, xyz, new_xyz, src, fast)
+    assert kernels.launches["fused_ball_group"] == 1
+    assert kernels.fast_launches["fused_ball_group"] == int(fast)
+    want_idx = kernels.query_ball_point(r, K, xyz, new_xyz)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(grouped, kernels.group_points(want_idx, src, new_xyz,
+                                                     fast))
+    pg, pi = core.fused_ball_group(r, K, xyz, new_xyz, src, fast)
+    assert torch.equal(idx, pi) and torch.equal(grouped, pg)
+    assert (idx[:, 0] == N).all()
+    short = (idx[..., -1] == idx[..., 0]) & (idx[..., 0] != N)
+    assert short.any()
+
+
+def test_fused_switch_on_card(cuda):
+    """An SSG forward under the fused switch: 4 fused launches, 4 fewer
+    ball-query launches, the same log-probs bit for bit."""
+    from tumseg_torch.models.pointnet2_sem_seg import get_model
+
+    torch.manual_seed(0)
+    model = get_model(8).to(cuda).eval()
+    x = _rand(np.random.default_rng(16), (2, 1024, 6), cuda)
+    with torch.inference_mode():
+        kernels.reset_launches()
+        off = model(x)[0]
+        split = dict(kernels.launches)
+        kernels.reset_launches()
+        with ops.fused_group_enabled():
+            on = model(x)[0]
+    assert torch.equal(on, off)
+    assert kernels.launches["fused_ball_group"] == 4
+    assert kernels.launches["ball_query"] == split["ball_query"] - 4
+    assert kernels.launches["group"] == split["group"] - 4

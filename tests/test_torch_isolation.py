@@ -74,3 +74,15 @@ def test_runner_and_engine_default_to_cuda():
 
     for cls in (InferenceRunner, TrainEngine):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
+
+
+def test_op_dispatch_has_no_fallback():
+    """The kernel wrappers, the autograd Functions and the dispatch catch
+    no exception: a kernel that fails to build or launch raises, and no
+    path gives way to the plain version or to the CPU."""
+    ops_dir = ROOT / "tumseg_torch" / "ops"
+    for name in ("__init__.py", "kernels.py", "autograd.py", "core.py"):
+        tree = ast.parse((ops_dir / name).read_text())
+        handlers = [node.lineno for node in ast.walk(tree)
+                    if isinstance(node, ast.ExceptHandler)]
+        assert not handlers, f"tumseg_torch/ops/{name}:{handlers}"

@@ -122,7 +122,9 @@ def port_run(setup, tmp_path_factory):
     for x, t in zip(xs, ts):
         for group in opt.param_groups:
             group["lr"] = LR
-        logp, _ = model(torch.from_numpy(x))
+        # exact gathers: tumseg's CPU train step gathers exactly (its XLA
+        # grouping ignores fast_gather off its accelerator)
+        logp, _ = model(torch.from_numpy(x), fast_gather=False)
         loss = model.loss(logp, torch.from_numpy(t), tw)
         opt.zero_grad()
         loss.backward()

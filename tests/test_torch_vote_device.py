@@ -236,8 +236,8 @@ def test_vote_matches_tumseg_vote_scan(vote_case, window, monkeypatch):
     on, fp1 takes the window."""
     calls = []
     monkeypatch.setattr(ops.core, "three_nn_window_interpolate",
-                        lambda *a, f=ops.core.three_nn_window_interpolate:
-                        calls.append(a[3:]) or f(*a))
+                        lambda *a, f=ops.core.three_nn_window_interpolate,
+                        **kw: calls.append(a[3:]) or f(*a, **kw))
     case = vote_case
     runner = TV.InferenceRunner(case["model"], 8, batch_size=2, device="cpu",
                                 device_features=True, window_ops=window)

@@ -222,7 +222,7 @@ def _spy(monkeypatch):
     calls = []
 
     def fake(name):
-        def run(xyz1, xyz2, points2, *args):
+        def run(xyz1, xyz2, points2, *args, fast=False):
             calls.append((name, args))
             B, N, _ = xyz1.shape
             return (xyz1.new_zeros(B, N, 3),

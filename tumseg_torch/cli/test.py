@@ -36,7 +36,7 @@ from tumseg_torch.train import checkpoint as ckpt
 saveTest = "testdataset.pkl"
 saveDir = os.environ.get("TUMSEG_SAVE_DIR", "./data/saved_data/")
 
-_NOT_PORTED = "is not ported to tumseg_torch yet (ROADMAP Queue 1, item 10)"
+_NOT_PORTED = "is not ported to tumseg_torch yet (ROADMAP Queue 1, item 5)"
 
 
 def parse_args(argv=None):
@@ -114,7 +114,8 @@ def main(args):
         raise NotImplementedError("multi-process serving " + _NOT_PORTED)
     if args.bf16:
         raise NotImplementedError(
-            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 2)")
+            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 1, "
+            "item 1)")
     device = resolve_device(args.gpu)
     print(args.class8)
     classes, NUM_CLASSES, label2color = class_tables(bool(args.class8))

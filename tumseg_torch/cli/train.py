@@ -118,18 +118,18 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     if args.bf16:
         raise NotImplementedError(
-            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 2, "
+            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 1, "
             "item 1)")
     if args.num_devices and args.num_devices > 1:
         raise NotImplementedError("--num_devices > 1 is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 10)")
+                                  "tumseg_torch yet (ROADMAP Queue 1, item 5)")
     if (args.coordinator_address is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError("multi-process training is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 10)")
+                                  "tumseg_torch yet (ROADMAP Queue 1, item 5)")
     if args.data_pipeline == "device":
         raise NotImplementedError("--data_pipeline device is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 8)")
+                                  "tumseg_torch yet (ROADMAP Queue 1, item 4)")
 
 
 def main(args):

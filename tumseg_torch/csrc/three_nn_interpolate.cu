@@ -8,6 +8,8 @@
 // contracted on the MXU) in one pass. Weights follow
 // tumseg/ops/__init__.py:323-324: r = 1/(d + 1e-8), w = r / ((r0 + r1) + r2);
 // out = (w0*p[i0] + w1*p[i1]) + w2*p[i2]. Divisions are IEEE (no fast math).
+// `fast` rounds w and points2 to bf16 before the f32 products, the single
+// bf16 pass of interpolate.py:136-148 (common.cuh's tail).
 //
 // What bounds it: the search is N*S distance evaluations (fp1: 134M at B=32),
 // the interpolation B*N*D gathered reads and stores (fp1: 16.8M). Neither
@@ -31,7 +33,8 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
                             const float* __restrict__ xyz2,
                             const float* __restrict__ points2,
                             float* __restrict__ dists, int* __restrict__ idx,
-                            float* __restrict__ out, int N, int S, int D) {
+                            float* __restrict__ out, int N, int S, int D,
+                            bool fast) {
   __shared__ float sx[kThreads], sy[kThreads], sz[kThreads];
   __shared__ tumseg::NeighbourTile<kThreads> tile;
 
@@ -79,7 +82,7 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
   const int nq = N - n0 < kThreads ? N - n0 : kThreads;
   tumseg::three_nn_interpolate_tail<kThreads>(
       tile, valid, static_cast<long long>(b) * N + n, d0, d1, d2, i0, i1, i2,
-      points2 + static_cast<size_t>(b) * S * D, dists, idx, out, nq, D);
+      points2 + static_cast<size_t>(b) * S * D, dists, idx, out, nq, D, fast);
 }
 
 }  // namespace
@@ -88,11 +91,12 @@ TUMSEG_API int tumseg_three_nn_interpolate(const float* xyz1,
                                            const float* xyz2,
                                            const float* points2, float* dists,
                                            int* idx, float* out, int B, int N,
-                                           int S, int D, void* stream) {
+                                           int S, int D, int fast,
+                                           void* stream) {
   if (B == 0 || N == 0) return 0;
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   three_nn_interpolate_kernel<<<grid, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      xyz1, xyz2, points2, dists, idx, out, N, S, D);
+      xyz1, xyz2, points2, dists, idx, out, N, S, D, fast != 0);
   return tumseg::last_error();
 }

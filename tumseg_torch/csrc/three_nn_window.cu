@@ -36,7 +36,8 @@
 // fails gets the full scan itself. No host sync decides anything. Results
 // are written at the query's ORIGINAL index, so nothing is unpermuted.
 // The interpolation tail is common.cuh's, shared with
-// three_nn_interpolate.cu: one launch an FP stage.
+// three_nn_interpolate.cu, and so is its fast (bf16) mode: one launch an FP
+// stage.
 //
 // Bound at fp1 (B=32, N=4096, S=1024, D=128, C=384): operations ~10 a
 // candidate x B*N*C = 50.3M candidates, ~0.0075 ms at 67 TFLOP/s, plus S
@@ -131,7 +132,7 @@ three_nn_window_kernel(const float* __restrict__ xyz1,
                        const float* __restrict__ points2,
                        float* __restrict__ dists, int* __restrict__ idx,
                        float* __restrict__ out, int N, int S, int D, int C,
-                       int n_tile) {
+                       int n_tile, bool fast) {
   __shared__ Staged st;
   __shared__ tumseg::NeighbourTile<kThreads> tile;
 
@@ -188,7 +189,7 @@ three_nn_window_kernel(const float* __restrict__ xyz1,
 
   tumseg::three_nn_interpolate_tail<kThreads>(
       tile, valid, static_cast<long long>(b) * N + n, d0, d1, d2, i0, i1, i2,
-      points2 + static_cast<size_t>(b) * S * D, dists, idx, out, nq, D);
+      points2 + static_cast<size_t>(b) * S * D, dists, idx, out, nq, D, fast);
 }
 
 }  // namespace
@@ -197,12 +198,12 @@ TUMSEG_API int tumseg_three_nn_window(
     const float* xyz1, const float* xyz2, const float* srt, const int* sorder,
     const int* qorder, const int* starts, const float* ssq_max,
     const float* points2, float* dists, int* idx, float* out, int B, int N,
-    int S, int D, int C, int n_tile, void* stream) {
+    int S, int D, int C, int n_tile, int fast, void* stream) {
   if (B == 0 || N == 0) return 0;
   const dim3 grid(N / n_tile, (n_tile + kThreads - 1) / kThreads, B);
   three_nn_window_kernel<<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       xyz1, xyz2, srt, sorder, qorder, starts, ssq_max, points2, dists, idx,
-      out, N, S, D, C, n_tile);
+      out, N, S, D, C, n_tile, fast != 0);
   return tumseg::last_error();
 }

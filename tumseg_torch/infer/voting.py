@@ -16,7 +16,7 @@ scene's ground truth. Three paths, chosen as ``tumseg`` chooses them:
 - host re-blocking: ``TestGridDataset.__getitem__`` builds the feature
   blocks on the host (the next vote's on a worker thread).
 
-Not ported: the device mesh and bf16 compute (ROADMAP Queue 1, item 7) raise
+Not ported: the device mesh and bf16 compute (ROADMAP Queue 1) raise
 ``NotImplementedError``. The TPU's scene-shape buckets and block granules
 (``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
 exist to spare XLA recompiles, and PyTorch does not recompile. So is the
@@ -42,7 +42,7 @@ from tumseg_torch.utils.progress import progress
 from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
 
-_NOT_PORTED = ("is not ported to tumseg_torch yet (ROADMAP Queue 1, item 7)")
+_NOT_PORTED = ("is not ported to tumseg_torch yet (ROADMAP Queue 1)")
 
 
 def _scatter_votes(pool: torch.Tensor, point_idx: torch.Tensor,

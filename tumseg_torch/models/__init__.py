@@ -22,5 +22,5 @@ def get_module(name: str) -> ModuleType:
     if name not in PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to tumseg_torch yet (ROADMAP "
-            f"Queue 1, item 6); ported: {PORTED}")
+            f"Queue 1, item 3); ported: {PORTED}")
     return importlib.import_module(f"tumseg_torch.models.{name}")

@@ -53,7 +53,8 @@ class PointNet2SemSeg(nn.Module):
             in_ch = cfg["mlp"][-1] + 3
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                fast_gather: bool = False):
         """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
         room-normalized xyz, then extra features) ->
         (log_probs [B, N, num_classes], l4_points [B, 16, sa4's width]).
@@ -62,7 +63,9 @@ class PointNet2SemSeg(nn.Module):
         starts at a drawn index in [0, N_stage) and dropout 0.5 follows the
         head's ReLU, as ``tumseg``'s ``apply`` does with ``rngs``; without
         one, FPS starts at 0 and there is no dropout, as ``apply`` does
-        without ``rngs``."""
+        without ``rngs``. ``fast_gather`` takes the single-pass bf16 gathers
+        in every set abstraction and feature propagation, as ``apply`` does
+        with ``fast_gather=True``."""
         draw = generator is not None and self.training
         B = x.shape[0]
         l_xyz = [x[..., :3].contiguous()]
@@ -74,14 +77,15 @@ class PointNet2SemSeg(nn.Module):
                                       generator=generator, device=x.device,
                                       dtype=torch.int32)
             new_xyz, new_points = getattr(self, f"sa{i}")(
-                l_xyz[-1], l_points[-1], fps_start=start)
+                l_xyz[-1], l_points[-1], fps_start=start,
+                fast_gather=fast_gather)
             l_xyz.append(new_xyz)
             l_points.append(new_points)
         feat = l_points[4]
         for i, lvl in zip([4, 3, 2, 1], [3, 2, 1, 0]):
             skip = l_points[lvl] if lvl > 0 else None
             feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
-                                           feat)
+                                           feat, fast_gather)
         h = F.relu(self.bn1(self.conv1(feat)))
         if draw:
             keep = 1.0 - DROPOUT_RATE

@@ -7,6 +7,12 @@ abstractions, ``[out, in, 1]`` in feature propagation and the head — so
 ``.pth`` state dicts load with ``strict=True``. The forward is a matmul over
 the last axis of a 2-D view of that weight, never a cuDNN convolution, whose
 default TF32 would cost the 2e-3 log-prob parity with ``tumseg``.
+
+``fast_gather`` (default False, as ``tumseg``'s layers resolve it without a
+``compute_dtype``) takes the single-pass bf16 gathers of ``tumseg_torch.ops``.
+A set abstraction's grouped tensor is then bf16, and its MLP is fed
+``grouped.float()``: exact, and what ``tumseg``'s ``dense`` does with a bf16
+operand and f32 weights (``tumseg/nn/layers.py:62-71``).
 """
 
 from __future__ import annotations
@@ -150,15 +156,16 @@ class SetAbstraction(MLPStack):
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
-                fps_start: Optional[torch.Tensor] = None):
+                fps_start: Optional[torch.Tensor] = None,
+                fast_gather: bool = False):
         """``fps_start`` [B] int32 seeds FPS (default index 0). The max over
         K is ``amax``, which splits the gradient evenly among tied entries,
         as ``jnp.max`` does: a short ball repeats its first hit, so ties
         are the rule."""
         new_xyz, grouped = ops.sample_and_group(
             self.npoint, self.radius, self.nsample, xyz, points,
-            fps_start=fps_start)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
+            fps_start=fps_start, fast_gather=fast_gather)
+        return new_xyz, self.mlp(grouped.float()).amax(dim=2)
 
 
 class SetAbstractionMsg(nn.Module):
@@ -185,20 +192,21 @@ class SetAbstractionMsg(nn.Module):
             self.bn_blocks.append(bns)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
-                fps_start: Optional[torch.Tensor] = None):
+                fps_start: Optional[torch.Tensor] = None,
+                fast_gather: bool = False):
         """``fps_start`` [B] int32 seeds FPS (default index 0)."""
         new_xyz = ops.gather_rows(xyz, ops.farthest_point_sample(
             xyz, self.npoint, start=fps_start))
         src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
         groups = ops.msg_ball_groups(self.radius_list, self.nsample_list,
-                                     xyz, new_xyz, src)
+                                     xyz, new_xyz, src, fast_gather)
         outs = []
         for grouped, convs, bns in zip(groups, self.conv_blocks,
                                        self.bn_blocks):
             if points is not None:  # [centred xyz, points] -> [points, xyz]
                 grouped = torch.cat([grouped[..., 3:], grouped[..., :3]],
                                     dim=-1)
-            outs.append(_run_mlp(convs, bns, grouped).amax(dim=2))
+            outs.append(_run_mlp(convs, bns, grouped.float()).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -210,12 +218,13 @@ class FeaturePropagation(MLPStack):
         super().__init__(in_channel, mlp, conv_rank=1)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
-                points1: Optional[torch.Tensor],
-                points2: torch.Tensor) -> torch.Tensor:
+                points1: Optional[torch.Tensor], points2: torch.Tensor,
+                fast_gather: bool = False) -> torch.Tensor:
         if xyz2.shape[1] == 1:
             interpolated = points2.expand(-1, xyz1.shape[1], -1)
         else:
-            interpolated = ops.three_interpolate(xyz1, xyz2, points2)
+            interpolated = ops.three_interpolate(xyz1, xyz2, points2,
+                                                 fast_gather)
         if points1 is not None:
             interpolated = torch.cat([points1, interpolated], dim=-1)
         return self.mlp(interpolated)

@@ -16,6 +16,17 @@ default) switch :func:`three_nn_interpolate` to the z-window 3-NN where
 window is exact (a guarded fallback to the full expansion form), so it
 never changes what the op computes, only how. Unlike ``tumseg``, no
 environment variable turns it on.
+
+``fused_group_enabled()`` and ``set_fused_group()`` do the same for the fused
+ball query + group of :func:`ball_group` (``tumseg/ops/__init__.py:230-240,
+275-289``, ``TUMSEG_OPS_FUSED_GROUP`` there): off by default, and taken only
+where ``tumseg`` takes it, N <= 1024 or N % 1024 == 0. It computes what the
+split pair computes, bit for bit.
+
+``fast`` (``fast_gather`` in the composite ops) selects the single-pass bf16
+gathers of ``tumseg``'s training step: the neighbourhood group stores bf16,
+the interpolation rounds its operands to bf16. The centroid gather
+(:func:`gather_rows`) is always exact, as in ``tumseg``.
 """
 
 from __future__ import annotations
@@ -27,13 +38,18 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from tumseg_torch.ops import core, kernels
-from tumseg_torch.ops.autograd import GroupPoints, ThreeNNInterpolate
+from tumseg_torch.ops.autograd import (FusedBallGroup, GroupPoints,
+                                       ThreeNNInterpolate)
 
 _state = threading.local()
 _window_default = False
+_fused_default = False
 # tumseg/ops/__init__.py:128 and :188-189, :304-310
 WINDOW_MIN_N = 4096
 WINDOW_N_TILE = 256
+# the fused op's candidate chunk in tumseg (fusedgroup.py:_CHUNK): other N
+# take the split path there (tumseg/ops/__init__.py:278-279)
+FUSED_CHUNK = 1024
 
 
 @contextlib.contextmanager
@@ -71,6 +87,29 @@ def _window_on() -> bool:
     return _window_default if window is None else window
 
 
+def set_fused_group(enabled: bool) -> None:
+    """Process default of the fused ball query + group (off unless set)."""
+    global _fused_default
+    _fused_default = bool(enabled)
+
+
+@contextlib.contextmanager
+def fused_group_enabled(enabled: bool = True):
+    """Take (or, with False, leave) the fused ball query + group inside this
+    block (this thread only), whatever the process default."""
+    prev = getattr(_state, "fused", None)
+    _state.fused = bool(enabled)
+    try:
+        yield
+    finally:
+        _state.fused = prev
+
+
+def _fused_on() -> bool:
+    fused = getattr(_state, "fused", None)
+    return _fused_default if fused is None else fused
+
+
 def three_nn_window(s: int) -> int:
     """Window width for ``s`` sources: 384 at S=1024
     (``tumseg/ops/__init__.py:188-189``)."""
@@ -105,8 +144,17 @@ def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
 
 
 def group_points(idx: torch.Tensor, src: torch.Tensor,
-                 new_xyz: torch.Tensor):
-    return GroupPoints.apply(idx, src, new_xyz, _impl(src))
+                 new_xyz: torch.Tensor, fast: bool = False):
+    return GroupPoints.apply(idx, src, new_xyz, _impl(src), fast)
+
+
+def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor, src: torch.Tensor,
+                     fast: bool = False):
+    """-> (grouped [B, S, nsample, C], idx [B, S, nsample] int32): the ball
+    query and the group in one op, on the card one launch."""
+    return FusedBallGroup.apply(xyz, new_xyz, src, _impl(xyz), radius,
+                                nsample, fast)
 
 
 def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
@@ -117,7 +165,7 @@ def gather_rows(xyz: torch.Tensor, idx: torch.Tensor):
 
 
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
-                         points2: torch.Tensor):
+                         points2: torch.Tensor, fast: bool = False):
     """-> (dists, idx, out): the direct-form 3-NN and the interpolation, or,
     with the window on at N >= 4096, S >= 1024, S % 128 == 0, the z-window
     3-NN in the expansion form (window ``three_nn_window(S)``, tiles of 256
@@ -127,32 +175,50 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     if _window_on() and N >= WINDOW_MIN_N and S >= 1024 and S % 128 == 0:
         window = three_nn_window(S)
     return ThreeNNInterpolate.apply(xyz1, xyz2, points2, _impl(xyz1), window,
-                                    WINDOW_N_TILE)
+                                    WINDOW_N_TILE, fast)
 
 
 def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
-                      points2: torch.Tensor):
-    return three_nn_interpolate(xyz1, xyz2, points2)[2]
+                      points2: torch.Tensor, fast_gather: bool = False):
+    return three_nn_interpolate(xyz1, xyz2, points2, fast_gather)[2]
+
+
+def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
+               new_xyz: torch.Tensor, src: torch.Tensor,
+               fast_gather: bool = False) -> torch.Tensor:
+    """Ball query + group + centring (``tumseg/ops/__init__.py:275-289``):
+    -> [B, S, nsample, C]. With the fused switch on and N <= 1024 or
+    N % 1024 == 0 it is one fused op, else the ball query then the group."""
+    N = xyz.shape[1]
+    if _fused_on() and (N <= FUSED_CHUNK or N % FUSED_CHUNK == 0):
+        return fused_ball_group(radius, nsample, xyz, new_xyz, src,
+                                fast_gather)[0]
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    return group_points(idx, src, new_xyz, fast_gather)
 
 
 def sample_and_group(npoint: int, radius: float, nsample: int,
                      xyz: torch.Tensor, points: Optional[torch.Tensor],
-                     fps_start: Optional[torch.Tensor] = None):
-    """FPS (from ``fps_start`` [B], default 0) -> centroid gather -> ball
-    query -> group + center:
+                     fps_start: Optional[torch.Tensor] = None,
+                     fast_gather: bool = False):
+    """FPS (from ``fps_start`` [B], default 0) -> centroid gather ->
+    :func:`ball_group`:
     -> (new_xyz [B, npoint, 3], grouped [B, npoint, nsample, 3 (+D)])."""
     new_xyz = gather_rows(xyz, farthest_point_sample(xyz, npoint,
                                                      start=fps_start))
-    idx = query_ball_point(radius, nsample, xyz, new_xyz)
     src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
-    return new_xyz, group_points(idx, src, new_xyz)
+    return new_xyz, ball_group(radius, nsample, xyz, new_xyz, src,
+                               fast_gather)
 
 
 def msg_ball_groups(radius_list: Sequence[float],
                     nsample_list: Sequence[int], xyz: torch.Tensor,
-                    new_xyz: torch.Tensor, src: torch.Tensor):
+                    new_xyz: torch.Tensor, src: torch.Tensor,
+                    fast_gather: bool = False):
     """Multi-scale ball query + group (``tumseg/ops/__init__.py:243-272``):
     -> one [B, S, nsample_list[i], C] tensor per radius, channels 0-2 of
-    ``src`` [B, N, C] centred on ``new_xyz``."""
+    ``src`` [B, N, C] centred on ``new_xyz``. It never takes the fused op:
+    ``tumseg`` reaches ``ball_group`` here only at N % 32 != 0, which no
+    model has."""
     idxs = query_ball_point_multi(radius_list, nsample_list, xyz, new_xyz)
-    return [group_points(idx, src, new_xyz) for idx in idxs]
+    return [group_points(idx, src, new_xyz, fast_gather) for idx in idxs]

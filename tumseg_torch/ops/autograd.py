@@ -1,14 +1,16 @@
 """The differentiable point ops as ``torch.autograd.Function``s
-(``tumseg/ops/pallas/group.py:146-161`` and ``interpolate.py:118-133`` are
-their ``jax.custom_vjp`` counterparts). On a CUDA tensor the forward and the
-backward are both hand-written kernels; on a CPU tensor, or inside
-``ops.plain()``, both are the plain versions of ``tumseg_torch.ops.core``.
+(``tumseg/ops/pallas/group.py:146-161``, ``interpolate.py:118-133`` and
+``fusedgroup.py:320-346`` are their ``jax.custom_vjp`` counterparts). On a
+CUDA tensor the forward and the backward are both hand-written kernels; on
+a CPU tensor, or inside ``ops.plain()``, both are the plain versions of
+``tumseg_torch.ops.core``.
 
 The implementation module (``core`` or ``kernels``) is chosen by the caller
 at forward time and kept on ``ctx``: ``ops.plain()`` is thread-local, and
 autograd runs a CUDA backward on a thread of its own, so it is never looked
-up again in ``backward``. The wrappers of ``kernels`` refuse tensors that
-require grad, so the forward hands them detached ones.
+up again in ``backward``; so is ``fast``, the single-pass bf16 mode, which
+the backward takes as its forward took it. The wrappers of ``kernels``
+refuse tensors that require grad, so the forward hands them detached ones.
 
 Only the features are differentiated: the centres of a group and the
 indices and distances of the 3-NN depend on coordinates alone, which carry
@@ -27,15 +29,19 @@ from tumseg_torch.ops import core
 
 class GroupPoints(torch.autograd.Function):
     """(idx [B, S, K] int32, src [B, N, C], new_xyz [B, S, 3]) ->
-    grouped [B, S, K, C]; backward: d src by the group-backward scatter."""
+    grouped [B, S, K, C] (bf16 when ``fast``); backward: d src by the
+    group-backward scatter, which takes the bf16 cotangent as it comes."""
 
     @staticmethod
     def forward(ctx, idx: torch.Tensor, src: torch.Tensor,
-                new_xyz: torch.Tensor, impl: ModuleType) -> torch.Tensor:
+                new_xyz: torch.Tensor, impl: ModuleType,
+                fast: bool = False) -> torch.Tensor:
         ctx.impl = impl
+        ctx.fast = fast
         ctx.n = src.shape[1]
         ctx.save_for_backward(idx)
-        return impl.group_points(idx, src.detach(), new_xyz.detach())
+        return impl.group_points(idx, src.detach(), new_xyz.detach(),
+                                 fast=fast)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -43,8 +49,38 @@ class GroupPoints(torch.autograd.Function):
         dsrc = None
         if ctx.needs_input_grad[1]:
             dsrc = ctx.impl.group_points_backward(idx, grad.contiguous(),
-                                                  ctx.n)
-        return None, dsrc, None, None
+                                                  ctx.n, fast=ctx.fast)
+        return None, dsrc, None, None, None
+
+
+class FusedBallGroup(torch.autograd.Function):
+    """(xyz [B, N, 3], new_xyz [B, S, 3], src [B, N, C]) -> (grouped
+    [B, S, K, C], idx [B, S, K] int32): ball query and group in one op; idx
+    is not differentiable. Backward: d src by the group-backward scatter on
+    the idx it chose, as ``fusedgroup.py:331-342`` does."""
+
+    @staticmethod
+    def forward(ctx, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                src: torch.Tensor, impl: ModuleType, radius: float,
+                nsample: int, fast: bool = False):
+        grouped, idx = impl.fused_ball_group(
+            radius, nsample, xyz.detach(), new_xyz.detach(), src.detach(),
+            fast=fast)
+        ctx.mark_non_differentiable(idx)
+        ctx.impl = impl
+        ctx.fast = fast
+        ctx.n = src.shape[1]
+        ctx.save_for_backward(idx)
+        return grouped, idx
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor, grad_idx):
+        (idx,) = ctx.saved_tensors
+        dsrc = None
+        if ctx.needs_input_grad[2]:
+            dsrc = ctx.impl.group_points_backward(idx, grad.contiguous(),
+                                                  ctx.n, fast=ctx.fast)
+        return None, None, dsrc, None, None, None, None
 
 
 class ThreeNNInterpolate(torch.autograd.Function):
@@ -54,20 +90,23 @@ class ThreeNNInterpolate(torch.autograd.Function):
     queries a tile (``threenn.py:376-393`` is its zero coordinate VJP).
     Backward: d points2 = W^T g with the weights recomputed from the saved
     distances by the fused kernels' own formula
-    (``core.interpolation_weights``), whichever 3-NN ran."""
+    (``core.interpolation_weights``), whichever 3-NN ran; ``fast`` rounds
+    the weights and points2 (or g) to bf16 in both passes."""
 
     @staticmethod
     def forward(ctx, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 points2: torch.Tensor, impl: ModuleType,
-                window: Optional[int] = None, n_tile: int = 256):
+                window: Optional[int] = None, n_tile: int = 256,
+                fast: bool = False):
         args = (xyz1.detach(), xyz2.detach(), points2.detach())
         if window is None:
-            dists, idx, out = impl.three_nn_interpolate(*args)
+            dists, idx, out = impl.three_nn_interpolate(*args, fast=fast)
         else:
             dists, idx, out = impl.three_nn_window_interpolate(
-                *args, window, n_tile)
+                *args, window, n_tile, fast=fast)
         ctx.mark_non_differentiable(dists, idx)
         ctx.impl = impl
+        ctx.fast = fast
         ctx.window = window
         ctx.s = xyz2.shape[1]
         ctx.save_for_backward(dists, idx)
@@ -80,5 +119,5 @@ class ThreeNNInterpolate(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             dp2 = ctx.impl.interpolate_backward(
                 idx, core.interpolation_weights(dists),
-                grad_out.contiguous(), ctx.s)
-        return None, None, dp2, None, None, None
+                grad_out.contiguous(), ctx.s, fast=ctx.fast)
+        return None, None, dp2, None, None, None, None

@@ -19,6 +19,14 @@ expansion form of the Pallas kernels they answer.
 
 Ties always go to the lower index: arg-reductions are written as a masked
 min over an index ramp, never left to ``argmax``/``topk`` tie rules.
+
+``fast`` selects the single-pass bf16 gathers that ``tumseg`` trains with on
+its accelerator (``fast_gather``, ``tumseg/train/loop.py:126``): the group
+rounds its source to bf16, centres in f32 and stores bf16
+(``tumseg/ops/pallas/group.py:33-48,104-107``); the interpolation and both
+backward passes round their two operands to bf16 and multiply and add in
+f32, as one bf16 MXU pass at ``Precision.DEFAULT`` does
+(``tumseg/ops/pallas/interpolate.py:136-148``).
 """
 
 from __future__ import annotations
@@ -120,20 +128,42 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, C)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even), as f32."""
+    return t.to(torch.bfloat16).float()
+
+
 def group_points(idx: torch.Tensor, src: torch.Tensor,
-                 new_xyz: torch.Tensor) -> torch.Tensor:
+                 new_xyz: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """idx [B, S, K] int, src [B, N, C] (xyz first), new_xyz [B, S, 3]
     -> [B, S, K, C], channels 0-2 made relative to ``new_xyz``.
 
     ``idx == N`` (an empty ball) reads a zero row, so its output is
     ``-center`` on channels 0-2 and 0 elsewhere, as the one-hot contraction
     of ``tumseg/ops/pallas/group.py:60-72`` gives. A zero row is appended
-    because ``torch.gather`` would reject the index."""
+    because ``torch.gather`` would reject the index. ``fast``: the gathered
+    value is ``bf16(src)``, centred in f32 and stored as bf16, so channels
+    3+ are ``bf16(src)`` exactly."""
     B, _, C = src.shape
+    if fast:
+        src = _bf16(src)
     padded = torch.cat([src, src.new_zeros(B, 1, C)], dim=1)
     grouped = index_points(padded, idx)                        # [B, S, K, C]
     center = torch.nn.functional.pad(new_xyz, (0, C - 3))      # [B, S, C]
-    return grouped - center[:, :, None, :]
+    out = grouped - center[:, :, None, :]
+    return out.to(torch.bfloat16) if fast else out
+
+
+def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor, src: torch.Tensor,
+                     fast: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ball query and grouping in one op (``tumseg/ops/pallas/
+    fusedgroup.py:1-30``): -> (grouped [B, S, K, C], idx [B, S, K] int32),
+    by definition :func:`query_ball_point` followed by :func:`group_points`
+    of the same mode."""
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    return group_points(idx, src, new_xyz, fast), idx
 
 
 def gather_rows(xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -335,46 +365,53 @@ def interpolation_weights(dists: torch.Tensor) -> torch.Tensor:
 
 
 def interpolate_weighted(dists: torch.Tensor, idx: torch.Tensor,
-                         points2: torch.Tensor) -> torch.Tensor:
+                         points2: torch.Tensor, fast: bool = False
+                         ) -> torch.Tensor:
     """``out = (w0*p[i0] + w1*p[i1]) + w2*p[i2]`` -> [B, N, D] with the
-    weights of :func:`interpolation_weights`."""
+    weights of :func:`interpolation_weights`; ``fast`` rounds the weights
+    and ``points2`` to bf16 first (each product is then exact in f32)."""
     w = interpolation_weights(dists)
+    if fast:
+        w, points2 = _bf16(w), _bf16(points2)
     nb = index_points(points2, idx)                            # [B, N, 3, D]
     return (nb[:, :, 0] * w[..., 0:1] + nb[:, :, 1] * w[..., 1:2]
             + nb[:, :, 2] * w[..., 2:3])
 
 
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
-                         points2: torch.Tensor):
+                         points2: torch.Tensor, fast: bool = False):
     """-> (dists [B, N, 3], idx [B, N, 3] int32, out [B, N, D]): 3-NN and
     the weighted interpolation that consumes it, one kernel on the card."""
     dists, idx = three_nn(xyz1, xyz2)
-    return dists, idx, interpolate_weighted(dists, idx, points2)
+    return dists, idx, interpolate_weighted(dists, idx, points2, fast)
 
 
 def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                                 points2: torch.Tensor, window: int,
-                                n_tile: int = 256):
+                                n_tile: int = 256, fast: bool = False):
     """-> (dists, idx, out) of :func:`three_nn_interpolate` with the 3-NN of
     :func:`three_nn_windowed`; one kernel on the card."""
     dists, idx = three_nn_windowed(xyz1, xyz2, window, n_tile)
-    return dists, idx, interpolate_weighted(dists, idx, points2)
+    return dists, idx, interpolate_weighted(dists, idx, points2, fast)
 
 
 def three_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
-                      points2: torch.Tensor) -> torch.Tensor:
-    return three_nn_interpolate(xyz1, xyz2, points2)[2]
+                      points2: torch.Tensor, fast: bool = False
+                      ) -> torch.Tensor:
+    return three_nn_interpolate(xyz1, xyz2, points2, fast)[2]
 
 
 def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
-                          n: int) -> torch.Tensor:
+                          n: int, fast: bool = False) -> torch.Tensor:
     """Backward of :func:`group_points` with respect to ``src``: idx
-    [B, S, K] int in [0, n], grad [B, S, K, C] -> dsrc [B, n, C], the
+    [B, S, K] int in [0, n], grad [B, S, K, C] -> dsrc [B, n, C] f32, the
     scatter-add ``dsrc[b, idx[b,s,k]] += grad[b,s,k]``
     (``tumseg/ops/pallas/group.py:_group_t_bwd_impl``). The sentinel
     ``idx == n`` adds into an appended row that is dropped, so it adds
-    nothing."""
+    nothing. ``fast``: the cotangent (bf16 or f32) is rounded to bf16 and
+    summed in f32."""
     B, S, K, C = grad.shape
+    grad = _bf16(grad) if fast else grad
     flat = idx.reshape(B, S * K, 1).long().expand(B, S * K, C)
     out = grad.new_zeros(B, n + 1, C)
     out.scatter_add_(1, flat, grad.reshape(B, S * K, C))
@@ -382,12 +419,16 @@ def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
 
 
 def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
-                         grad: torch.Tensor, s: int) -> torch.Tensor:
+                         grad: torch.Tensor, s: int, fast: bool = False
+                         ) -> torch.Tensor:
     """Backward of the weighted interpolation with respect to ``points2``:
     idx [B, N, 3] int in [0, s), weight [B, N, 3], grad [B, N, D] ->
     dpoints2 [B, s, D] = W^T g, i.e. ``dp2[b, idx[b,n,k]] += w[b,n,k] *
-    grad[b,n]`` (``tumseg/ops/pallas/interpolate.py:_interp_bwd_impl``)."""
+    grad[b,n]`` (``tumseg/ops/pallas/interpolate.py:_interp_bwd_impl``);
+    ``fast`` rounds the weights and the cotangent to bf16 first."""
     B, N, D = grad.shape
+    if fast:
+        weight, grad = _bf16(weight), _bf16(grad)
     contrib = weight[..., None] * grad[:, :, None, :]          # [B, N, 3, D]
     flat = idx.reshape(B, N * 3, 1).long().expand(B, N * 3, D)
     out = grad.new_zeros(B, s, D)

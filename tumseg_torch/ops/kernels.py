@@ -7,9 +7,10 @@ one backward pass: gradients go through the ``torch.autograd.Function``s of
 allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
 accumulating backward kernels); launches on the current stream of the
 input's device; raises if the launcher returns a CUDA error; and adds one to
-its entry of ``launches`` per launch. There is no fallback: a CUDA tensor
-either runs the kernel or raises. The plain versions with the same contracts
-are in ``tumseg_torch.ops.core``.
+its entry of ``launches`` per launch, and a launch in the fast (single-pass
+bf16) mode to its entry of ``fast_launches`` as well. There is no fallback:
+a CUDA tensor either runs the kernel or raises. The plain versions with the
+same contracts are in ``tumseg_torch.ops.core``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,12 @@ from tumseg_torch.ops import build, core
 
 KERNELS = ("fps", "ball_query", "ball_query_multi", "group",
            "three_nn_interpolate", "group_backward", "interpolate_backward",
-           "three_nn_window")
+           "three_nn_window", "fused_ball_group")
 launches = dict.fromkeys(KERNELS, 0)
+# the kernels with a fast mode; its launches also count here
+FAST_KERNELS = ("group", "three_nn_interpolate", "group_backward",
+                "interpolate_backward", "three_nn_window", "fused_ball_group")
+fast_launches = dict.fromkeys(FAST_KERNELS, 0)
 
 # FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
 # of the 227 KB a block may use on Hopper, less the reduction scratch
@@ -45,13 +50,18 @@ class _MultiRadii(ctypes.Structure):
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    for name in FAST_KERNELS:
+        fast_launches[name] = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """``dtype`` is one dtype or a tuple of those accepted."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != len(shape) or any(
             want is not None and got != want
             for got, want in zip(t.shape, shape)):
@@ -73,14 +83,21 @@ def _same_device(*tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+def _launch(kernel: str, fn_name: str, device: torch.device, *args,
+            fast: Optional[bool] = None) -> None:
+    """Launches ``fn_name``; a kernel with a fast mode is given ``fast``
+    as its last argument before the stream."""
     lib = build.library()
+    if fast is not None:
+        args = (*args, int(fast))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     launches[kernel] += 1
+    if fast:
+        fast_launches[kernel] += 1
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -158,9 +175,10 @@ def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
 
 
 def group_points(idx: torch.Tensor, src: torch.Tensor,
-                 new_xyz: torch.Tensor) -> torch.Tensor:
+                 new_xyz: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """idx [B, S, K] int32 in [0, N], src [B, N, C] f32 (C >= 3, xyz first),
-    new_xyz [B, S, 3] f32 -> [B, S, K, C] f32, channels 0-2 centred."""
+    new_xyz [B, S, 3] f32 -> [B, S, K, C] f32, channels 0-2 centred; bf16
+    with ``fast`` (``core.group_points``)."""
     _check("idx", idx, torch.int32, (None, None, None))
     B, S, K = idx.shape
     _check("src", src, torch.float32, (B, None, None))
@@ -169,16 +187,46 @@ def group_points(idx: torch.Tensor, src: torch.Tensor,
     if C < 3:
         raise ValueError(f"src needs xyz in channels 0-2, got C={C}")
     device = _same_device(idx, src, new_xyz)
-    out = torch.empty((B, S, K, C), dtype=torch.float32, device=device)
+    out = torch.empty((B, S, K, C), device=device,
+                      dtype=torch.bfloat16 if fast else torch.float32)
     _launch("group", "tumseg_group", device, _ptr(idx), _ptr(src),
-            _ptr(new_xyz), _ptr(out), B, N, S, K, C)
+            _ptr(new_xyz), _ptr(out), B, N, S, K, C, fast=fast)
     return out
 
 
+def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor, src: torch.Tensor,
+                     fast: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xyz [B, N, 3], new_xyz [B, S, 3], src [B, N, C] f32 (C >= 3, xyz
+    first) -> (grouped [B, S, nsample, C] f32, or bf16 with ``fast``;
+    idx [B, S, nsample] int32): :func:`query_ball_point` and
+    :func:`group_points` of the same mode in one launch, bit for bit."""
+    _check("xyz", xyz, torch.float32, (None, None, 3))
+    B, N, _ = xyz.shape
+    _check("new_xyz", new_xyz, torch.float32, (B, None, 3))
+    _check("src", src, torch.float32, (B, N, None))
+    S, C = new_xyz.shape[1], src.shape[2]
+    if nsample < 1:
+        raise ValueError(f"nsample must be >= 1, got {nsample}")
+    if C < 3:
+        raise ValueError(f"src needs xyz in channels 0-2, got C={C}")
+    device = _same_device(xyz, new_xyz, src)
+    grouped = torch.empty((B, S, nsample, C), device=device,
+                          dtype=torch.bfloat16 if fast else torch.float32)
+    idx = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
+    r2 = float(radius) * float(radius)  # rounded to f32 by ctypes
+    _launch("fused_ball_group", "tumseg_fused_ball_group", device, _ptr(xyz),
+            _ptr(new_xyz), _ptr(src), _ptr(grouped), _ptr(idx), B, N, S,
+            nsample, C, r2, fast=fast)
+    return grouped, idx
+
+
 def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
-                         points2: torch.Tensor):
+                         points2: torch.Tensor, fast: bool = False):
     """xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D] f32 ->
-    (dists [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32)."""
+    (dists [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32); ``fast``
+    rounds the weights and points2 to bf16 before the f32 products."""
     _check("xyz1", xyz1, torch.float32, (None, None, 3))
     B, N, _ = xyz1.shape
     _check("xyz2", xyz2, torch.float32, (B, None, 3))
@@ -193,19 +241,20 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     out = torch.empty((B, N, D), dtype=torch.float32, device=device)
     _launch("three_nn_interpolate", "tumseg_three_nn_interpolate", device,
             _ptr(xyz1), _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx),
-            _ptr(out), B, N, S, D)
+            _ptr(out), B, N, S, D, fast=fast)
     return dists, idx, out
 
 
 def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                                 points2: torch.Tensor, window: int,
-                                n_tile: int = 256):
+                                n_tile: int = 256, fast: bool = False):
     """xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D] f32 -> (dists
     [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32): the z-window
     3-NN of ``core.three_nn_windowed`` and the interpolation, one launch.
     The z-sorts, window starts and the largest source norm are computed
     here in torch; where ``core.window_plan`` gives no window the kernel
-    runs as the full expansion-form row kernel."""
+    runs as the full expansion-form row kernel. ``fast`` as in
+    :func:`three_nn_interpolate`."""
     _check("xyz1", xyz1, torch.float32, (None, None, 3))
     B, N, _ = xyz1.shape
     _check("xyz2", xyz2, torch.float32, (B, None, 3))
@@ -235,7 +284,7 @@ def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
         sorted_args = tuple(_ptr(t) for t in keep)
     _launch("three_nn_window", "tumseg_three_nn_window", device, _ptr(xyz1),
             _ptr(xyz2), *sorted_args, _ptr(points2), _ptr(dists), _ptr(idx),
-            _ptr(out), B, N, S, D, C, n_tile)
+            _ptr(out), B, N, S, D, C, n_tile, fast=fast)
     return dists, idx, out
 
 
@@ -251,27 +300,33 @@ def three_nn_expansion(xyz1: torch.Tensor, xyz2: torch.Tensor):
 
 
 def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
-                          n: int) -> torch.Tensor:
+                          n: int, fast: bool = False) -> torch.Tensor:
     """idx [B, S, K] int32 in [0, n], grad [B, S, K, C] f32 -> dsrc
     [B, n, C] f32: the scatter-add backward of :func:`group_points`; the
-    sentinel ``idx == n`` adds nothing."""
+    sentinel ``idx == n`` adds nothing. ``fast`` takes a bf16 or an f32
+    cotangent and rounds it to bf16 in the kernel before the f32 sum."""
     _check("idx", idx, torch.int32, (None, None, None))
     B, S, K = idx.shape
-    _check("grad", grad, torch.float32, (B, S, K, None))
+    _check("grad", grad,
+           (torch.bfloat16, torch.float32) if fast else torch.float32,
+           (B, S, K, None))
     C = grad.shape[3]
     if n < 1:
         raise ValueError(f"group backward needs n >= 1 source rows, got {n}")
     device = _same_device(idx, grad)
     out = torch.zeros((B, n, C), dtype=torch.float32, device=device)
     _launch("group_backward", "tumseg_group_backward", device, _ptr(idx),
-            _ptr(grad), _ptr(out), B, n, S, K, C)
+            _ptr(grad), _ptr(out), B, n, S, K, C,
+            int(grad.dtype == torch.bfloat16), fast=fast)
     return out
 
 
 def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
-                         grad: torch.Tensor, s: int) -> torch.Tensor:
+                         grad: torch.Tensor, s: int, fast: bool = False
+                         ) -> torch.Tensor:
     """idx [B, N, 3] int32 in [0, s), weight [B, N, 3] f32, grad [B, N, D]
-    f32 -> dpoints2 [B, s, D] f32 = W^T g."""
+    f32 -> dpoints2 [B, s, D] f32 = W^T g; ``fast`` rounds the weights and
+    the cotangent to bf16 in the kernel before the f32 products."""
     _check("idx", idx, torch.int32, (None, None, 3))
     B, N, _ = idx.shape
     _check("weight", weight, torch.float32, (B, N, 3))
@@ -282,5 +337,6 @@ def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
     device = _same_device(idx, weight, grad)
     out = torch.zeros((B, s, D), dtype=torch.float32, device=device)
     _launch("interpolate_backward", "tumseg_interpolate_backward", device,
-            _ptr(idx), _ptr(weight), _ptr(grad), _ptr(out), B, N, s, D)
+            _ptr(idx), _ptr(weight), _ptr(grad), _ptr(out), B, N, s, D,
+            fast=fast)
     return out

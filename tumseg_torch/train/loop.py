@@ -9,6 +9,11 @@ Same behaviour as ``tumseg``'s host-pipeline path:
   decay (``optax.trace(0.9)``);
 - a z-rotation of every batch, a random FPS start per stage and dropout,
   all drawn from the engine's ``torch.Generator`` on the device;
+- f32 weights and, unless ``exact_gathers``, single-pass bf16 gathers in
+  the train step (``fast_gather``: the neighbourhood groups store bf16, the
+  interpolations round their operands to bf16), exact gathers in eval, as
+  ``tumseg``'s engine trains on its accelerator (``tumseg/train/loop.py:85,
+  126, 147-150``);
 - per-epoch eval with per-class IoU and mIoU, a checkpoint every 5 epochs
   and on the best mIoU, and the accuracy / loss / IoU charts.
 
@@ -61,16 +66,19 @@ def make_optimizer(params, name: str = "Adam",
 
 
 class TrainEngine:
-    """Holds the model, its optimizer and the random stream of training."""
+    """Holds the model, its optimizer and the random stream of training.
+    ``exact_gathers`` (default False, as in ``tumseg``) makes the train step
+    gather exactly too."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", exact_gathers: bool = False):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.num_classes = num_classes
         self.augment_rotate = augment_rotate
+        self.exact_gathers = exact_gathers
         self.weights = torch.as_tensor(
             np.asarray(train_weights, dtype=np.float32), device=self.device)
         self.optimizer = make_optimizer(self.model.parameters(), optimizer,
@@ -116,7 +124,8 @@ class TrainEngine:
                                 device=self.device) * (2 * math.pi)
             points = torch.cat([rotate_z(points[..., :3], angles),
                                 points[..., 3:]], dim=-1)
-        logp, _ = self.model(points, generator=self.generator)
+        logp, _ = self.model(points, generator=self.generator,
+                             fast_gather=not self.exact_gathers)
         loss = self.model.loss(logp, target, self.weights)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -126,7 +135,8 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_batch(self, points, target):
-        """-> (loss, {seen, predicted, correct}) as device tensors."""
+        """-> (loss, {seen, predicted, correct}) as device tensors; the
+        gathers are exact."""
         points, target = self._put(points, target)
         self.model.eval()
         logp, _ = self.model(points)
