@@ -6,8 +6,12 @@ a. prints the card's name and power limit, builds the CUDA kernels from
    ``tumseg_torch/csrc`` and prints the build time;
 b. runs each kernel and its plain PyTorch version on the same inputs at the
    shapes of a B=32 x 4096-point forward of ``pointnet2_sem_seg`` and holds
-   them equal (indices identical, grouping bitwise, interpolation within
-   rtol 1e-5 / atol 1e-6), timing both with CUDA events;
+   them equal (indices identical, grouping bitwise in both modes, the
+   sentinel reading a zero row, interpolation within rtol 1e-5 / atol
+   1e-6), timing both with CUDA events; the group kernel's lines also give
+   the profiler's device time of the same calls, and the host time a call
+   of the group wrapper and of ``index_select`` at the last centroid
+   gather;
 c. runs that forward with the kernels and with the plain versions: log-probs
    within 1e-4 and argmax equal on >= 99.99% of points, both timed;
 d. serves a synthetic ~300K-point facade tile through
@@ -20,8 +24,11 @@ d. serves a synthetic ~300K-point facade tile through
 e. runs each backward kernel and its plain version on unit-normal
    cotangents at the shapes of a B=16 x 4096 training step (group at
    sa2-sa4, plus sentinel rows and repeated indices; interpolation at
-   fp1-fp4), holds them within rtol 1e-5 / atol 1e-4 (f32 atomics add in
-   a varying order) and times both;
+   fp1-fp4) and times both: the group backward bitwise equal to its plain
+   version run on the CPU and to itself over three runs (it sums in
+   ascending row order, no atomics), with the profiler's device time beside
+   each line; the interpolation within rtol 1e-5 / atol 1e-4 (f32 atomics
+   add in a varying order);
 f. takes one training step (train-mode BN, weighted NLL, backward) of the
    seeded model on one B=16 x 4096 batch with the kernels and under
    ``ops.plain()``, with exact gathers and then with the single-pass bf16
@@ -43,7 +50,9 @@ h. runs the multi-radius ball-query kernel at the four stage shapes of a
    B=32 x 4096-point forward of ``pointnet2_sem_seg_msg`` (radii .05/.1,
    .1/.2, .2/.4, .4/.8, K = 16/32): indices identical to its plain version
    and to the single-radius kernel run once per radius, plus an empty ball
-   and unsorted radii; times it beside two single-radius launches;
+   and unsorted radii; times it beside two single-radius launches; the
+   group kernel at the MSG widths (C = 9, 99, 259, 515) bitwise its plain
+   version in both modes;
 i. runs that MSG forward with the kernels and with the plain versions:
    log-probs within 1e-4, argmax equal on >= 99.99% of points, >= 2 classes
    predicted, both timed;
@@ -84,11 +93,13 @@ n. serves a ~1M-point facade tile (2 votes) by the host and the device path:
    the wall time of one profiled vote);
 o. (after e) the fast (single-pass bf16) modes at a B=16 x 4096 training
    step's shapes: the group kernel at sa1-sa4 bitwise equal to the plain
-   fast group, in bf16; the group backward at sa2-sa4 with a bf16 and with
-   an f32 cotangent, the interpolation forward at fp1-fp4 (and fp1 through
-   the window kernel) and its backward, each within rtol 1e-5 / atol 1e-6 of
-   its plain fast version; each fast time beside the same kernel's exact
-   time at the same shapes;
+   fast group, in bf16; the group backward at sa2-sa4 and on e's sentinels
+   and repeats, with a bf16 and with an f32 cotangent, bitwise equal to the
+   plain fast version run on the CPU and to itself over three runs; the
+   interpolation forward at fp1-fp4 (and fp1 through the window kernel) and
+   its backward, each within rtol 1e-5 / atol 1e-6 of its plain fast
+   version; each fast time beside the same kernel's exact time at the same
+   shapes;
 p. (after l) the fused ball query + group kernel at sa1-sa4 of the
    B=32 x 4096 forward, exact and fast, and on an input with an empty ball:
    grouped and idx bitwise equal to the ball-query kernel then the group
@@ -117,6 +128,11 @@ before their balls fill), and beside one PyTorch call that computes the same
 function where there is one. A kernel with a fast mode also reports
 ``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
 time at the same shapes (phase o's; phase p's for the fused kernel). The
+group and group-backward kernels also report ``device_ms`` and
+``library_device_ms``, the profiler's device time of the calls that ``ms``
+and ``library_ms`` time with CUDA events (where a call's device work is
+shorter than its host work, as at the K = 1 centroid gathers, the event
+time is the host's time a call). The
 line before the last is a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises, and the script then exits non-zero without printing either
@@ -153,6 +169,7 @@ FP_D = [128, 256, 256, 512]  # points2 channels of fp1..fp4
 MSG_SA = [(1024, (0.05, 0.1)), (256, (0.1, 0.2)), (64, (0.2, 0.4)),
           (16, (0.4, 0.8))]  # (npoint, radii) of pointnet2_sem_seg_msg
 MSG_K = (16, 32)
+MSG_CHANNELS = [9, 99, 259, 515]  # grouped channels of MSG sa1..sa4
 # H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -183,6 +200,8 @@ SOURCES = {
 # the kernels with a fast (single-pass bf16) mode
 FAST = ("group", "three_nn_interpolate", "group_backward",
         "interpolate_backward", "three_nn_window", "fused_ball_group")
+# the kernels whose lines also give the profiler's device time
+DEVICE_TIMED = ("group", "group_backward")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -264,6 +283,41 @@ def time_ms(torch, fn, reps):
     return float(np.median(runs)), runs
 
 
+def device_ms(torch, fn, reps):
+    """The profiler's per-call device time of ``fn``: the CUDA-busy time
+    (:func:`cuda_busy_seconds`) of ``reps`` calls after one warm-up call,
+    over ``reps``; None when three traces in a row hold no device event
+    (the profiler now and then records none)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = cuda_busy_seconds(torch, prof)
+        if busy > 0:
+            return busy * 1e3 / reps
+    return None
+
+
+def host_us(torch, fn, calls=2000):
+    """The host's time a call of ``fn`` in microseconds: ``perf_counter``
+    around ``calls`` calls after a warm-up, the device drained before and
+    after (where the device work is shorter, it is the event time too)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def scanned(torch, idx, n):
     """Candidates each query of a ball query [B, S, K] over ``n`` points
     must test: up to its K-th hit, or all ``n`` when its ball holds fewer
@@ -271,6 +325,14 @@ def scanned(torch, idx, n):
     last, first = idx[..., -1].long(), idx[..., 0].long()
     full = last != first if idx.shape[-1] > 1 else first != n
     return torch.where(full, last + 1, torch.full_like(last, n))
+
+
+def _add(total, ms):
+    return None if total is None or ms is None else total + ms
+
+
+def _ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 class Report:
@@ -284,6 +346,8 @@ class Report:
                         for name in SOURCES}
         for name in FAST:
             self.kernels[name].update(fast_ms=0.0, fast_exact_ms=0.0)
+        for name in DEVICE_TIMED:
+            self.kernels[name].update(device_ms=0.0, library_device_ms=0.0)
         self.terms = {name: [0.0, 0.0] for name in SOURCES}  # bytes, ops ms
 
     def add(self, torch, name, label, kernel_fn, plain_fn, err, *, nbytes,
@@ -296,6 +360,11 @@ class Report:
         ms, runs = time_ms(torch, kernel_fn, reps)
         pms, pruns = time_ms(torch, plain_fn, plain_reps)
         lms = time_ms(torch, library_fn, reps)[0] if library_fn else None
+        dms = ldms = None
+        if name in DEVICE_TIMED:
+            dms = device_ms(torch, kernel_fn, reps)
+            if library_fn:
+                ldms = device_ms(torch, library_fn, reps)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         k = self.kernels[name]
@@ -309,10 +378,20 @@ class Report:
                              >= self.terms[name][1] else "operations")
             if lms is not None:
                 k["library_ms"] = (k["library_ms"] or 0.0) + lms
+            if name in DEVICE_TIMED:  # None once any line was not measured
+                k["device_ms"] = _add(k["device_ms"], dms)
+                if library_fn:
+                    k["library_device_ms"] = _add(k["library_device_ms"],
+                                                  ldms)
         k["max_abs_err"] = max(k["max_abs_err"], float(err))
         lib = "" if lms is None else f"  library {lms:9.4f} ms"
+        dev = ""
+        if name in DEVICE_TIMED:
+            dev = f" (device {_ms(dms)})"
+            if library_fn:
+                lib += f" (device {_ms(ldms)})"
         print(f"[{phase}] {name:22s} {label:28s} kernel {ms:9.4f} ms "
-              f"{[round(r, 4) for r in runs]}  plain {pms:9.4f} ms "
+              f"{[round(r, 4) for r in runs]}{dev}  plain {pms:9.4f} ms "
               f"{[round(r, 4) for r in pruns]}{lib}  bound "
               f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB, "
               f"{ops / 1e9:.3f} Gop)  max|err| {err:g}")
@@ -327,9 +406,13 @@ class Report:
         k["fast_ms"] += fms
         k["fast_exact_ms"] += ems
         k["max_abs_err"] = max(k["max_abs_err"], float(err))
+        dev = ""
+        if name in DEVICE_TIMED:
+            dev = (f"  device fast {_ms(device_ms(torch, fast_fn, 20))}, "
+                   f"exact {_ms(device_ms(torch, exact_fn, 20))}")
         print(f"[{phase}] {name:22s} {label:28s} fast {fms:9.4f} ms "
               f"{[round(r, 4) for r in fruns]}  exact {ems:9.4f} ms "
-              f"{[round(r, 4) for r in eruns]}  max|err| {err:g}")
+              f"{[round(r, 4) for r in eruns]}{dev}  max|err| {err:g}")
 
 
 def group_cost(idx, C, n):
@@ -400,6 +483,10 @@ def phase_kernels(torch, report):
                    ops=9 * scanned(torch, b_p, n).sum().item(), plain_reps=2)
         xyzs.append(new_xyz)
         idxs.append(b_k)
+    wrapper = host_us(torch, lambda: kernels.group_points(idx1, src, zc))
+    library = host_us(torch, gather_call(torch, idx1, src))
+    print(f"[b] host time a call at gather_rows N={n} S={npoint}: the group "
+          f"wrapper {wrapper:.2f} us, index_select {library:.2f} us")
 
     far = torch.full((1, 1, 3), 1000.0, device=dev)
     empty = kernels.query_ball_point(0.1, K, xyz[:1].contiguous(), far)
@@ -414,20 +501,24 @@ def phase_kernels(torch, report):
             rng.standard_normal((B, src_xyz.shape[1], C - 3)).astype(
                 np.float32), device=dev)
         src = torch.cat([src_xyz, feats], dim=-1)
-        g_k = kernels.group_points(idx, src, ctr)
-        g_p = core.group_points(idx, src, ctr)
-        if not torch.equal(g_k, g_p):
-            raise AssertionError(f"group sa{stage + 1} C={C} is not bitwise "
-                                 "equal to the plain version")
-        if stage in (0, 3):
-            sent = idx.clone()
-            sent[:, :, 5] = src.shape[1]
-            s_k = kernels.group_points(sent, src, ctr)
-            want = torch.cat([-ctr, torch.zeros_like(feats[:, :ctr.shape[1]])],
-                             dim=-1)
-            if not (torch.equal(s_k, core.group_points(sent, src, ctr))
-                    and torch.equal(s_k[:, :, 5], want)):
-                raise AssertionError("group sentinel row must read as zeros")
+        for fast in (False, True):
+            g_k = kernels.group_points(idx, src, ctr, fast)
+            g_p = core.group_points(idx, src, ctr, fast)
+            if not torch.equal(g_k, g_p):
+                raise AssertionError(f"group sa{stage + 1} C={C} fast={fast} "
+                                     "is not bitwise the plain version")
+            if stage in (0, 3):
+                sent = idx.clone()
+                sent[:, :, 5] = src.shape[1]
+                s_k = kernels.group_points(sent, src, ctr, fast)
+                want = torch.cat(
+                    [-ctr, torch.zeros_like(feats[:, :ctr.shape[1]])],
+                    dim=-1).to(s_k.dtype)
+                if not (torch.equal(s_k, core.group_points(sent, src, ctr,
+                                                           fast))
+                        and torch.equal(s_k[:, :, 5], want)):
+                    raise AssertionError("group sentinel row must read as "
+                                         f"zeros, fast={fast}")
         report.add(torch, "group", f"sa{stage + 1} S={idx.shape[1]} C={C}",
                    lambda: kernels.group_points(idx, src, ctr),
                    lambda: core.group_points(idx, src, ctr), 0.0,
@@ -594,6 +685,19 @@ def phase_multi(torch, report):
             for r, k in zip(radii, MSG_K)], 20)
         print(f"[h] two single-radius launches at N={n} S={npoint}: "
               f"{two:.4f} ms {[round(r, 4) for r in runs]}")
+        c = MSG_CHANNELS[len(xyzs) - 1]
+        feats = torch.cat([src, torch.as_tensor(rng.standard_normal(
+            (B, n, c - 3)).astype(np.float32), device=dev)], dim=-1)
+        for idx in got:
+            for fast in (False, True):
+                if not torch.equal(
+                        kernels.group_points(idx, feats, new_xyz, fast),
+                        core.group_points(idx, feats, new_xyz, fast)):
+                    raise AssertionError(
+                        f"group N={n} K={idx.shape[2]} C={c} fast={fast} "
+                        "is not bitwise the plain version")
+        print(f"[h] group at N={n} S={npoint} C={c}, K={MSG_K}, both modes: "
+              "bitwise the plain version")
         xyzs.append(new_xyz)
 
     far = torch.full((1, 1, 3), 1000.0, device=dev)
@@ -624,6 +728,17 @@ def phase_backward(torch, report):
         err = (got - want).abs().max().item()
         report.add(torch, name, label, kernel_fn, plain_fn, err,
                    phase="e", on_path=on_path, **cost)
+
+    def check_group(label, idx, g, n, on_path=True, **kw):
+        """The group backward bitwise its plain version on the CPU and
+        itself over three runs, then timed against the plain version on
+        the card."""
+        group_backward_bitwise(torch, idx, g, n, False, f"e {label}")
+        report.add(torch, "group_backward", label,
+                   lambda: kernels.group_points_backward(idx, g, n),
+                   lambda: core.group_points_backward(idx, g, n), 0.0,
+                   phase="e", on_path=on_path, **kw,
+                   **group_bwd_cost(idx, g.shape[-1], n))
 
     def index_add_call(idx, g, n):
         """One ``index_add_`` over the flattened indices into a zeroed
@@ -666,21 +781,12 @@ def phase_backward(torch, report):
     for stage in (1, 2, 3):
         idx, n, c = idxs[stage], xyzs[stage].shape[1], SA_CHANNELS[stage]
         g = torch.randn(*idx.shape, c, device=dev)
-        check("group_backward", f"sa{stage + 1} N={n} S={idx.shape[1]} C={c}",
-              lambda: kernels.group_points_backward(idx, g, n),
-              lambda: core.group_points_backward(idx, g, n),
-              library_fn=index_add_call(idx, g, n),
-              **group_bwd_cost(idx, c, n))
-    idx, n = idxs[1].clone(), xyzs[1].shape[1]
-    idx[:, ::7] = n               # empty balls: every entry the sentinel
-    idx[:, :, 5] = n              # a sentinel inside every other ball
-    idx[:, 1::7, 8:] = idx[:, 1::7, :1]  # short balls padded with repeats
-    idx[:, 2::7, 0] = 0           # one row that many balls hold
+        check_group(f"sa{stage + 1} N={n} S={idx.shape[1]} C={c}", idx, g, n,
+                    library_fn=index_add_call(idx, g, n))
+    n = xyzs[1].shape[1]
+    idx = sentinels_and_repeats(idxs[1], n)
     g = torch.randn(*idx.shape, SA_CHANNELS[1], device=dev)
-    check("group_backward", "sa2 sentinels + repeats",
-          lambda: kernels.group_points_backward(idx, g, n),
-          lambda: core.group_points_backward(idx, g, n), on_path=False,
-          **group_bwd_cost(idx, SA_CHANNELS[1], n))
+    check_group("sa2 sentinels + repeats", idx, g, n, on_path=False)
 
     for lvl, d in enumerate(FP_D):  # fp1..fp4 interpolate lvl+1 onto lvl
         xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
@@ -696,6 +802,37 @@ def phase_backward(torch, report):
               nbytes=4 * (TRAIN_B * n1 * 6 + TRAIN_B * n1 * d
                           + TRAIN_B * s * d),
               ops=TRAIN_B * n1 * 3 * d * 2)
+
+
+def sentinels_and_repeats(idx, n):
+    """A copy of ball-query indices [B, S, K] over ``n`` points with what
+    the group backward must get right."""
+    idx = idx.clone()
+    idx[:, ::7] = n               # empty balls: every entry the sentinel
+    idx[:, :, 5] = n              # a sentinel inside every other ball
+    idx[:, 1::7, 8:] = idx[:, 1::7, :1]  # short balls padded with repeats
+    idx[:, 2::7, 0] = 0           # one row that many balls hold
+    return idx
+
+
+def group_backward_bitwise(torch, idx, g, n, fast, what):
+    """Raises unless three runs of the group-backward kernel are bitwise
+    equal to each other and to ``core.group_points_backward`` on the CPU
+    (the kernel sums each row in ascending order, as the CPU's scatter_add_
+    does, with no atomics)."""
+    from tumseg_torch.ops import core, kernels
+
+    runs = [kernels.group_points_backward(idx, g, n, fast=fast)
+            for _ in range(3)]
+    want = core.group_points_backward(idx.cpu(), g.cpu(), n, fast=fast)
+    for i, got in enumerate(runs):
+        if not torch.equal(got, runs[0]):
+            raise AssertionError(f"group backward {what}: run {i + 1} is "
+                                 "not bitwise run 1")
+    if not torch.equal(runs[0].cpu(), want):
+        bad = (runs[0].cpu() != want).float().mean().item()
+        raise AssertionError(f"group backward {what}: {bad:.2e} of elements "
+                             "differ from the plain version on the CPU")
 
 
 def grad_gap(got, want):
@@ -721,13 +858,14 @@ def fast_step_limit(first, repeats):
     """-> (spread, limit) for comparing the gradients of a training step
     with fast gathers: the largest :func:`grad_gap` of the ``repeats`` of
     the same step from ``first``, and three times that (at least phase f's
-    1e-4). The backward kernels add in f32 with atomics, in an order that
-    varies from run to run, and the fast backward rounds each cotangent to
-    bf16, so a low-bit difference out of one kernel can become a bf16 step
-    (2^-8) at the next: two runs of the same step on the card differ by
-    ~1e-3 of a layer's largest gradient, where exact gathers keep them
-    within ~1e-5. Another path through the same kernels may differ from
-    this step no more than the step differs from itself."""
+    1e-4). The interpolation backward adds in f32 with atomics, in an
+    order that varies from run to run (the group backward's is fixed),
+    and the fast backward rounds each cotangent to bf16, so a low-bit
+    difference out of one kernel can become a bf16 step (2^-8) at the next:
+    two runs of the same step on the card differ by ~1e-3 of a layer's
+    largest gradient, where exact gathers keep them within ~1e-5. Another
+    path through the same kernels may differ from this step no more than
+    the step differs from itself."""
     spread = max(grad_gap(g, first) for g in repeats)
     return spread, max(1e-4, 3 * spread[0])
 
@@ -1181,18 +1319,24 @@ def phase_fast(torch, report):
         idx, n, c = idxs[stage], srcs[stage].shape[1], srcs[stage].shape[2]
         g32 = torch.randn(*idx.shape, c, device=dev)
         g16 = g32.bfloat16()
-        err = 0.0
         for g in (g16, g32):
-            err = max(err, close(
-                kernels.group_points_backward(idx, g, n, fast=True),
-                core.group_points_backward(idx, g, n, fast=True),
-                f"fast group backward sa{stage + 1} {g.dtype}"))
+            group_backward_bitwise(torch, idx, g, n, True,
+                                   f"o fast sa{stage + 1} {g.dtype}")
         report.add_fast(torch, "group_backward",
                         f"sa{stage + 1} N={n} C={c} bf16 cotangent",
                         lambda: kernels.group_points_backward(idx, g16, n,
                                                               True),
                         lambda: kernels.group_points_backward(idx, g32, n),
-                        err, "o")
+                        0.0, "o")
+    n = srcs[1].shape[1]
+    idx = sentinels_and_repeats(idxs[1], n)
+    g32 = torch.randn(*idx.shape, srcs[1].shape[2], device=dev)
+    for g in (g32.bfloat16(), g32):
+        group_backward_bitwise(torch, idx, g, n, True,
+                               f"o fast sa2 sentinels + repeats {g.dtype}")
+    print("[o] group_backward fast, sa2-sa4 and sentinels + repeats, bf16 "
+          "and f32 cotangents: bitwise the plain version on the CPU and "
+          "over three runs")
     for lvl, d in enumerate(FP_D):  # fp1..fp4
         xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
         n1, s = xyz1.shape[1], xyz2.shape[1]

@@ -6,14 +6,18 @@ it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 
 Indices and grouping must be identical (the z-window 3-NN's distances too,
-bit for bit); the interpolation agrees within rtol 1e-5 / atol 1e-6. The backward kernels add with f32 atomics in an order
-that changes from run to run, so they agree within rtol 1e-5 / atol 1e-4.
+bit for bit); the interpolation agrees within rtol 1e-5 / atol 1e-6. The
+group backward sums each source row in ascending row order with no atomics,
+so in both modes it is bitwise the plain version run on the CPU (what
+tests/test_torch_group_order.py pins that to) and bitwise itself across
+runs. The interpolation backward adds with f32 atomics in an order that
+changes from run to run, so it agrees within rtol 1e-5 / atol 1e-4.
 
 The fast (single-pass bf16) modes: the group's bf16 output and the fused
 ball query + group (against the split kernels and its plain version, both
-modes) bit for bit; the interpolations and the backward kernels within
-rtol 1e-5 / atol 1e-6 (their operands are bf16, so the products are exact
-and the f32 sums rarely round)."""
+modes) bit for bit; the interpolations and the interpolation backward
+within rtol 1e-5 / atol 1e-6 (their operands are bf16, so the products are
+exact and the f32 sums rarely round)."""
 
 import numpy as np
 import pytest
@@ -156,24 +160,56 @@ def test_three_nn_interpolate(cuda, B, N, S, D):
     torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("B,N,S,K,C", [(2, 77, 19, 32, 35), (1, 1000, 64, 8, 1),
-                                       (3, 31, 5, 40, 67)])
-def test_group_backward(cuda, B, N, S, K, C):
-    """Ragged N, an all-sentinel ball, a short ball padded with repeats and
-    one source row that every group holds."""
-    rng = np.random.default_rng(3)
+def _backward_case(rng, B, N, S, K, C, device):
+    """Indices in [0, N] with an all-sentinel ball, a short ball padded with
+    repeats, one source row that every group holds and, where B > 1, one
+    batch row whose every index is one source row (a bucket of S*K rows);
+    cotangents over five decades, so the order of the sums shows."""
     idx = rng.integers(0, N + 1, (B, S, K)).astype(np.int32)
     idx[:, 0] = N
     idx[:, 1, 2:] = idx[:, 1, 1:2]
     idx[:, 1:, 0] = N // 2
-    idx = torch.as_tensor(idx, device=cuda)
-    g = torch.as_tensor(rng.standard_normal((B, S, K, C)).astype(np.float32),
-                        device=cuda)
+    if B > 1:
+        idx[-1] = N - 1
+    g = (rng.standard_normal((B, S, K, C))
+         * 10.0 ** rng.integers(-3, 3, (B, S, K, 1))).astype(np.float32)
+    return torch.as_tensor(idx, device=device), torch.as_tensor(g,
+                                                                device=device)
+
+
+def _backward_runs(idx, g, N, fast=False):
+    """Three kernel runs, each into memory a NaN-filled tensor of the same
+    size left in the caching allocator (the kernel writes every element):
+    -> (first run, the plain version on the CPU); raises unless all three
+    runs are bitwise equal."""
+    runs = []
+    for _ in range(3):
+        stale = torch.full((g.shape[0], N, g.shape[-1]), float("nan"),
+                            device=g.device)
+        del stale
+        runs.append(kernels.group_points_backward(idx, g, N, fast=fast))
+    for again in runs[1:]:
+        assert torch.equal(again, runs[0])
+    return runs[0], core.group_points_backward(idx.cpu(), g.cpu(), N,
+                                               fast=fast)
+
+
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (2, 77, 19, 32, 35), (1, 1000, 64, 8, 1), (3, 31, 5, 40, 67),
+    (2, 300, 40, 32, 3), (2, 130, 16, 32, 9), (2, 64, 16, 32, 259),
+    (16, 1024, 256, 32, 67),   # sa2 of a B=16 step
+    (16, 1000, 20, 8, 1100),   # the narrow tile: 4 rows of 1100 columns
+    (2, 40, 6, 8, 9000)])      # wider than the accumulator: column slices
+def test_group_backward(cuda, B, N, S, K, C):
+    """Bitwise the plain version on the CPU and itself across runs, at
+    ragged N, the model's widths and wider ones, with sentinels, repeats,
+    one row every group holds and a bucket of length S*K."""
+    idx, g = _backward_case(np.random.default_rng(3), B, N, S, K, C, cuda)
     kernels.reset_launches()
-    got = kernels.group_points_backward(idx, g, N)
-    torch.testing.assert_close(got, core.group_points_backward(idx, g, N),
-                               rtol=1e-5, atol=1e-4)
-    assert kernels.launches["group_backward"] == 1
+    got, want = _backward_runs(idx, g, N)
+    assert kernels.launches["group_backward"] == 3
+    assert got.dtype == torch.float32 and got.shape == (B, N, C)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
@@ -406,23 +442,47 @@ def test_group_fast(cuda, B, N, S, K, C):
     assert kernels.fast_launches["group"] == 1
 
 
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (2, 50, 40, 1, 3),       # the centroid gather: K = 1
+    (2, 77, 19, 3, 5),       # K x C = 15: no span on a 16-byte boundary
+    (3, 10, 7, 5, 3),        # N below the span of a block
+    (2, 200, 100, 32, 259),  # sa4's width
+    (1, 4100, 1030, 1, 3)])  # ragged rows a block
+def test_group_shapes(cuda, fast, B, N, S, K, C):
+    """The group kernel bitwise its plain version in both modes where the
+    vector stores meet ragged spans, with an empty ball (the sentinel reads
+    a zero row) and a short ball padded with repeats; gather_rows is the
+    K = 1 group with zero centres."""
+    idx, src, ctr = _group_case(np.random.default_rng(15), B, N, S, K, C,
+                                cuda)
+    got = kernels.group_points(idx, src, ctr, fast=fast)
+    assert got.dtype == (torch.bfloat16 if fast else torch.float32)
+    assert torch.equal(got, core.group_points(idx, src, ctr, fast=fast))
+    want = torch.cat([-ctr, ctr.new_zeros(B, S, C - 3)], dim=-1)
+    assert torch.equal(got[:, 0, 0], want[:, 0].to(got.dtype))
+    if K == 1 and C == 3 and not fast:
+        rows = idx[:, :, 0].contiguous()
+        assert torch.equal(ops.gather_rows(src, rows),
+                           core.gather_rows(src, rows))
+
+
 @pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,N,S,K,C", [(2, 77, 19, 32, 35),
                                        (1, 1000, 64, 8, 1),
-                                       (16, 1024, 256, 32, 67)])  # sa2
+                                       (2, 64, 16, 32, 259),
+                                       (16, 1024, 256, 32, 67),  # sa2
+                                       (16, 1000, 20, 8, 1100)])
 def test_group_backward_fast(cuda, grad_dtype, B, N, S, K, C):
-    """A bf16 cotangent, and an f32 one that the kernel itself rounds."""
-    rng = np.random.default_rng(13)
-    idx, _, _ = _group_case(rng, B, N, S, K, C, cuda)
-    g = torch.as_tensor(rng.standard_normal((B, S, K, C)).astype(np.float32),
-                        device=cuda).to(grad_dtype)
+    """A bf16 cotangent, and an f32 one that the kernel itself rounds:
+    bitwise the plain fast version on the CPU and itself across runs."""
+    idx, g = _backward_case(np.random.default_rng(13), B, N, S, K, C, cuda)
+    g = g.to(grad_dtype)
     kernels.reset_launches()
-    got = kernels.group_points_backward(idx, g, N, fast=True)
+    got, want = _backward_runs(idx, g, N, fast=True)
     assert got.dtype == torch.float32
-    torch.testing.assert_close(
-        got, core.group_points_backward(idx, g, N, fast=True),
-        rtol=1e-5, atol=1e-6)
-    assert kernels.fast_launches["group_backward"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert kernels.fast_launches["group_backward"] == 3
     if grad_dtype == torch.float32:
         exact = kernels.group_points_backward(idx, g, N)
         assert not torch.equal(exact, got)

@@ -47,15 +47,23 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 // centre (0 on channels 3+). An f32 output stores it as it is. A bf16 output
 // is the fast mode of tumseg/ops/pallas/group.py:33-48,104-107: the source is
 // rounded to bf16 (its one-hot contraction is then exact), the centre
-// subtracted in f32, and the difference stored rounded to bf16. group.cu and
-// fused_ball_group.cu both write through this.
-__device__ __forceinline__ void store_grouped(float* out, float v,
-                                              float centre) {
-  *out = v - centre;
+// subtracted in f32, and the difference stored rounded to bf16. group.cu
+// (through grouped_value, in 16-byte vectors) and fused_ball_group.cu
+// (through store_grouped) both compute it here.
+template <typename T>
+__device__ T grouped_value(float v, float centre);
+template <>
+__device__ __forceinline__ float grouped_value<float>(float v, float centre) {
+  return v - centre;
 }
-__device__ __forceinline__ void store_grouped(__nv_bfloat16* out, float v,
-                                              float centre) {
-  *out = __float2bfloat16_rn(bf16_round(v) - centre);
+template <>
+__device__ __forceinline__ __nv_bfloat16
+grouped_value<__nv_bfloat16>(float v, float centre) {
+  return __float2bfloat16_rn(bf16_round(v) - centre);
+}
+template <typename T>
+__device__ __forceinline__ void store_grouped(T* out, float v, float centre) {
+  *out = grouped_value<T>(v, centre);
 }
 
 // The block's neighbour table for the interpolation tail below: one row per

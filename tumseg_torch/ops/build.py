@@ -31,10 +31,11 @@ SIGNATURES = {
     "tumseg_fps": (_P, _P, _P, _I, _I, _I, _P),
     "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "tumseg_ball_query_multi": (_P, _P, _P, _I, _I, _I, _P),
-    "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tumseg_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _P),
-    "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
     "tumseg_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tumseg_three_nn_window": (_P,) * 11 + (_I,) * 7 + (_P,),
     "tumseg_fused_ball_group": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

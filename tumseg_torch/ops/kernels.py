@@ -5,12 +5,12 @@ anything else; rejects inputs that require grad (a wrapper is one forward or
 one backward pass: gradients go through the ``torch.autograd.Function``s of
 ``tumseg_torch.ops.autograd``, which hand the wrappers detached tensors);
 allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
-accumulating backward kernels); launches on the current stream of the
-input's device; raises if the launcher returns a CUDA error; and adds one to
-its entry of ``launches`` per launch, and a launch in the fast (single-pass
-bf16) mode to its entry of ``fast_launches`` as well. There is no fallback:
-a CUDA tensor either runs the kernel or raises. The plain versions with the
-same contracts are in ``tumseg_torch.ops.core``.
+interpolation backward, which accumulates with atomics); launches on the
+current stream of the input's device; raises if the launcher returns a CUDA
+error; and adds one to its entry of ``launches`` per launch, and a launch in
+the fast (single-pass bf16) mode to its entry of ``fast_launches`` as well.
+There is no fallback: a CUDA tensor either runs the kernel or raises. The
+plain versions with the same contracts are in ``tumseg_torch.ops.core``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,17 @@ FPS_MAX_N = 14336
 # radii of one multi-radius ball query launch (kMaxRadii of
 # csrc/ball_query_multi.cu)
 BALL_QUERY_MAX_RADII = 4
+# the card's streaming multiprocessors: the group kernels size their grids
+# to give each at least two blocks
+SMS = 132
+# csrc/group.cu: rows (b, s, k) a block stages in shared memory (kMaxRows),
+# and the output elements a block aims at
+GROUP_MAX_ROWS = 1024
+GROUP_BLOCK_ELEMENTS = 4096
+# csrc/group_backward.cu: floats of a block's accumulator tile (kMaxAcc),
+# and its most source rows (kMaxTileRows)
+GROUP_BWD_MAX_ACC = 6144
+GROUP_BWD_MAX_ROWS = 64
 
 
 class _MultiRadii(ctypes.Structure):
@@ -52,6 +63,38 @@ def reset_launches() -> None:
         launches[name] = 0
     for name in FAST_KERNELS:
         fast_launches[name] = 0
+
+
+def group_geometry(rows: int, C: int) -> Tuple[int, int]:
+    """-> (rows a block of csrc/group.cu gathers, magic) for ``rows`` =
+    B*S*K rows of C channels. A block's R rows are ~``GROUP_BLOCK_ELEMENTS``
+    outputs, at most ``GROUP_MAX_ROWS``, and fewer where the grid would
+    not give each SM two blocks. The kernel splits a position t < R*C of
+    its span into (row, c) as ``row = (t * magic) >> 32``: with magic =
+    2^32 // C + 1 that equals t // C while t * C < 2^32, which the largest
+    t must meet, else magic is 0 and the kernel divides."""
+    if C < 3:
+        raise ValueError(f"group needs C >= 3, got {C}")
+    per_block = max(1, min(-(-GROUP_BLOCK_ELEMENTS // C), GROUP_MAX_ROWS,
+                           rows // (2 * SMS)))
+    magic = 2 ** 32 // C + 1 if (per_block * C - 1) * C < 2 ** 32 else 0
+    return per_block, magic
+
+
+def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
+    """-> (T, CT): the source rows and columns a block of
+    csrc/group_backward.cu sums. CT is C, or ``GROUP_BWD_MAX_ACC`` where C
+    is wider; T is the largest power of two up to ``GROUP_BWD_MAX_ROWS``
+    with T * CT within ``GROUP_BWD_MAX_ACC``, T < 2N, and at least two
+    blocks an SM (each block rereads its batch row's indices, so a larger T
+    reads fewer)."""
+    cols = min(C, GROUP_BWD_MAX_ACC)
+    col_tiles = -(-C // cols)
+    rows = GROUP_BWD_MAX_ROWS
+    while rows > 1 and (rows * cols > GROUP_BWD_MAX_ACC or rows >= 2 * N
+                        or B * -(-N // rows) * col_tiles < 2 * SMS):
+        rows //= 2
+    return rows, cols
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -85,14 +128,23 @@ def _same_device(*tensors: torch.Tensor) -> torch.device:
 
 def _launch(kernel: str, fn_name: str, device: torch.device, *args,
             fast: Optional[bool] = None) -> None:
-    """Launches ``fn_name``; a kernel with a fast mode is given ``fast``
-    as its last argument before the stream."""
-    lib = build.library()
+    """Launches ``fn_name`` on the current stream of ``device``; a kernel
+    with a fast mode is given ``fast`` as its last argument before the
+    stream. The stream comes from ``torch._C._cuda_getCurrentRawStream``
+    (the handle ``torch.cuda.current_stream().cuda_stream`` gives, without
+    building a Stream object), and the device is switched only when it is
+    not the current one: at the centroid gathers the wrapper's host time is
+    the whole call."""
+    fn = getattr(build.library(), fn_name)
     if fast is not None:
         args = (*args, int(fast))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     launches[kernel] += 1
@@ -100,8 +152,11 @@ def _launch(kernel: str, fn_name: str, device: torch.device, *args,
         fast_launches[kernel] += 1
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    """The address of ``t``'s data; the launchers' ``argtypes`` turn an int
+    into a pointer, in less host time than a ``ctypes.c_void_p`` built
+    here."""
+    return t.data_ptr()
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
@@ -190,7 +245,8 @@ def group_points(idx: torch.Tensor, src: torch.Tensor,
     out = torch.empty((B, S, K, C), device=device,
                       dtype=torch.bfloat16 if fast else torch.float32)
     _launch("group", "tumseg_group", device, _ptr(idx), _ptr(src),
-            _ptr(new_xyz), _ptr(out), B, N, S, K, C, fast=fast)
+            _ptr(new_xyz), _ptr(out), B, N, S, K, C,
+            *group_geometry(B * S * K, C), fast=fast)
     return out
 
 
@@ -302,9 +358,11 @@ def three_nn_expansion(xyz1: torch.Tensor, xyz2: torch.Tensor):
 def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
                           n: int, fast: bool = False) -> torch.Tensor:
     """idx [B, S, K] int32 in [0, n], grad [B, S, K, C] f32 -> dsrc
-    [B, n, C] f32: the scatter-add backward of :func:`group_points`; the
-    sentinel ``idx == n`` adds nothing. ``fast`` takes a bf16 or an f32
-    cotangent and rounds it to bf16 in the kernel before the f32 sum."""
+    [B, n, C] f32: the scatter-add backward of :func:`group_points`, each
+    sum in ascending row s*K + k, so bitwise ``core.group_points_backward``
+    on the CPU and the same from run to run; the sentinel ``idx == n`` adds
+    nothing. ``fast`` takes a bf16 or an f32 cotangent and rounds it to
+    bf16 in the kernel before the f32 sum."""
     _check("idx", idx, torch.int32, (None, None, None))
     B, S, K = idx.shape
     _check("grad", grad,
@@ -314,9 +372,10 @@ def group_points_backward(idx: torch.Tensor, grad: torch.Tensor,
     if n < 1:
         raise ValueError(f"group backward needs n >= 1 source rows, got {n}")
     device = _same_device(idx, grad)
-    out = torch.zeros((B, n, C), dtype=torch.float32, device=device)
+    out = torch.empty((B, n, C), dtype=torch.float32, device=device)
     _launch("group_backward", "tumseg_group_backward", device, _ptr(idx),
             _ptr(grad), _ptr(out), B, n, S, K, C,
+            *group_backward_tiles(B, n, C),
             int(grad.dtype == torch.bfloat16), fast=fast)
     return out
 
