@@ -8,10 +8,12 @@ b. runs each kernel and its plain PyTorch version on the same inputs at the
    shapes of a B=32 x 4096-point forward of ``pointnet2_sem_seg`` and holds
    them equal (indices identical, grouping bitwise in both modes, the
    sentinel reading a zero row, interpolation within rtol 1e-5 / atol
-   1e-6), timing both with CUDA events; the group kernel's lines also give
-   the profiler's device time of the same calls, and the host time a call
-   of the group wrapper and of ``index_select`` at the last centroid
-   gather;
+   1e-6), timing both with CUDA events; the FPS and group kernels' lines
+   also give the profiler's device time of the same calls, FPS its time a
+   step (event and device, over npoint steps) and its geometry, and the
+   host time a call of the group wrapper and of ``index_select`` at the
+   last centroid gather; FPS at each stage's shape is also held bitwise on
+   a tie-heavy batch (an integer lattice) and with random starts;
 c. runs that forward with the kernels and with the plain versions: log-probs
    within 1e-4 and argmax equal on >= 99.99% of points, both timed;
 d. serves a synthetic ~300K-point facade tile through
@@ -128,9 +130,10 @@ before their balls fill), and beside one PyTorch call that computes the same
 function where there is one. A kernel with a fast mode also reports
 ``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
 time at the same shapes (phase o's; phase p's for the fused kernel). The
-group and group-backward kernels also report ``device_ms`` and
+FPS, group and group-backward kernels also report ``device_ms`` and
 ``library_device_ms``, the profiler's device time of the calls that ``ms``
-and ``library_ms`` time with CUDA events (where a call's device work is
+and ``library_ms`` time with CUDA events (null for FPS, which no PyTorch
+call computes; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
 time is the host's time a call). The
 line before the last is a JSON summary of
@@ -201,7 +204,7 @@ SOURCES = {
 FAST = ("group", "three_nn_interpolate", "group_backward",
         "interpolate_backward", "three_nn_window", "fused_ball_group")
 # the kernels whose lines also give the profiler's device time
-DEVICE_TIMED = ("group", "group_backward")
+DEVICE_TIMED = ("fps", "group", "group_backward")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -346,8 +349,10 @@ class Report:
                         for name in SOURCES}
         for name in FAST:
             self.kernels[name].update(fast_ms=0.0, fast_exact_ms=0.0)
-        for name in DEVICE_TIMED:
-            self.kernels[name].update(device_ms=0.0, library_device_ms=0.0)
+        for name in DEVICE_TIMED:  # no PyTorch call computes FPS
+            self.kernels[name].update(
+                device_ms=0.0,
+                library_device_ms=None if name == "fps" else 0.0)
         self.terms = {name: [0.0, 0.0] for name in SOURCES}  # bytes, ops ms
 
     def add(self, torch, name, label, kernel_fn, plain_fn, err, *, nbytes,
@@ -356,7 +361,9 @@ class Report:
         """Times ``kernel_fn``, ``plain_fn`` and, if given, ``library_fn``
         (one PyTorch call computing the same function). The times and
         bounds of the shapes the main path runs (``on_path``) add up to the
-        kernel's ms per forward (phases b, h) or per training step (e)."""
+        kernel's ms per forward (phases b, h) or per training step (e).
+        Returns the kernel's event ms and its device ms (None where the
+        kernel is not device-timed or the profiler recorded nothing)."""
         ms, runs = time_ms(torch, kernel_fn, reps)
         pms, pruns = time_ms(torch, plain_fn, plain_reps)
         lms = time_ms(torch, library_fn, reps)[0] if library_fn else None
@@ -395,6 +402,7 @@ class Report:
               f"{[round(r, 4) for r in pruns]}{lib}  bound "
               f"{max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB, "
               f"{ops / 1e9:.3f} Gop)  max|err| {err:g}")
+        return ms, dms
 
     def add_fast(self, torch, name, label, fast_fn, exact_fn, err, phase):
         """Times a kernel's fast mode beside its exact mode at the same
@@ -435,6 +443,28 @@ def gather_call(torch, idx, src):
     return lambda: torch.index_select(flat_src, 0, flat_idx)
 
 
+def fps_ties_and_starts(torch, src, npoint):
+    """FPS at ``src``'s shape bitwise the plain version on a tie-heavy batch
+    (a 4 x 4 x 4 integer lattice drawn with repeats: exact distances, ties
+    at every step) and with random starts, as training draws them."""
+    from tumseg_torch.ops import core, kernels
+
+    rng = np.random.default_rng(SEED + 9)
+    b, n, _ = src.shape
+    ties = torch.as_tensor(rng.integers(0, 4, (b, n, 3)).astype(np.float32),
+                           device=src.device)
+    start = torch.as_tensor(rng.integers(0, n, b).astype(np.int32),
+                            device=src.device)
+    for what, xyz, s in (("tie-heavy", ties, None),
+                         ("start-seeded", src, start)):
+        if not torch.equal(kernels.farthest_point_sample(xyz, npoint, s),
+                           core.farthest_point_sample(xyz, npoint, s)):
+            raise AssertionError(f"fps {n}->{npoint}: the {what} batch "
+                                 "differs from the plain version")
+    print(f"[b] fps N={n} npoint={npoint}: tie-heavy and start-seeded "
+          "batches bitwise the plain version: ok")
+
+
 def phase_kernels(torch, report):
     from tumseg_torch.ops import core, kernels
 
@@ -450,11 +480,17 @@ def phase_kernels(torch, report):
         if not torch.equal(f_k, f_p):
             raise AssertionError(f"fps {n}->{npoint}: indices "
                                  "differ from the plain version")
-        report.add(torch, "fps", f"N={n} npoint={npoint}",
-                   lambda: kernels.farthest_point_sample(src, npoint),
-                   lambda: core.farthest_point_sample(src, npoint), 0.0,
-                   nbytes=B * n * 12 + B * 4 + B * npoint * 4,
-                   ops=B * npoint * n * 10, reps=5, plain_reps=1)
+        fps_ties_and_starts(torch, src, npoint)
+        ms, dms = report.add(
+            torch, "fps", f"N={n} npoint={npoint}",
+            lambda: kernels.farthest_point_sample(src, npoint),
+            lambda: core.farthest_point_sample(src, npoint), 0.0,
+            nbytes=B * n * 12 + B * 4 + B * npoint * 4,
+            ops=B * npoint * n * 10, reps=5, plain_reps=1)
+        print(f"[b] fps N={n} npoint={npoint} {kernels.fps_geometry(n)} "
+              f"(threads, points): a step {ms * 1e3 / npoint:.4f} "
+              f"us event, " + ("not measured" if dms is None else
+                               f"{dms * 1e3 / npoint:.4f} us") + " device")
 
         g_k = kernels.group_points(f_k[:, :, None].contiguous(), src,
                                    torch.zeros_like(src[:, :npoint]))

@@ -39,17 +39,74 @@ def _rand(rng, shape, device):
                            device=device)
 
 
-@pytest.mark.parametrize("B,N,npoint", [(2, 500, 130), (3, 100, 130),
-                                        (1, 4100, 37), (2, 31, 8)])
-def test_fps(cuda, B, N, npoint):
+def _fps_points(kind, rng, B, N):
+    """[B, N, 3] f32: "random" in the unit cube; "lattice" a 4 x 4 x 4
+    integer lattice drawn with repeats (exact distances, ties everywhere);
+    "equal" one point N times; "dup_far" random with the farthest corner
+    at three indices; "facade" 1 m x 1 m x 10 m columns, 70% on a wall."""
+    if kind == "lattice":
+        return rng.integers(0, 4, (B, N, 3)).astype(np.float32)
+    if kind == "equal":
+        return np.full((B, N, 3), 0.375, dtype=np.float32)
+    if kind == "facade":
+        wall = rng.random((B, N)) < 0.7
+        return np.stack([rng.uniform(-0.5, 0.5, (B, N)),
+                         np.where(wall, rng.normal(0.0, 0.02, (B, N)),
+                                  rng.uniform(-0.5, 0.5, (B, N))),
+                         rng.uniform(0.0, 10.0, (B, N))], -1).astype(
+                             np.float32)
+    xyz = rng.random((B, N, 3)).astype(np.float32)
+    if kind == "dup_far":
+        xyz[:, [N // 3, N // 2, N - 1]] = 4.0
+    return xyz
+
+
+def _fps_key(n):
+    threads, points = kernels.fps_geometry(n)
+    return points, threads > 512   # past 512 threads, coordinates in smem
+
+
+def _fps_boundaries():
+    """Each N at which kernels.fps_geometry changes the points a thread
+    owns or the kernel's instance, with N - 1 and N + 1."""
+    found, prev = set(), _fps_key(1)
+    for n in range(2, kernels.FPS_MAX_N + 1):
+        cur = _fps_key(n)
+        if cur != prev:
+            found |= {n - 1, n, n + 1}
+        prev = cur
+    return sorted(n for n in found if 1 <= n <= kernels.FPS_MAX_N)
+
+
+FPS_CASES = (
+    [("random", B, N, npoint) for B, N, npoint in
+     [(2, 500, 130), (3, 100, 130), (1, 4100, 37), (2, 31, 8)]]
+    + [("lattice", 2, 500, 130), ("lattice", 3, 4096, 300),
+       ("equal", 2, 100, 20), ("dup_far", 2, 300, 50),
+       ("dup_far", 2, 4096, 64),
+       ("random", 2, 40, 64), ("lattice", 1, 20, 50),       # npoint > N
+       ("random", 3, 1, 5), ("random", 1, kernels.FPS_MAX_N, 40),
+       ("lattice", 1, kernels.FPS_MAX_N, 40), ("random", 64, 1000, 64),
+       ("facade", 32, 4096, 1024), ("facade", 32, 1024, 256),  # sa1-sa4
+       ("facade", 32, 256, 64), ("facade", 32, 64, 16)]
+    + [("random", 2, n, 40) for n in _fps_boundaries()])
+
+
+@pytest.mark.parametrize("kind,B,N,npoint", FPS_CASES)
+def test_fps(cuda, kind, B, N, npoint):
+    """Bitwise the plain version run on CPU copies, with start 0, random
+    starts and start N - 1, and the same over three runs of one call."""
     rng = np.random.default_rng(0)
-    xyz = _rand(rng, (B, N, 3), cuda)
-    start = torch.as_tensor(rng.integers(0, N, B).astype(np.int32),
-                            device=cuda)
-    assert torch.equal(kernels.farthest_point_sample(xyz, npoint),
-                       core.farthest_point_sample(xyz, npoint))
-    assert torch.equal(kernels.farthest_point_sample(xyz, npoint, start),
-                       core.farthest_point_sample(xyz, npoint, start))
+    xyz = torch.as_tensor(_fps_points(kind, rng, B, N), device=cuda)
+    for start in (None, rng.integers(0, N, B), np.full(B, N - 1)):
+        if start is not None:
+            start = torch.as_tensor(start.astype(np.int32), device=cuda)
+        want = core.farthest_point_sample(
+            xyz.cpu(), npoint, None if start is None else start.cpu())
+        for _ in range(3):
+            got = kernels.farthest_point_sample(xyz, npoint, start)
+            assert got.dtype == torch.int32 and got.shape == (B, npoint)
+            assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("B,N,S,K,r", [(2, 500, 130, 32, 0.15),

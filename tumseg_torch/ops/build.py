@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher name -> argument types; every launcher returns a cudaError_t
 SIGNATURES = {
-    "tumseg_fps": (_P, _P, _P, _I, _I, _I, _P),
+    "tumseg_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "tumseg_ball_query_multi": (_P, _P, _P, _I, _I, _I, _P),
     "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

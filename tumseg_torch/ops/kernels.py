@@ -31,9 +31,9 @@ FAST_KERNELS = ("group", "three_nn_interpolate", "group_backward",
                 "interpolate_backward", "three_nn_window", "fused_ball_group")
 fast_launches = dict.fromkeys(FAST_KERNELS, 0)
 
-# FPS keeps a row's coordinates and distances in shared memory: 16*N bytes
-# of the 227 KB a block may use on Hopper, less the reduction scratch
-FPS_MAX_N = 14336
+# csrc/fps.cu: one CTA a batch row of at most 1024 threads, each owning up
+# to 16 points; the CTA keeps the row's 12-byte coordinates in shared memory
+FPS_MAX_N = 16 * 1024
 # radii of one multi-radius ball query launch (kMaxRadii of
 # csrc/ball_query_multi.cu)
 BALL_QUERY_MAX_RADII = 4
@@ -79,6 +79,27 @@ def group_geometry(rows: int, C: int) -> Tuple[int, int]:
                            rows // (2 * SMS)))
     magic = 2 ** 32 // C + 1 if (per_block * C - 1) * C < 2 ** 32 else 0
     return per_block, magic
+
+
+def fps_geometry(N: int) -> Tuple[int, int]:
+    """-> (threads, points) of csrc/fps.cu for a row of N points: a CTA of
+    ``threads`` threads (a multiple of 32), thread t owning points j *
+    threads + t for j < ``points``, threads x points >= N with less than a
+    warp's worth of padding. From the card's sweep
+    (tumseg_torch/tools/fps_probe.py): one warp, with no barrier, up to
+    N = 128; up to 512 threads of 1 or 2 points up to 1024; 8 points a
+    thread up to 4096 (512 threads at sa1) and 16 above, where past 512
+    threads the kernel keeps the coordinates in shared memory."""
+    if not 1 <= N <= FPS_MAX_N:
+        raise ValueError(f"fps takes 1 <= N <= {FPS_MAX_N}, got {N}")
+    if N <= 128:
+        points = 1 if N <= 32 else 2 if N <= 64 else 4
+    elif N <= 1024:
+        points = 1 if N <= 512 else 2
+    else:
+        points = 8 if N <= 4096 else 16
+    threads = -(-N // points)
+    return -(-threads // 32) * 32, points
 
 
 def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
@@ -168,15 +189,13 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     if start is None:
         start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
     _check("start", start, torch.int32, (B,))
-    if N > FPS_MAX_N:
-        raise ValueError(f"fps kernel takes N <= {FPS_MAX_N}, got {N}")
-    if N == 0 or npoint < 0:
-        raise ValueError(f"fps needs N > 0 and npoint >= 0 (N={N}, "
-                         f"npoint={npoint})")
+    if npoint < 0:
+        raise ValueError(f"fps needs npoint >= 0, got {npoint}")
+    geometry = fps_geometry(N)
     device = _same_device(xyz, start)
     out = torch.empty((B, npoint), dtype=torch.int32, device=device)
     _launch("fps", "tumseg_fps", device, _ptr(xyz), _ptr(start), _ptr(out),
-            B, N, npoint)
+            B, N, npoint, *geometry)
     return out
 
 
