@@ -8,8 +8,10 @@ b. runs each kernel and its plain PyTorch version on the same inputs at the
    shapes of a B=32 x 4096-point forward of ``pointnet2_sem_seg`` and holds
    them equal (indices identical, grouping bitwise in both modes, the
    sentinel reading a zero row, interpolation within rtol 1e-5 / atol
-   1e-6), timing both with CUDA events; the FPS and group kernels' lines
-   also give the profiler's device time of the same calls, FPS its time a
+   1e-6), timing both with CUDA events; the FPS, group and 3-NN kernels'
+   lines also give the profiler's device time of the same calls (the 3-NN
+   kernel's at each of fp1-fp4, with its geometry and whether its
+   interpolation is bitwise the plain version's), FPS its time a
    step (event and device, over npoint steps) and its geometry, and the
    host time a call of the group wrapper and of ``index_select`` at the
    last centroid gather; FPS at each stage's shape is also held bitwise on
@@ -130,10 +132,10 @@ before their balls fill), and beside one PyTorch call that computes the same
 function where there is one. A kernel with a fast mode also reports
 ``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
 time at the same shapes (phase o's; phase p's for the fused kernel). The
-FPS, group and group-backward kernels also report ``device_ms`` and
+FPS, group, group-backward and 3-NN kernels also report ``device_ms`` and
 ``library_device_ms``, the profiler's device time of the calls that ``ms``
-and ``library_ms`` time with CUDA events (null for FPS, which no PyTorch
-call computes; where a call's device work is
+and ``library_ms`` time with CUDA events (null for FPS and 3-NN, which no
+PyTorch call computes; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
 time is the host's time a call). The
 line before the last is a JSON summary of
@@ -203,8 +205,10 @@ SOURCES = {
 # the kernels with a fast (single-pass bf16) mode
 FAST = ("group", "three_nn_interpolate", "group_backward",
         "interpolate_backward", "three_nn_window", "fused_ball_group")
-# the kernels whose lines also give the profiler's device time
-DEVICE_TIMED = ("fps", "group", "group_backward")
+# the kernels whose lines also give the profiler's device time, and those
+# of them that no single PyTorch call computes
+DEVICE_TIMED = ("fps", "group", "group_backward", "three_nn_interpolate")
+NO_LIBRARY = ("fps", "three_nn_interpolate")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -349,10 +353,10 @@ class Report:
                         for name in SOURCES}
         for name in FAST:
             self.kernels[name].update(fast_ms=0.0, fast_exact_ms=0.0)
-        for name in DEVICE_TIMED:  # no PyTorch call computes FPS
+        for name in DEVICE_TIMED:
             self.kernels[name].update(
                 device_ms=0.0,
-                library_device_ms=None if name == "fps" else 0.0)
+                library_device_ms=None if name in NO_LIBRARY else 0.0)
         self.terms = {name: [0.0, 0.0] for name in SOURCES}  # bytes, ops ms
 
     def add(self, torch, name, label, kernel_fn, plain_fn, err, *, nbytes,
@@ -561,7 +565,7 @@ def phase_kernels(torch, report):
                    library_fn=gather_call(torch, idx, src),
                    **group_cost(idx, C, src.shape[1]))
 
-    for xyz1, xyz2, d in zip(xyzs[:-1], xyzs[1:], FP_D):
+    for lvl, (xyz1, xyz2, d) in enumerate(zip(xyzs[:-1], xyzs[1:], FP_D)):
         n1, s = xyz1.shape[1], xyz2.shape[1]
         p2 = torch.as_tensor(rng.standard_normal((B, s, d)).astype(np.float32),
                              device=dev)
@@ -572,15 +576,21 @@ def phase_kernels(torch, report):
                                  "differ from the plain version")
         torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
         err = (ok - op).abs().max().item()
-        # 8 operations a distance and 3 compares into the top 3; the
-        # weights, then 3 multiplies and 2 adds per output element
-        report.add(torch, "three_nn_interpolate", f"N={n1} S={s} D={d}",
-                   lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2),
-                   lambda: core.three_nn_interpolate(xyz1, xyz2, p2), err,
-                   nbytes=4 * (B * n1 * 3 + B * s * 3 + B * s * d
-                               + B * n1 * 6 + B * n1 * d),
-                   ops=B * n1 * s * 11 + B * n1 * 10 + B * n1 * d * 5,
-                   plain_reps=2)
+        # a full scan's 8 operations a distance and 3 compares into the top
+        # 3 (more than the z-slab search tests: the bound is the bytes'
+        # either way); the weights, then 3 multiplies and 2 adds an output
+        _, dms = report.add(
+            torch, "three_nn_interpolate", f"N={n1} S={s} D={d}",
+            lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2),
+            lambda: core.three_nn_interpolate(xyz1, xyz2, p2), err,
+            nbytes=4 * (B * n1 * 3 + B * s * 3 + B * s * d + B * n1 * 6
+                        + B * n1 * d),
+            ops=B * n1 * s * 11 + B * n1 * 10 + B * n1 * d * 5,
+            plain_reps=2)
+        print(f"[b] three_nn_interpolate fp{lvl + 1} N={n1} S={s} D={d} "
+              f"(Q, R) {kernels.three_nn_geometry(B, n1, d)}: "
+              f"device {_ms(dms)}; out bitwise the plain version "
+              f"{torch.equal(ok, op)}")
 
 
 def phase_forward(torch, model_name, tag):

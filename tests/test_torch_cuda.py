@@ -202,19 +202,61 @@ def test_msg_forward_kernels_match_plain(cuda):
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
 
 
-@pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
-                                     (2, 300, 300, 1)])
-def test_three_nn_interpolate(cuda, B, N, S, D):
-    rng = np.random.default_rng(2)
-    xyz1 = _rand(rng, (B, N, 3), cuda)
-    xyz2 = _rand(rng, (B, S, 3), cuda)
-    xyz2[:, 2] = xyz2[:, 1]  # a distance tie
+def _three_nn_inputs(rng, B, N, S, D, kind, misaligned, device):
+    """xyz1, xyz2, points2 for the 3-NN kernel: "random" in the unit cube
+    with source 2 repeating source 1 (a distance tie), "lattice" a 4 x 4 x 4
+    integer lattice drawn with repeats (ties everywhere); ``misaligned``
+    stores points2 one float past a 16-byte boundary (contiguous, rows not
+    16-byte aligned)."""
+    if kind == "lattice":
+        xyz1, xyz2 = (torch.as_tensor(rng.integers(0, 4, (B, n, 3)).astype(
+            np.float32), device=device) for n in (N, S))
+    else:
+        xyz1 = _rand(rng, (B, N, 3), device)
+        xyz2 = _rand(rng, (B, S, 3), device)
+        xyz2[:, 2] = xyz2[:, 1]
     p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
-                         device=cuda)
-    dk, ik, ok = kernels.three_nn_interpolate(xyz1, xyz2, p2)
-    dp, ip, op = core.three_nn_interpolate(xyz1, xyz2, p2)
+                         device=device)
+    if misaligned:
+        store = torch.empty(B * S * D + 1, device=device)
+        p2 = store[1:].view(B, S, D).copy_(p2)
+        assert p2.is_contiguous() and p2.data_ptr() % 16 == 4
+    return xyz1, xyz2, p2
+
+
+# (B, N, S, D, kind, misaligned): fp1-fp4 at B=2; N not a multiple of the
+# query tile (at B=2 and at fp1's B=32 tile of 256); S = 3; S past the
+# kernel's source tile of 1024; D from 1 to 512; misaligned rows; ties
+THREE_NN_CASES = [
+    (2, 4096, 1024, 128, "random", False), (2, 1024, 256, 256, "random", False),
+    (2, 256, 64, 256, "random", False), (2, 64, 16, 512, "random", False),
+    (2, 4095, 1024, 128, "lattice", False), (32, 4059, 1024, 128, "random",
+                                             False),
+    (2, 1001, 256, 256, "random", True), (2, 61, 16, 512, "lattice", True),
+    (2, 500, 130, 40, "random", False), (2, 500, 130, 40, "random", True),
+    (1, 70, 3, 7, "random", False), (2, 77, 3, 1, "lattice", False),
+    (2, 300, 300, 1, "random", False), (2, 255, 64, 128, "lattice", True),
+    (2, 300, 2100, 40, "random", False), (1, 129, 1500, 256, "lattice",
+                                          True)]
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("B,N,S,D,kind,misaligned", THREE_NN_CASES)
+def test_three_nn_interpolate(cuda, B, N, S, D, kind, misaligned, fast):
+    """Indices and distances identical to the plain version, out within
+    rtol 1e-5 / atol 1e-6 (and printed: bitwise or not; the operations and
+    their order are the plain version's, so it should be)."""
+    rng = np.random.default_rng(2)
+    xyz1, xyz2, p2 = _three_nn_inputs(rng, B, N, S, D, kind, misaligned,
+                                      cuda)
+    dk, ik, ok = kernels.three_nn_interpolate(xyz1, xyz2, p2, fast)
+    dp, ip, op = core.three_nn_interpolate(xyz1, xyz2, p2, fast)
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
     torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+    print(f"three_nn_interpolate B={B} N={N} S={S} D={D} {kind} "
+          f"misaligned={misaligned} fast={fast} "
+          f"{kernels.three_nn_geometry(B, N, D)}: out bitwise "
+          f"{torch.equal(ok, op)}")
 
 
 def _backward_case(rng, B, N, S, K, C, device):
@@ -548,15 +590,17 @@ def test_group_backward_fast(cuda, grad_dtype, B, N, S, K, C):
             kernels.group_points_backward(idx, g, N)
 
 
-@pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
-                                     (16, 4096, 1024, 128)])  # fp1
-def test_interpolation_fast(cuda, B, N, S, D):
+@pytest.mark.parametrize(
+    "B,N,S,D,kind,misaligned",
+    [(2, 500, 130, 40, "random", False), (1, 70, 3, 7, "random", False),
+     (16, 4096, 1024, 128, "random", False)]  # fp1 of a B=16 step
+    + [c for c in THREE_NN_CASES if c[0] == 2 and c[1] in (4096, 1024, 256,
+                                                           64, 4095, 61)])
+def test_interpolation_fast(cuda, B, N, S, D, kind, misaligned):
     """Both 3-NN kernels' fused interpolation and the backward kernel."""
     rng = np.random.default_rng(14)
-    xyz1 = _rand(rng, (B, N, 3), cuda)
-    xyz2 = _rand(rng, (B, S, 3), cuda)
-    p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
-                         device=cuda)
+    xyz1, xyz2, p2 = _three_nn_inputs(rng, B, N, S, D, kind, misaligned,
+                                      cuda)
     g = torch.as_tensor(rng.standard_normal((B, N, D)).astype(np.float32),
                         device=cuda)
     kernels.reset_launches()

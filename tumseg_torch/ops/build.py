@@ -32,8 +32,7 @@ SIGNATURES = {
     "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "tumseg_ball_query_multi": (_P, _P, _P, _I, _I, _I, _P),
     "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "tumseg_three_nn_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _P),
+    "tumseg_three_nn_interpolate": (_P,) * 6 + (_I,) * 7 + (_P,),
     "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P),
     "tumseg_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

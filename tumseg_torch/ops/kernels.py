@@ -16,6 +16,7 @@ plain versions with the same contracts are in ``tumseg_torch.ops.core``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,6 +49,15 @@ GROUP_BLOCK_ELEMENTS = 4096
 # and its most source rows (kMaxTileRows)
 GROUP_BWD_MAX_ACC = 6144
 GROUP_BWD_MAX_ROWS = 64
+# csrc/three_nn_interpolate.cu: threads a block (kThreads), most queries a
+# block (kMaxQueries), the sources it stages at a time (kTile), the most
+# z-slabs of a tile (kMaxSlabs) and the sources a slab aims at
+# (kSlabSources)
+THREE_NN_THREADS = 256
+THREE_NN_MAX_QUERIES = 256
+THREE_NN_TILE = 1024
+THREE_NN_MAX_SLABS = 128
+THREE_NN_SLAB_SOURCES = 8
 
 
 class _MultiRadii(ctypes.Structure):
@@ -100,6 +110,28 @@ def fps_geometry(N: int) -> Tuple[int, int]:
         points = 8 if N <= 4096 else 16
     threads = -(-N // points)
     return -(-threads // 32) * 32, points
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def three_nn_geometry(B: int, N: int, D: int) -> Tuple[int, int]:
+    """-> (Q, R) of csrc/three_nn_interpolate.cu for B rows of N queries
+    interpolating D channels: a block of ``THREE_NN_THREADS``
+    threads searches Q queries of one row, one a thread, Q the largest
+    power of two up to ``THREE_NN_MAX_QUERIES`` that gives each SM at
+    least two blocks (Q = 1 where even that does not); R lanes own an
+    output row, enough that a lane holds at most four float4 columns and,
+    where Q is small, that every thread holds a column, but no more lanes
+    than columns."""
+    Q = THREE_NN_MAX_QUERIES
+    while Q > 1 and B * -(-N // Q) < 2 * SMS:
+        Q //= 2
+    cols = -(-D // 4)
+    R = max(_pow2_at_least(-(-cols // 4)), THREE_NN_THREADS // Q)
+    return Q, min(R, _pow2_at_least(cols), THREE_NN_THREADS)
 
 
 def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
@@ -316,7 +348,8 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     out = torch.empty((B, N, D), dtype=torch.float32, device=device)
     _launch("three_nn_interpolate", "tumseg_three_nn_interpolate", device,
             _ptr(xyz1), _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx),
-            _ptr(out), B, N, S, D, fast=fast)
+            _ptr(out), B, N, S, D, *three_nn_geometry(B, N, D),
+            fast=fast)
     return dists, idx, out
 
 
