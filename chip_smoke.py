@@ -8,10 +8,13 @@ b. runs each kernel and its plain PyTorch version on the same inputs at the
    shapes of a B=32 x 4096-point forward of ``pointnet2_sem_seg`` and holds
    them equal (indices identical, grouping bitwise in both modes, the
    sentinel reading a zero row, interpolation within rtol 1e-5 / atol
-   1e-6), timing both with CUDA events; the FPS, group and 3-NN kernels'
-   lines also give the profiler's device time of the same calls (the 3-NN
-   kernel's at each of fp1-fp4, with its geometry and whether its
-   interpolation is bitwise the plain version's), FPS its time a
+   1e-6), timing both with CUDA events; the FPS, ball-query, group and
+   3-NN kernels' lines also give the profiler's device time of the same
+   calls (the 3-NN kernel's at each of fp1-fp4, with its geometry and
+   whether its interpolation is bitwise the plain version's; the ball
+   query's at each of sa1-sa4, with its geometry, the candidates a query
+   tests by ``tumseg_torch.tools.ball_query_probe.walk_model``, its bytes
+   bound and its issue-rate yardstick), FPS its time a
    step (event and device, over npoint steps) and its geometry, and the
    host time a call of the group wrapper and of ``index_select`` at the
    last centroid gather; FPS at each stage's shape is also held bitwise on
@@ -54,7 +57,9 @@ h. runs the multi-radius ball-query kernel at the four stage shapes of a
    B=32 x 4096-point forward of ``pointnet2_sem_seg_msg`` (radii .05/.1,
    .1/.2, .2/.4, .4/.8, K = 16/32): indices identical to its plain version
    and to the single-radius kernel run once per radius, plus an empty ball
-   and unsorted radii; times it beside two single-radius launches; the
+   and unsorted radii; times it (event and device, with the geometry,
+   candidates, bytes bound and yardstick of b) beside two single-radius
+   launches; the
    group kernel at the MSG widths (C = 9, 99, 259, 515) bitwise its plain
    version in both modes;
 i. runs that MSG forward with the kernels and with the plain versions:
@@ -127,15 +132,17 @@ r. (after k) fast against exact training: one SSG and one MSG step from the
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
 the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted from
-this run's inputs (a ball query counts the candidates its queries scan
-before their balls fill), and beside one PyTorch call that computes the same
+this run's inputs (a ball query counts 9 operations a candidate its
+z-slab walk tests, the fused kernel a candidate its index-order scan tests
+before the ball fills), and beside one PyTorch call that computes the same
 function where there is one. A kernel with a fast mode also reports
 ``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
 time at the same shapes (phase o's; phase p's for the fused kernel). The
-FPS, group, group-backward and 3-NN kernels also report ``device_ms`` and
-``library_device_ms``, the profiler's device time of the calls that ``ms``
-and ``library_ms`` time with CUDA events (null for FPS and 3-NN, which no
-PyTorch call computes; where a call's device work is
+FPS, ball-query, group, group-backward and 3-NN kernels also report
+``device_ms`` and ``library_device_ms``, the profiler's device time of the
+calls that ``ms`` and ``library_ms`` time with CUDA events (null for FPS,
+the ball queries and 3-NN, which no PyTorch call computes; where a call's
+device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
 time is the host's time a call). The
 line before the last is a JSON summary of
@@ -207,8 +214,9 @@ FAST = ("group", "three_nn_interpolate", "group_backward",
         "interpolate_backward", "three_nn_window", "fused_ball_group")
 # the kernels whose lines also give the profiler's device time, and those
 # of them that no single PyTorch call computes
-DEVICE_TIMED = ("fps", "group", "group_backward", "three_nn_interpolate")
-NO_LIBRARY = ("fps", "three_nn_interpolate")
+DEVICE_TIMED = ("fps", "ball_query", "ball_query_multi", "group",
+                "group_backward", "three_nn_interpolate")
+NO_LIBRARY = ("fps", "ball_query", "ball_query_multi", "three_nn_interpolate")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -327,8 +335,9 @@ def host_us(torch, fn, calls=2000):
 
 def scanned(torch, idx, n):
     """Candidates each query of a ball query [B, S, K] over ``n`` points
-    must test: up to its K-th hit, or all ``n`` when its ball holds fewer
-    (a short ball repeats its first hit, an empty one holds only n)."""
+    tests when it scans in index order, as the fused kernel does: up to its
+    K-th hit, or all ``n`` when its ball holds fewer (a short ball repeats
+    its first hit, an empty one holds only n)."""
     last, first = idx[..., -1].long(), idx[..., 0].long()
     full = last != first if idx.shape[-1] > 1 else first != n
     return torch.where(full, last + 1, torch.full_like(last, n))
@@ -436,6 +445,35 @@ def group_cost(idx, C, n):
                 ops=Bq * S * Kq * 3)
 
 
+def ball_query_line(torch, report, name, stage, xyz, new_xyz, radii, ks,
+                    kernel_fn, plain_fn, phase, plain_reps):
+    """Times a ball-query stage beside its bound and prints its geometry,
+    the candidates its queries test (``ball_query_probe.walk_model`` on
+    these inputs) and its two yardsticks: the bytes bound (inputs read
+    once, indices written once) and the walk's candidates at the SASS's
+    instructions a candidate at the issue rate. The JSON bound counts 9
+    operations a candidate the walk tests."""
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.tools.ball_query_probe import (bytes_ms, walk_model,
+                                                     yardstick_ms)
+
+    b, n, _ = xyz.shape
+    s = new_xyz.shape[1]
+    _, tested = walk_model(xyz.cpu().numpy(), new_xyz.cpu().numpy(), radii,
+                           ks)
+    ms, dms = report.add(
+        torch, name, f"{stage} N={n} S={s} r={radii}", kernel_fn, plain_fn,
+        0.0, nbytes=b * n * 12 + b * s * 12 + b * s * sum(ks) * 4,
+        ops=9 * tested, plain_reps=plain_reps, phase=phase)
+    geometry = kernels.ball_query_geometry(b, n, s, len(ks))
+    print(f"[{phase}] {name} {stage} N={n} S={s} (Q, L, tile, walk) "
+          f"{geometry}: event {ms:.4f} ms, "
+          f"device {_ms(dms)}; {tested / (b * s):.1f} candidates tested a "
+          f"query of {n} (walk model); bytes bound "
+          f"{bytes_ms(b, n, s, ks):.5f} ms, yardstick "
+          f"{yardstick_ms(tested):.5f} ms")
+
+
 def gather_call(torch, idx, src):
     """One ``index_select`` of the rows the group kernel gathers (the
     empty-ball sentinel reads an appended zero row); it leaves out the
@@ -516,11 +554,11 @@ def phase_kernels(torch, report):
             bad = (b_k != b_p).any(-1).float().mean().item()
             raise AssertionError(f"ball query r={radius}: {bad:.2e} of "
                                  "queries differ from the plain version")
-        report.add(torch, "ball_query", f"N={n} S={npoint} r={radius}",
-                   lambda: kernels.query_ball_point(radius, K, src, new_xyz),
-                   lambda: core.query_ball_point(radius, K, src, new_xyz), 0.0,
-                   nbytes=B * n * 12 + B * npoint * 12 + B * npoint * K * 4,
-                   ops=9 * scanned(torch, b_p, n).sum().item(), plain_reps=2)
+        ball_query_line(
+            torch, report, "ball_query", f"sa{len(xyzs)}", src, new_xyz,
+            (radius,), (K,),
+            lambda: kernels.query_ball_point(radius, K, src, new_xyz),
+            lambda: core.query_ball_point(radius, K, src, new_xyz), "b", 2)
         xyzs.append(new_xyz)
         idxs.append(b_k)
     wrapper = host_us(torch, lambda: kernels.group_points(idx1, src, zc))
@@ -711,21 +749,17 @@ def phase_multi(torch, report):
                 raise AssertionError(f"ball_query_multi N={n} r={r}: indices "
                                      "differ from the plain version or the "
                                      "single-radius kernel")
-        scans = [scanned(torch, w, n) for w in want]
-        evals = torch.stack(scans).amax(0).sum().item()
-        fill = [f"{(s < n).float().mean().item():.3f}" for s in scans]
+        fill = [f"{(scanned(torch, w, n) < n).float().mean().item():.3f}"
+                for w in want]
         print(f"[h] N={n} S={npoint} r={radii}: share of balls that fill K "
-              f"{fill}, candidates tested {evals} of {B * npoint * n}")
-        report.add(torch, "ball_query_multi",
-                   f"N={n} S={npoint} r={radii}",
-                   lambda: kernels.query_ball_point_multi(radii, MSG_K, src,
-                                                          new_xyz),
-                   lambda: core.query_ball_point_multi(radii, MSG_K, src,
-                                                       new_xyz), 0.0,
-                   nbytes=B * n * 12 + B * npoint * 12
-                   + sum(B * npoint * k * 4 for k in MSG_K),
-                   ops=8 * evals + sum(s.sum().item() for s in scans),
-                   plain_reps=1, phase="h")
+              f"{fill}")
+        ball_query_line(
+            torch, report, "ball_query_multi", f"sa{len(xyzs)}", src,
+            new_xyz, radii, MSG_K,
+            lambda: kernels.query_ball_point_multi(radii, MSG_K, src,
+                                                   new_xyz),
+            lambda: core.query_ball_point_multi(radii, MSG_K, src, new_xyz),
+            "h", 1)
         two, runs = time_ms(torch, lambda: [
             kernels.query_ball_point(r, k, src, new_xyz)
             for r, k in zip(radii, MSG_K)], 20)

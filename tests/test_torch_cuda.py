@@ -6,7 +6,9 @@ it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 
 Indices and grouping must be identical (the z-window 3-NN's distances too,
-bit for bit); the interpolation agrees within rtol 1e-5 / atol 1e-6. The
+bit for bit; the ball queries also on tests/test_torch_ball_query.py's
+inputs, walked and scanned, and at B=32 at every stage); the interpolation
+agrees within rtol 1e-5 / atol 1e-6. The
 group backward sums each source row in ascending row order with no atomics,
 so in both modes it is bitwise the plain version run on the CPU (what
 tests/test_torch_group_order.py pins that to) and bitwise itself across
@@ -25,6 +27,7 @@ import torch
 
 from tumseg_torch import ops
 from tumseg_torch.ops import core, kernels
+from tumseg_torch.tools import ball_query_probe as bq_probe
 
 
 @pytest.fixture
@@ -145,6 +148,49 @@ def test_ball_query_multi(cuda, B, N, S, radii, Ks):
         assert torch.equal(g, w)
         assert torch.equal(g, kernels.query_ball_point(r, k, xyz, new_xyz))
         assert (g[:, 0] == N).all()
+
+
+BALL_CASES = {name: case for name, *case in bq_probe.adversarial_cases()}
+
+
+def _ball_query_all_ways(xyz, new_xyz, radii, ks):
+    """The wrappers, and the kernels at the geometry's Q with the tile
+    walked and scanned and with a warp a query, bitwise the plain version
+    of each radius."""
+    x = torch.as_tensor(xyz, device="cuda")
+    q = torch.as_tensor(new_xyz, device="cuda")
+    want = core.query_ball_point_multi(radii, ks, x, q)
+    for r, k, w in zip(radii, ks, want):
+        assert torch.equal(kernels.query_ball_point(r, k, x, q), w), r
+    for g, w in zip(kernels.query_ball_point_multi(radii, ks, x, q), want):
+        assert torch.equal(g, w)
+    Q, L, tile, walk = kernels.ball_query_geometry(*x.shape[:2], q.shape[1],
+                                                   len(ks))
+    for geometry in ((Q, L, tile, walk), (Q, L, tile, 1 - walk),
+                     (Q, 32, tile, walk)):
+        for msg in (False, True):
+            if not msg and len(radii) > 1:
+                continue
+            got = bq_probe.query(x, q, radii, ks, geometry, msg)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (geometry, msg)
+
+
+@pytest.mark.parametrize("name", sorted(BALL_CASES))
+def test_ball_query_adversarial(cuda, name):
+    """tests/test_torch_ball_query.py's adversarial inputs: |dz| = r and an
+    ulp either side, one z, duplicates, empty and overfull balls, N past a
+    tile and at FPS_MAX_N, few queries, unsorted radii R = 1-4."""
+    _ball_query_all_ways(*BALL_CASES[name])
+
+
+@pytest.mark.parametrize("msg", [False, True])
+@pytest.mark.parametrize("B", [2, 32])
+@pytest.mark.parametrize("stage", range(4))
+def test_ball_query_stages(cuda, stage, B, msg):
+    """sa1-sa4 of the SSG and MSG forwards on facade blocks, at the CPU
+    tests' B=2 and the forward's B=32."""
+    _ball_query_all_ways(*bq_probe.stage_inputs(B, stage, msg=msg))
 
 
 def test_ball_query_multi_refuses_bad_inputs(cuda):

@@ -24,15 +24,12 @@
 // - A block of 256 threads owns Q queries of one batch row, one a thread, Q
 //   chosen so that every stage gives each SM at least two blocks.
 // - Search: the row's sources are staged in shared memory as float4
-//   records (x, y, z, index) in tiles of 1024, grouped into z-slabs: up to
-//   128 slabs of equal height between the tile's lowest and highest z,
-//   about 8 sources a slab, by a counting sort (shared-memory atomics, the
-//   order within a slab immaterial), each slab keeping its lowest and
-//   highest z. A query tests every source of its own slab, then walks the
-//   slabs above and below, stopping a direction at the first non-empty
-//   slab whose nearest z gives fl(dz*dz) > d2, its third distance: a
-//   distance (dx*dx + dy*dy) + dz*dz is never below its fl(dz*dz), and
-//   fl(dz*dz) only grows further along, so nothing there can enter. Facade
+//   records (x, y, z, index) in tiles of 1024, grouped into up to 128
+//   z-slabs of about 8 sources by z_slabs.cuh's counting sort, each slab
+//   keeping its lowest and highest z. A query tests every source of its own
+//   slab, then walks the slabs above and below, stopping a direction at the
+//   first non-empty slab whose nearest z gives fl(dz*dz) > d2, its third
+//   distance: by z_slabs.cuh's argument nothing there can enter. Facade
 //   blocks are 1 m x 1 m columns metres tall, so a query tests a few dozen
 //   sources, not S. The walk does not visit in index order, so entries
 //   compare by (distance, index) in lexicographic order: first-index ties
@@ -52,9 +49,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "z_slabs.cuh"
 
 namespace {
+
+using tumseg::Slabs;
+using tumseg::unordered;
 
 constexpr int kThreads = 256;
 constexpr int kMaxQueries = 256;  // kernels.THREE_NN_MAX_QUERIES
@@ -62,7 +62,6 @@ constexpr int kTile = 1024;       // sources staged at a time (THREE_NN_TILE)
 constexpr int kPerThread = kTile / kThreads;
 constexpr int kMaxSlabs = 128;    // kernels.THREE_NN_MAX_SLABS
 constexpr int kSlabSources = 8;   // sources a slab (THREE_NN_SLAB_SOURCES)
-constexpr unsigned kFull = 0xffffffffu;
 
 // A query's best three candidates, ascending by (distance, index).
 struct Best3 {
@@ -101,15 +100,6 @@ __device__ __forceinline__ void visit(Best3& b, float4 c, float qx, float qy,
   insert(b, dx * dx + dy * dy + dz * dz, __float_as_int(c.w));
 }
 
-// z as an int whose signed order is the float order (atomicMin/Max).
-__device__ __forceinline__ int ordered(float z) {
-  const int i = __float_as_int(z);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-__device__ __forceinline__ float unordered(int o) {
-  return __int_as_float(o >= 0 ? o : o ^ 0x7fffffff);
-}
-
 // The next slab k of a walk away from query q: stops (-> false) where its
 // nearest z, `edge` (ordered), gives fl(dz*dz) > the third distance, else
 // tests all its sources. An empty slab bounds nothing: the walk goes on.
@@ -123,17 +113,6 @@ __device__ __forceinline__ bool walk(Best3& b, const float4* src,
   for (int p = p0; p < p1; ++p) visit(b, src[p], qx, qy, qz);
   return true;
 }
-
-// The tile's slab layout: src[off[k], off[k + 1]) holds slab k, whose z
-// lie in [unordered(lo[k]), unordered(hi[k])]; slab_of is monotone in z.
-struct Slabs {
-  float zmin, scale;
-  int n;
-  __device__ __forceinline__ int slab_of(float z) const {
-    return static_cast<int>(
-        fminf(fmaxf((z - zmin) * scale, 0.0f), static_cast<float>(n - 1)));
-  }
-};
 
 template <bool kFast>
 __device__ __forceinline__ float operand(float v) {
@@ -209,7 +188,6 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
   const int n0 = blockIdx.x * Q;
   const int nq = N - n0 < Q ? N - n0 : Q;
   const int t = threadIdx.x;
-  const int lane = t & 31;
   const bool searching = t < nq;
   float qx = 0.0f, qy = 0.0f, qz = 0.0f;
   if (searching) {
@@ -223,90 +201,10 @@ three_nn_interpolate_kernel(const float* __restrict__ xyz1,
   const float* s = xyz2 + static_cast<size_t>(b) * S * 3;
   for (int base = 0; base < S; base += kTile) {
     const int m = S - base < kTile ? S - base : kTile;
-    Slabs slabs;
-    slabs.n = 1;  // a power of two, about m / kSlabSources, at most kMaxSlabs
-    while (slabs.n < kMaxSlabs && kSlabSources * slabs.n < m) slabs.n <<= 1;
-
-    // this thread's sources j = t + u * kThreads, and the tile's z range
-    float4 rec[kPerThread];
-    float zmin = INFINITY, zmax = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      const int j = t + u * kThreads;
-      if (j < m) {
-        const float* c = s + 3 * (base + j);
-        rec[u] = make_float4(c[0], c[1], c[2], __int_as_float(base + j));
-        zmin = fminf(zmin, rec[u].z);
-        zmax = fmaxf(zmax, rec[u].z);
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      zmin = fminf(zmin, __shfl_xor_sync(kFull, zmin, o));
-      zmax = fmaxf(zmax, __shfl_xor_sync(kFull, zmax, o));
-    }
-    if (lane == 0) {
-      range[0][t >> 5] = zmin;
-      range[1][t >> 5] = zmax;
-    }
-    for (int k = t; k < slabs.n; k += kThreads) {
-      count[k] = 0;
-      lo[k] = ordered(INFINITY);
-      hi[k] = ordered(-INFINITY);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      zmin = fminf(zmin, range[0][w]);
-      zmax = fmaxf(zmax, range[1][w]);
-    }
-    // FLT_MAX for a range too small to divide: slabs 0 and n - 1 only
-    slabs.zmin = zmin;
-    slabs.scale = zmax > zmin
-                      ? fminf(static_cast<float>(slabs.n) / (zmax - zmin),
-                              3.402823466e38f)
-                      : 0.0f;
-
-    // counting sort: a slot within the slab, then the slabs' offsets
-    int slot[kPerThread], where[kPerThread];
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      if (t + u * kThreads < m) {
-        const int k = slabs.slab_of(rec[u].z);
-        where[u] = k;
-        slot[u] = atomicAdd(&count[k], 1);
-        atomicMin(&lo[k], ordered(rec[u].z));
-        atomicMax(&hi[k], ordered(rec[u].z));
-      }
-    }
-    __syncthreads();
-    if (t < 32) {  // exclusive scan of count, kMaxSlabs / 32 slabs a lane
-      constexpr int kLaneSlabs = kMaxSlabs / 32;
-      int c[kLaneSlabs], sum = 0;
-#pragma unroll
-      for (int u = 0; u < kLaneSlabs; ++u) {
-        const int k = kLaneSlabs * t + u;
-        c[u] = k < slabs.n ? count[k] : 0;
-        sum += c[u];
-      }
-      int incl = sum;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(kFull, incl, o);
-        if (t >= o) incl += v;
-      }
-      int run = incl - sum;
-#pragma unroll
-      for (int u = 0; u < kLaneSlabs; ++u) {
-        const int k = kLaneSlabs * t + u;
-        if (k < slabs.n) off[k] = run;
-        run += c[u];
-      }
-      if (t == 31) off[slabs.n] = incl;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u)
-      if (t + u * kThreads < m) src[off[where[u]] + slot[u]] = rec[u];
-    __syncthreads();
+    const Slabs slabs =
+        tumseg::stage_z_slabs<kThreads, kPerThread, kMaxSlabs>(
+            s, base, m, tumseg::slab_count(m, kSlabSources, kMaxSlabs), src,
+            off, count, lo, hi, range);
 
     if (searching) {
       const int home = slabs.slab_of(qz);

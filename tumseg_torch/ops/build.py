@@ -29,8 +29,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher name -> argument types; every launcher returns a cudaError_t
 SIGNATURES = {
     "tumseg_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "tumseg_ball_query_multi": (_P, _P, _P, _I, _I, _I, _P),
+    "tumseg_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                          _P),
+    "tumseg_ball_query_multi": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "tumseg_group": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "tumseg_three_nn_interpolate": (_P,) * 6 + (_I,) * 7 + (_P,),
     "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -35,9 +35,21 @@ fast_launches = dict.fromkeys(FAST_KERNELS, 0)
 # csrc/fps.cu: one CTA a batch row of at most 1024 threads, each owning up
 # to 16 points; the CTA keeps the row's 12-byte coordinates in shared memory
 FPS_MAX_N = 16 * 1024
-# radii of one multi-radius ball query launch (kMaxRadii of
-# csrc/ball_query_multi.cu)
+# csrc/ball_query.cuh: radii of one multi-radius launch (kMaxRadii),
+# threads a block (kThreads), the sources a block stages at a time (kTile),
+# the most z-slabs of a tile (kMaxSlabs) and the sources a slab aims at
+# (kSlabSources), the dynamic shared memory a block may take (the 227 KB a
+# block may opt in to, less the kernel's static tables); rows of at least
+# BALL_QUERY_WALK_N sources are walked through z-slabs, shorter ones
+# scanned (retune from tumseg_torch/tools/ball_query_probe.py)
 BALL_QUERY_MAX_RADII = 4
+BALL_QUERY_THREADS = 1024
+BALL_QUERY_TILE = 4096
+BALL_QUERY_MAX_SLABS = 512
+BALL_QUERY_SLAB_SOURCES = 8
+BALL_QUERY_SMEM = 232_448 - (4 * (4 * BALL_QUERY_MAX_SLABS + 1)
+                             + 8 * BALL_QUERY_THREADS // 32)
+BALL_QUERY_WALK_N = 512
 # the card's streaming multiprocessors: the group kernels size their grids
 # to give each at least two blocks
 SMS = 132
@@ -61,7 +73,7 @@ THREE_NN_SLAB_SOURCES = 8
 
 
 class _MultiRadii(ctypes.Structure):
-    """``tumseg::MultiRadii`` of csrc/ball_query_multi.cu, field for field."""
+    """``tumseg::MultiRadii`` of csrc/ball_query.cuh, field for field."""
     _fields_ = [("R", ctypes.c_int),
                 ("r2", ctypes.c_float * BALL_QUERY_MAX_RADII),
                 ("K", ctypes.c_int * BALL_QUERY_MAX_RADII),
@@ -132,6 +144,40 @@ def three_nn_geometry(B: int, N: int, D: int) -> Tuple[int, int]:
     cols = -(-D // 4)
     R = max(_pow2_at_least(-(-cols // 4)), THREE_NN_THREADS // Q)
     return Q, min(R, _pow2_at_least(cols), THREE_NN_THREADS)
+
+
+def ball_query_smem(tile: int, Q: int, L: int, R: int) -> int:
+    """Dynamic shared memory of a block of csrc/ball_query.cuh
+    (``smem_bytes``): the staged tile (16 bytes a source), each of the
+    block's groups of L lanes R masks of the tile's bits (whole uint4s)
+    behind a 128-bit summary, Q queries' counts and coordinates."""
+    radius_words = 4 + -(-(-(-tile // 32)) // 4) * 4
+    return (16 * tile + 4 * (BALL_QUERY_THREADS // L) * R * radius_words
+            + 4 * Q * (R + 3))
+
+
+@functools.lru_cache(maxsize=None)
+def ball_query_geometry(B: int, N: int, S: int,
+                        R: int) -> Tuple[int, int, int, int]:
+    """-> (Q, L, tile, walk) of csrc/ball_query.cuh for B rows of S queries
+    over N sources and R radii: a block of ``BALL_QUERY_THREADS`` threads
+    (one an SM) owns Q queries of one row, Q the smallest power of two that
+    puts the batch in one block an SM at most (each block stages its row,
+    so fewer, fuller blocks sort less); groups of L lanes take a query each,
+    L the power of two that puts all Q queries in flight at once, but from
+    8 (the card's sweep: 4 lanes a query lose at sa1) to a warp, and more
+    where the groups' masks would not fit. The sources are staged in tiles
+    of ``tile`` = min(N, ``BALL_QUERY_TILE``), walked through z-slabs
+    (``walk`` = 1) where N is at least ``BALL_QUERY_WALK_N`` and scanned in
+    index order below."""
+    tile = max(1, min(N, BALL_QUERY_TILE))
+    Q = 1
+    while Q < BALL_QUERY_THREADS and B * -(-S // Q) > SMS:
+        Q *= 2
+    L = max(8, min(32, BALL_QUERY_THREADS // Q))
+    while L < 32 and ball_query_smem(tile, Q, L, R) > BALL_QUERY_SMEM:
+        L *= 2
+    return Q, L, tile, int(N >= BALL_QUERY_WALK_N)
 
 
 def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
@@ -244,7 +290,8 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     out = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
     r2 = float(radius) * float(radius)  # rounded to f32 by ctypes
     _launch("ball_query", "tumseg_ball_query", device, _ptr(xyz),
-            _ptr(new_xyz), _ptr(out), B, N, S, nsample, r2)
+            _ptr(new_xyz), _ptr(out), B, N, S, nsample, r2,
+            *ball_query_geometry(B, N, S, 1))
     return out
 
 
@@ -276,7 +323,7 @@ def query_ball_point_multi(radii: Sequence[float], nsamples: Sequence[int],
         params.out[i] = out.data_ptr()
     _launch("ball_query_multi", "tumseg_ball_query_multi", device, _ptr(xyz),
             _ptr(new_xyz), ctypes.c_void_p(ctypes.addressof(params)), B, N,
-            S)
+            S, *ball_query_geometry(B, N, S, R))
     return outs
 
 
