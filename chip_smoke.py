@@ -31,21 +31,27 @@ d. serves a synthetic ~300K-point facade tile through
 e. runs each backward kernel and its plain version on unit-normal
    cotangents at the shapes of a B=16 x 4096 training step (group at
    sa2-sa4, plus sentinel rows and repeated indices; interpolation at
-   fp1-fp4) and times both: the group backward bitwise equal to its plain
-   version run on the CPU and to itself over three runs (it sums in
-   ascending row order, no atomics), with the profiler's device time beside
-   each line; the interpolation within rtol 1e-5 / atol 1e-4 (f32 atomics
-   add in a varying order);
+   fp1-fp4 and the MSG model's fp4, D = 1024) and times both, with the
+   profiler's device time beside each line: each backward bitwise equal to
+   its plain version run on the CPU and to itself over three runs (each
+   sums in ascending row or entry order, no atomics); the interpolation
+   backward also on the adversarial inputs of
+   ``tumseg_torch.tools.interp_backward_probe.adversarial_cases`` (a source
+   in every query, all three entries of a query on one source, a whole
+   batch row on one source, S = 3, ragged N, D of 7, 40 and 1024), in both
+   modes;
 f. takes one training step (train-mode BN, weighted NLL, backward) of the
    seeded model on one B=16 x 4096 batch with the kernels and under
-   ``ops.plain()``, with exact gathers and then with the single-pass bf16
-   gathers that the training engine takes by default (``fast_gather``, as
+   ``ops.plain()`` (its two backward scatter-adds on the CPU, where they
+   are the sequential sums the kernels compute: ``scatter_adds_on_cpu``),
+   with exact gathers and then with the single-pass bf16 gathers that the
+   training engine takes by default (``fast_gather``, as
    ``tumseg`` trains on its accelerator), both sides in the same mode: loss
    within rtol 1e-5, every parameter gradient within 1e-4 of the largest
-   gradient of its layer (with fast gathers, or within three times the
-   kernels' own run-to-run spread over three more steps: see
-   ``fast_step_limit``); then times the step (forward + backward + Adam)
-   with the kernels in both modes and plain;
+   gradient of its layer (with fast gathers, within three times the
+   kernels' own run-to-run spread over three more steps, which it prints,
+   and at least 1e-4: see ``fast_step_limit``); then times the step
+   (forward + backward + Adam) with the kernels in both modes and plain;
 g. trains through ``tumseg_torch.cli.train.main`` on a synthetic ~600K-point
    facade tile (2 epochs, B=16 x 4096, >= 10 steps; fast gathers, the
    engine's default), checks that the logged losses are finite, that
@@ -105,10 +111,11 @@ o. (after e) the fast (single-pass bf16) modes at a B=16 x 4096 training
    fast group, in bf16; the group backward at sa2-sa4 and on e's sentinels
    and repeats, with a bf16 and with an f32 cotangent, bitwise equal to the
    plain fast version run on the CPU and to itself over three runs; the
-   interpolation forward at fp1-fp4 (and fp1 through the window kernel) and
-   its backward, each within rtol 1e-5 / atol 1e-6 of its plain fast
-   version; each fast time beside the same kernel's exact time at the same
-   shapes;
+   interpolation forward at fp1-fp4 (and fp1 through the window kernel)
+   within rtol 1e-5 / atol 1e-6 of its plain fast version, and its backward
+   at fp1-fp4 and the MSG model's fp4 bitwise the plain fast version run on
+   the CPU and itself over three runs; each fast time beside the same
+   kernel's exact time at the same shapes;
 p. (after l) the fused ball query + group kernel at sa1-sa4 of the
    B=32 x 4096 forward, exact and fast, and on an input with an empty ball:
    grouped and idx bitwise equal to the ball-query kernel then the group
@@ -138,7 +145,7 @@ before the ball fills), and beside one PyTorch call that computes the same
 function where there is one. A kernel with a fast mode also reports
 ``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
 time at the same shapes (phase o's; phase p's for the fused kernel). The
-FPS, ball-query, group, group-backward and 3-NN kernels also report
+FPS, ball-query, group, 3-NN and both backward kernels also report
 ``device_ms`` and ``library_device_ms``, the profiler's device time of the
 calls that ``ms`` and ``library_ms`` time with CUDA events (null for FPS,
 the ball queries and 3-NN, which no PyTorch call computes; where a call's
@@ -153,6 +160,7 @@ line. Without a CUDA device it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -215,7 +223,8 @@ FAST = ("group", "three_nn_interpolate", "group_backward",
 # the kernels whose lines also give the profiler's device time, and those
 # of them that no single PyTorch call computes
 DEVICE_TIMED = ("fps", "ball_query", "ball_query_multi", "group",
-                "group_backward", "three_nn_interpolate")
+                "group_backward", "three_nn_interpolate",
+                "interpolate_backward")
 NO_LIBRARY = ("fps", "ball_query", "ball_query_multi", "three_nn_interpolate")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
@@ -798,16 +807,11 @@ def phase_multi(torch, report):
 
 def phase_backward(torch, report):
     from tumseg_torch.ops import core, kernels
+    from tumseg_torch.tools.interp_backward_probe import (MSG_FP4_D,
+                                                          adversarial_cases)
 
     rng = np.random.default_rng(SEED + 3)
     dev = torch.device(DEVICE)
-
-    def check(name, label, kernel_fn, plain_fn, on_path=True, **cost):
-        got, want = kernel_fn(), plain_fn()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-        err = (got - want).abs().max().item()
-        report.add(torch, name, label, kernel_fn, plain_fn, err,
-                   phase="e", on_path=on_path, **cost)
 
     def check_group(label, idx, g, n, on_path=True, **kw):
         """The group backward bitwise its plain version on the CPU and
@@ -868,6 +872,20 @@ def phase_backward(torch, report):
     g = torch.randn(*idx.shape, SA_CHANNELS[1], device=dev)
     check_group("sa2 sentinels + repeats", idx, g, n, on_path=False)
 
+    def check_interp(label, nn_idx, w, g, s, on_path=True):
+        """The interpolation backward bitwise its plain version on the CPU
+        and itself over three runs, then timed against the plain version
+        on the card."""
+        interp_backward_bitwise(torch, nn_idx, w, g, s, False, f"e {label}")
+        Bq, n1, d = g.shape
+        report.add(torch, "interpolate_backward", label,
+                   lambda: kernels.interpolate_backward(nn_idx, w, g, s),
+                   lambda: core.interpolate_backward(nn_idx, w, g, s), 0.0,
+                   library_fn=sparse_call(nn_idx, w, g, s), phase="e",
+                   on_path=on_path,
+                   nbytes=4 * (Bq * n1 * 6 + Bq * n1 * d + Bq * s * d),
+                   ops=Bq * n1 * 3 * d * 2)
+
     for lvl, d in enumerate(FP_D):  # fp1..fp4 interpolate lvl+1 onto lvl
         xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
         n1, s = xyz1.shape[1], xyz2.shape[1]
@@ -875,13 +893,18 @@ def phase_backward(torch, report):
             xyz1, xyz2, torch.zeros(TRAIN_B, s, 1, device=dev))
         w = core.interpolation_weights(dists)
         g = torch.randn(TRAIN_B, n1, d, device=dev)
-        check("interpolate_backward", f"fp{lvl + 1} N={n1} S={s} D={d}",
-              lambda: kernels.interpolate_backward(nn_idx, w, g, s),
-              lambda: core.interpolate_backward(nn_idx, w, g, s),
-              library_fn=sparse_call(nn_idx, w, g, s),
-              nbytes=4 * (TRAIN_B * n1 * 6 + TRAIN_B * n1 * d
-                          + TRAIN_B * s * d),
-              ops=TRAIN_B * n1 * 3 * d * 2)
+        check_interp(f"fp{lvl + 1} N={n1} S={s} D={d}", nn_idx, w, g, s)
+    g = torch.randn(TRAIN_B, n1, MSG_FP4_D, device=dev)
+    check_interp(f"MSG fp4 N={n1} S={s} D={MSG_FP4_D}", nn_idx, w, g, s,
+                 on_path=False)
+    for name, case in adversarial_cases().items():
+        idx, w, g = (torch.as_tensor(a, device=dev) for a in case[:3])
+        for fast in (False, True):
+            interp_backward_bitwise(torch, idx, w, g, case[3], fast,
+                                    f"e {name} fast={fast}")
+    print("[e] interpolate_backward on the adversarial inputs "
+          f"({', '.join(adversarial_cases())}), both modes: bitwise the "
+          "plain version on the CPU and over three runs")
 
 
 def sentinels_and_repeats(idx, n):
@@ -895,6 +918,19 @@ def sentinels_and_repeats(idx, n):
     return idx
 
 
+def bitwise_three_runs(torch, call, want, what):
+    """Raises unless three runs of ``call`` are bitwise equal to each other
+    and to ``want``, the plain version run on the CPU."""
+    runs = [call() for _ in range(3)]
+    for i, got in enumerate(runs):
+        if not torch.equal(got, runs[0]):
+            raise AssertionError(f"{what}: run {i + 1} is not bitwise run 1")
+    if not torch.equal(runs[0].cpu(), want):
+        bad = (runs[0].cpu() != want).float().mean().item()
+        raise AssertionError(f"{what}: {bad:.2e} of elements differ from "
+                             "the plain version on the CPU")
+
+
 def group_backward_bitwise(torch, idx, g, n, fast, what):
     """Raises unless three runs of the group-backward kernel are bitwise
     equal to each other and to ``core.group_points_backward`` on the CPU
@@ -902,17 +938,23 @@ def group_backward_bitwise(torch, idx, g, n, fast, what):
     does, with no atomics)."""
     from tumseg_torch.ops import core, kernels
 
-    runs = [kernels.group_points_backward(idx, g, n, fast=fast)
-            for _ in range(3)]
-    want = core.group_points_backward(idx.cpu(), g.cpu(), n, fast=fast)
-    for i, got in enumerate(runs):
-        if not torch.equal(got, runs[0]):
-            raise AssertionError(f"group backward {what}: run {i + 1} is "
-                                 "not bitwise run 1")
-    if not torch.equal(runs[0].cpu(), want):
-        bad = (runs[0].cpu() != want).float().mean().item()
-        raise AssertionError(f"group backward {what}: {bad:.2e} of elements "
-                             "differ from the plain version on the CPU")
+    bitwise_three_runs(
+        torch, lambda: kernels.group_points_backward(idx, g, n, fast=fast),
+        core.group_points_backward(idx.cpu(), g.cpu(), n, fast=fast),
+        f"group backward {what}")
+
+
+def interp_backward_bitwise(torch, idx, w, g, s, fast, what):
+    """Raises unless three runs of the interpolation-backward kernel are
+    bitwise equal to each other and to ``core.interpolate_backward`` on the
+    CPU (the kernel sums each source row in ascending entry order 3n + k,
+    as the CPU's scatter_add_ does, with no atomics)."""
+    from tumseg_torch.ops import core, kernels
+
+    bitwise_three_runs(
+        torch, lambda: kernels.interpolate_backward(idx, w, g, s, fast=fast),
+        core.interpolate_backward(idx.cpu(), w.cpu(), g.cpu(), s, fast=fast),
+        f"interpolation backward {what}")
 
 
 def grad_gap(got, want):
@@ -934,18 +976,44 @@ def grad_gap(got, want):
     return max(gaps)
 
 
+@contextlib.contextmanager
+def scatter_adds_on_cpu(torch):
+    """The plain training step's two backward scatter-adds
+    (``core.group_points_backward`` and ``core.interpolate_backward``) run
+    on the CPU inside this block, where ``scatter_add_`` is the ascending
+    sequential f32 sum that the backward kernels compute bit for bit (on
+    the card it adds with atomics in an order that changes from run to run,
+    and under PyTorch's deterministic algorithms it sums runs of 32 or more
+    equal indices as a tree); the rest of the step stays on the card."""
+    from tumseg_torch.ops import core
+
+    saved = core.group_points_backward, core.interpolate_backward
+
+    def on_cpu(fn):
+        def run(*args, **kw):
+            dev = args[0].device
+            return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args), **kw).to(dev)
+        return run
+
+    core.group_points_backward, core.interpolate_backward = map(on_cpu, saved)
+    try:
+        yield
+    finally:
+        core.group_points_backward, core.interpolate_backward = saved
+
+
 def fast_step_limit(first, repeats):
     """-> (spread, limit) for comparing the gradients of a training step
     with fast gathers: the largest :func:`grad_gap` of the ``repeats`` of
     the same step from ``first``, and three times that (at least phase f's
-    1e-4). The interpolation backward adds in f32 with atomics, in an
-    order that varies from run to run (the group backward's is fixed),
-    and the fast backward rounds each cotangent to bf16, so a low-bit
-    difference out of one kernel can become a bf16 step (2^-8) at the next:
-    two runs of the same step on the card differ by ~1e-3 of a layer's
-    largest gradient, where exact gathers keep them within ~1e-5. Another
-    path through the same kernels may differ from this step no more than
-    the step differs from itself."""
+    1e-4). Both backward kernels sum in a fixed order with no atomics, so
+    the step gives the same gradients from run to run and the limit is
+    1e-4; the fast backward rounds each cotangent to bf16, so a low-bit
+    difference out of any op that varied from run to run would become a
+    bf16 step (2^-8) at the next layer, and the spread would show it.
+    Another path through the same kernels may differ from this step no
+    more than the step differs from itself."""
     spread = max(grad_gap(g, first) for g in repeats)
     return spread, max(1e-4, 3 * spread[0])
 
@@ -979,7 +1047,7 @@ def phase_train_step(torch, state_dict, model_name, tag):
     def grads(plain, fast):
         model = copy.deepcopy(base)
         if plain:
-            with ops.plain():
+            with ops.plain(), scatter_adds_on_cpu(torch):
                 loss = step(model, fast)
         else:
             loss = step(model, fast)
@@ -1375,6 +1443,7 @@ def phase_fast(torch, report):
     its plain fast version and timed beside its exact mode."""
     from tumseg_torch import ops
     from tumseg_torch.ops import core, kernels
+    from tumseg_torch.tools.interp_backward_probe import MSG_FP4_D
 
     rng = np.random.default_rng(SEED + 9)
     dev = torch.device(DEVICE)
@@ -1447,15 +1516,19 @@ def phase_fast(torch, report):
                             lambda: kernels.three_nn_window_interpolate(
                                 xyz1, xyz2, p2, C, tile), err, "o")
         w = core.interpolation_weights(dk)
-        err = close(kernels.interpolate_backward(ik, w, g, s, fast=True),
-                    core.interpolate_backward(ik, w, g, s, fast=True),
-                    f"fast interpolation backward fp{lvl + 1}")
+        interp_backward_bitwise(torch, ik, w, g, s, True,
+                                f"o fast fp{lvl + 1}")
         report.add_fast(torch, "interpolate_backward",
                         f"fp{lvl + 1} N={n1} S={s} D={d}",
                         lambda: kernels.interpolate_backward(ik, w, g, s,
                                                              True),
                         lambda: kernels.interpolate_backward(ik, w, g, s),
-                        err, "o")
+                        0.0, "o")
+    g = torch.randn(TRAIN_B, n1, MSG_FP4_D, device=dev)
+    interp_backward_bitwise(torch, ik, w, g, s, True, "o fast MSG fp4")
+    print(f"[o] interpolate_backward fast, fp1-fp4 and MSG fp4 (D="
+          f"{MSG_FP4_D}): bitwise the plain version on the CPU and over "
+          "three runs")
 
 
 def fused_cost(torch, idx, C, n, fast):

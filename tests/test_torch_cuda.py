@@ -12,14 +12,18 @@ agrees within rtol 1e-5 / atol 1e-6. The
 group backward sums each source row in ascending row order with no atomics,
 so in both modes it is bitwise the plain version run on the CPU (what
 tests/test_torch_group_order.py pins that to) and bitwise itself across
-runs. The interpolation backward adds with f32 atomics in an order that
-changes from run to run, so it agrees within rtol 1e-5 / atol 1e-4.
+runs. So is the interpolation backward, which sums each source row in
+ascending entry order 3n + k with no atomics
+(tests/test_torch_interp_backward.py pins the CPU version to that sum), in
+both modes, on the adversarial inputs of
+``tumseg_torch.tools.interp_backward_probe`` at several tiles and at
+fp1-fp4 of a B=16 step.
 
 The fast (single-pass bf16) modes: the group's bf16 output and the fused
 ball query + group (against the split kernels and its plain version, both
-modes) bit for bit; the interpolations and the interpolation backward
-within rtol 1e-5 / atol 1e-6 (their operands are bf16, so the products are
-exact and the f32 sums rarely round)."""
+modes) bit for bit; the interpolations within rtol 1e-5 / atol 1e-6 (their
+operands are bf16, so the products are exact and the f32 sums rarely
+round)."""
 
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ import torch
 from tumseg_torch import ops
 from tumseg_torch.ops import core, kernels
 from tumseg_torch.tools import ball_query_probe as bq_probe
+from tumseg_torch.tools import interp_backward_probe as ib_probe
 
 
 @pytest.fixture
@@ -357,10 +362,33 @@ def test_group_backward(cuda, B, N, S, K, C):
     assert torch.equal(got.cpu(), want)
 
 
+def _interp_backward_bitwise(idx, w, g, S, fast, tiles=None):
+    """Three kernel runs (through the wrapper, or at ``tiles``), each into
+    memory a NaN-filled tensor of the same size left in the caching
+    allocator (the kernel writes every element): all three bitwise equal
+    to each other and to the plain version run on the CPU."""
+    runs = []
+    for _ in range(3):
+        stale = torch.full((g.shape[0], S, g.shape[-1]), float("nan"),
+                           device=g.device)
+        del stale
+        runs.append(kernels.interpolate_backward(idx, w, g, S, fast=fast)
+                    if tiles is None else
+                    ib_probe.backward_at(idx, w, g, S, tiles, fast))
+    for again in runs[1:]:
+        assert torch.equal(again, runs[0])
+    want = core.interpolate_backward(idx.cpu(), w.cpu(), g.cpu(), S,
+                                     fast=fast)
+    assert runs[0].dtype == torch.float32 and runs[0].shape == want.shape
+    assert torch.equal(runs[0].cpu(), want), (tiles, fast)
+
+
+@pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("B,N,S,D", [(2, 500, 130, 40), (1, 70, 3, 7),
                                      (2, 4099, 1024, 128)])
-def test_interpolate_backward(cuda, B, N, S, D):
-    """Ragged N, S = 3, and one source among the three of every query."""
+def test_interpolate_backward(cuda, B, N, S, D, fast):
+    """Ragged N, S = 3, and one source among the three of every query:
+    bitwise the plain version on the CPU and itself across runs."""
     rng = np.random.default_rng(4)
     idx = rng.integers(0, S, (B, N, 3)).astype(np.int32)
     idx[:, :, 0] = S - 1
@@ -369,9 +397,33 @@ def test_interpolate_backward(cuda, B, N, S, D):
     idx, w = (torch.as_tensor(a, device=cuda) for a in (idx, w))
     g = torch.as_tensor(rng.standard_normal((B, N, D)).astype(np.float32),
                         device=cuda)
-    got = kernels.interpolate_backward(idx, w, g, S)
-    torch.testing.assert_close(got, core.interpolate_backward(idx, w, g, S),
-                               rtol=1e-5, atol=1e-4)
+    kernels.reset_launches()
+    _interp_backward_bitwise(idx, w, g, S, fast)
+    assert kernels.launches["interpolate_backward"] == 3
+    assert kernels.fast_launches["interpolate_backward"] == 3 * fast
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", sorted(ib_probe.adversarial_cases()))
+def test_interpolate_backward_adversarial(cuda, name, fast):
+    """A source in every query, three entries of a query on one source, a
+    batch row on one source (12288 entries on one row: the kernel's list
+    fills and is summed in rounds), S = 3, ragged N, D of 7, 40 and 1024;
+    through the wrapper and at ``interp_backward_probe.adversarial_tiles``
+    (T = 128 rows, whose list fills, a ragged T, one-slice column tiles,
+    each block size)."""
+    idx, w, g, S = ib_probe.adversarial_cases()[name]
+    idx, w, g = (torch.as_tensor(a, device=cuda) for a in (idx, w, g))
+    _interp_backward_bitwise(idx, w, g, S, fast)
+    for tiles in ib_probe.adversarial_tiles(*g.shape[:1], S, g.shape[-1]):
+        _interp_backward_bitwise(idx, w, g, S, fast, tiles)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_interpolate_backward_stages(cuda, fast):
+    """fp1-fp4 of a B=16 facade step and the MSG model's fp4 (D = 1024)."""
+    for _, idx, w, g, S in ib_probe.stage_inputs(cuda):
+        _interp_backward_bitwise(idx, w, g, S, fast)
 
 
 def _grads(cuda, backward_plain):
@@ -664,9 +716,8 @@ def test_interpolation_fast(cuda, B, N, S, D, kind, misaligned):
     torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-6)
     w = core.interpolation_weights(dk)
     got = kernels.interpolate_backward(ik, w, g, S, fast=True)
-    torch.testing.assert_close(
-        got, core.interpolate_backward(ik, w, g, S, fast=True),
-        rtol=1e-5, atol=1e-6)
+    assert torch.equal(got.cpu(), core.interpolate_backward(
+        ik.cpu(), w.cpu(), g.cpu(), S, fast=True))
     assert all(kernels.fast_launches[k] == 1 for k in (
         "three_nn_interpolate", "three_nn_window", "interpolate_backward"))
 

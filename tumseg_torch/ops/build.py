@@ -36,7 +36,7 @@ SIGNATURES = {
     "tumseg_three_nn_interpolate": (_P,) * 6 + (_I,) * 7 + (_P,),
     "tumseg_group_backward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P),
-    "tumseg_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tumseg_interpolate_backward": (_P,) * 4 + (_I,) * 8 + (_P,),
     "tumseg_three_nn_window": (_P,) * 11 + (_I,) * 7 + (_P,),
     "tumseg_fused_ball_group": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _P),

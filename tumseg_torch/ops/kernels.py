@@ -4,10 +4,10 @@ Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else; rejects inputs that require grad (a wrapper is one forward or
 one backward pass: gradients go through the ``torch.autograd.Function``s of
 ``tumseg_torch.ops.autograd``, which hand the wrappers detached tensors);
-allocates its outputs with ``torch.empty`` (``torch.zeros`` for the
-interpolation backward, which accumulates with atomics); launches on the
-current stream of the input's device; raises if the launcher returns a CUDA
-error; and adds one to its entry of ``launches`` per launch, and a launch in
+allocates its outputs with ``torch.empty`` (every kernel writes each
+element of its outputs); launches on the current stream of the input's
+device; raises if the launcher returns a CUDA error; and adds one to its
+entry of ``launches`` per launch, and a launch in
 the fast (single-pass bf16) mode to its entry of ``fast_launches`` as well.
 There is no fallback: a CUDA tensor either runs the kernel or raises. The
 plain versions with the same contracts are in ``tumseg_torch.ops.core``.
@@ -61,6 +61,12 @@ GROUP_BLOCK_ELEMENTS = 4096
 # and its most source rows (kMaxTileRows)
 GROUP_BWD_MAX_ACC = 6144
 GROUP_BWD_MAX_ROWS = 64
+# csrc/interpolate_backward.cu: the block sizes it is built for, the most
+# source rows a block sums (kMaxTileRows) and the columns a warp sums
+# (kSlice)
+INTERP_BWD_THREADS = (256, 1024)
+INTERP_BWD_MAX_ROWS = 128
+INTERP_BWD_SLICE = 128
 # csrc/three_nn_interpolate.cu: threads a block (kThreads), most queries a
 # block (kMaxQueries), the sources it stages at a time (kTile), the most
 # z-slabs of a tile (kMaxSlabs) and the sources a slab aims at
@@ -194,6 +200,30 @@ def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
                         or B * -(-N // rows) * col_tiles < 2 * SMS):
         rows //= 2
     return rows, cols
+
+
+@functools.lru_cache(maxsize=None)
+def interpolate_backward_tiles(B: int, S: int,
+                               D: int) -> Tuple[int, int, int]:
+    """-> (threads, T, CT): the block size of csrc/interpolate_backward.cu
+    and the source rows and columns a block sums. Each block rescans its
+    batch row's 3N indices, so the fewer blocks the better, but a warp sums
+    its (row, 128-column slice) items one after another. From the card's
+    sweep (tumseg_torch/tools/interp_backward_probe.py): where the items
+    give every warp of one 1024-thread block an SM at least one, blocks of
+    1024 threads take whole rows, T the smallest power of two (up to
+    ``INTERP_BWD_MAX_ROWS``) that keeps the grid within one block an SM;
+    below that, blocks of 256 threads take one item a warp, T rows of CT
+    columns with T x (CT / 128) = 8."""
+    slices = -(-D // INTERP_BWD_SLICE)
+    if B * S * slices >= 32 * SMS:
+        rows = 1
+        while rows < INTERP_BWD_MAX_ROWS and B * -(-S // rows) > SMS:
+            rows *= 2
+        return 1024, rows, D
+    if slices >= 8:
+        return 256, 1, 8 * INTERP_BWD_SLICE if slices > 8 else D
+    return 256, 8 // _pow2_at_least(slices), D
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -483,8 +513,10 @@ def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
                          grad: torch.Tensor, s: int, fast: bool = False
                          ) -> torch.Tensor:
     """idx [B, N, 3] int32 in [0, s), weight [B, N, 3] f32, grad [B, N, D]
-    f32 -> dpoints2 [B, s, D] f32 = W^T g; ``fast`` rounds the weights and
-    the cotangent to bf16 in the kernel before the f32 products."""
+    f32 -> dpoints2 [B, s, D] f32 = W^T g, each sum in ascending entry
+    3n + k, so bitwise ``core.interpolate_backward`` on the CPU and the same
+    from run to run; ``fast`` rounds the weights and the cotangent to bf16
+    in the kernel before the f32 products."""
     _check("idx", idx, torch.int32, (None, None, 3))
     B, N, _ = idx.shape
     _check("weight", weight, torch.float32, (B, N, 3))
@@ -493,8 +525,8 @@ def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
     if s < 3:
         raise ValueError(f"interpolation needs at least 3 sources, got s={s}")
     device = _same_device(idx, weight, grad)
-    out = torch.zeros((B, s, D), dtype=torch.float32, device=device)
+    out = torch.empty((B, s, D), dtype=torch.float32, device=device)
     _launch("interpolate_backward", "tumseg_interpolate_backward", device,
             _ptr(idx), _ptr(weight), _ptr(grad), _ptr(out), B, N, s, D,
-            fast=fast)
+            *interpolate_backward_tiles(B, s, D), fast=fast)
     return out
