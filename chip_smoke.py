@@ -82,17 +82,21 @@ k. takes one MSG training step at B=16 x 4096 with the kernels and plain
    steps, multi-radius ball query >= steps x 4 and group backward >= steps x
    6 launches, the group kernel's bf16 output >= steps x 8) and serves its
    ``best_model.pth``;
-l. (run right after b, while the host is quiet: the wrapper's torch ops
-   are host-bound) runs the z-window 3-NN kernel at fp1's shapes (B=32
-   facade blocks of
-   4096 queries, their 1024 FPS centroids, window 384, tiles of 256) on
-   three inputs: facade blocks, half the sources on one z (some queries fail
-   the guard) and one z for all (every query fails): indices and distances
-   bitwise equal to the plain windowed 3-NN and to the kernel run as the
-   full expansion-form row kernel, the fused interpolation within rtol 1e-5
-   / atol 1e-6 of the plain one; times it beside the direct-form 3-NN kernel
-   and the full row kernel at the same shapes, and splits one call's device
-   time into the kernel, the sorts and the rest with ``torch.profiler``;
+l. (run right after b) runs the z-window 3-NN kernel (the expansion-form
+   z-slab walk of ``csrc/three_nn.cuh``, one launch) at fp1's shapes (B=32
+   facade blocks of 4096 queries, their 1024 FPS centroids, window 384,
+   tiles of 256) on three inputs: facade blocks, half the sources on one z
+   (some queries fail tumseg's window guard) and one z for all (every query
+   fails): indices, distances and the fused interpolation bitwise equal to
+   the plain windowed 3-NN in both modes, and the first two to the kernel
+   run as the full expansion-form row kernel; then on
+   ``tumseg_torch.tools.three_nn_probe.window_cases()`` (negative
+   distances, far from the origin, lattice ties, S past one tile) bitwise
+   the plain expansion form; times it (event and device) beside the
+   direct-form 3-NN kernel and the full row kernel at the same shapes, with
+   the candidates its walk tests (``three_nn_probe.walk_model``), and checks
+   with ``torch.profiler`` that one call's device time is the kernel alone,
+   no sort;
 m. serves the tile of d three ways in one call, SSG with the weights of c,
    through ``run_testing`` (2 votes, each scene gridded beforehand): the
    host path, the device re-blocking path and the device path with
@@ -116,11 +120,14 @@ o. (after e) the fast (single-pass bf16) modes at a B=16 x 4096 training
    at fp1-fp4 and the MSG model's fp4 bitwise the plain fast version run on
    the CPU and itself over three runs; each fast time beside the same
    kernel's exact time at the same shapes;
-p. (after l) the fused ball query + group kernel at sa1-sa4 of the
+p. (after l) the fused ball query + group kernel (the ball-query walk of
+   ``csrc/ball_query.cuh`` with a grouping epilogue) at sa1-sa4 of the
    B=32 x 4096 forward, exact and fast, and on an input with an empty ball:
    grouped and idx bitwise equal to the ball-query kernel then the group
    kernel of the same mode and to the plain fused op, with short balls
-   present; timed beside that split pair, its bound and its plain version;
+   present; timed beside its bound and its plain version, and its device
+   time by stage and over sa1-sa4 beside the split pair's (ball query then
+   group) in both modes;
 q. (after d) the fused switch end to end: one SSG forward under
    ``ops.fused_group_enabled()`` gives the log-probs of the switch off bit
    for bit, with 4 fused launches and 4 fewer ball-query launches; one
@@ -139,17 +146,15 @@ r. (after k) fast against exact training: one SSG and one MSG step from the
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
 the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted from
-this run's inputs (a ball query counts 9 operations a candidate its
-z-slab walk tests, the fused kernel a candidate its index-order scan tests
-before the ball fills), and beside one PyTorch call that computes the same
-function where there is one. A kernel with a fast mode also reports
-``fast_ms``, the fast mode's time, beside ``fast_exact_ms``, the exact mode's
-time at the same shapes (phase o's; phase p's for the fused kernel). The
-FPS, ball-query, group, 3-NN and both backward kernels also report
-``device_ms`` and ``library_device_ms``, the profiler's device time of the
-calls that ``ms`` and ``library_ms`` time with CUDA events (null for FPS,
-the ball queries and 3-NN, which no PyTorch call computes; where a call's
-device work is
+this run's inputs (a ball query and the fused kernel count 9 operations
+a candidate their z-slab walk tests, the window 3-NN 14), and beside one
+PyTorch call that computes the same function where there is one. A kernel
+with a fast mode also reports ``fast_ms``, the fast mode's time, beside
+``fast_exact_ms``, the exact mode's time at the same shapes (phase o's;
+phase p's for the fused kernel). Every kernel also reports ``device_ms``
+and ``library_device_ms``, the profiler's device time of the calls that
+``ms`` and ``library_ms`` time with CUDA events (null where no PyTorch
+call computes the function; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
 time is the host's time a call). The
 line before the last is a JSON summary of
@@ -224,8 +229,9 @@ FAST = ("group", "three_nn_interpolate", "group_backward",
 # of them that no single PyTorch call computes
 DEVICE_TIMED = ("fps", "ball_query", "ball_query_multi", "group",
                 "group_backward", "three_nn_interpolate",
-                "interpolate_backward")
-NO_LIBRARY = ("fps", "ball_query", "ball_query_multi", "three_nn_interpolate")
+                "interpolate_backward", "three_nn_window", "fused_ball_group")
+NO_LIBRARY = ("fps", "ball_query", "ball_query_multi", "three_nn_interpolate",
+              "three_nn_window", "fused_ball_group")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
 # neighbourhoods; a model's other ball query is never launched
@@ -308,10 +314,14 @@ def time_ms(torch, fn, reps):
 
 
 def device_ms(torch, fn, reps):
-    """The profiler's per-call device time of ``fn``: the CUDA-busy time
-    (:func:`cuda_busy_seconds`) of ``reps`` calls after one warm-up call,
-    over ``reps``; None when three traces in a row hold no device event
-    (the profiler now and then records none)."""
+    """The profiler's per-call device time of ``fn`` over ``reps`` calls
+    after one warm-up call: each kernel's mean duration (kernels told apart
+    by name) times its launches a call, its events over ``reps`` rounded
+    and at least one. The profiler now and then loses device events, in
+    some phases most of a trace's, so a count short of ``reps`` still means
+    one a call; without losses this is the CUDA-busy time of the calls
+    over ``reps`` (one stream: the kernels do not overlap). A trace that
+    holds no device event is taken again, up to three; None then."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -321,9 +331,13 @@ def device_ms(torch, fn, reps):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy = cuda_busy_seconds(torch, prof)
-        if busy > 0:
-            return busy * 1e3 / reps
+        spans = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if spans:
+            return sum(np.mean(v) * max(1, round(len(v) / reps))
+                       for v in spans.values()) / 1e3
     return None
 
 
@@ -1166,9 +1180,10 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
 def phase_window(torch, report):
     """The z-window 3-NN kernel at fp1's shapes, against its plain version
     and against itself as the full row kernel, on guard-passing, mixed and
-    all-failing inputs."""
+    all-failing inputs, and on ``three_nn_probe.window_cases()``."""
     from tumseg_torch import ops
     from tumseg_torch.ops import core, kernels
+    from tumseg_torch.tools.three_nn_probe import walk_model, window_cases
 
     rng = np.random.default_rng(SEED + 7)
     dev = torch.device(DEVICE)
@@ -1184,74 +1199,101 @@ def phase_window(torch, report):
     flat1, flat2 = xyz1.clone(), xyz2.clone()
     flat1[..., 2] = 5.0                  # one z for all: every query fails
     flat2[..., 2] = 5.0
+    nbytes = 4 * (B * N * 3 + B * S * 3 + B * S * d + B * N * 6 + B * N * d)
+    ops = {}
     for label, x1, x2, on_path in (("facade", xyz1, xyz2, True),
                                    ("mixed", xyz1, mixed, False),
                                    ("one z", flat1, flat2, False)):
-        dk, ik, ok = kernels.three_nn_window_interpolate(x1, x2, p2, C, tile)
-        dp, ip, op = core.three_nn_window_interpolate(x1, x2, p2, C, tile)
-        df, i_full = kernels.three_nn_expansion(x1, x2)
-        if not (torch.equal(ik, ip) and torch.equal(ik, i_full)):
-            bad = (ik != ip).any(-1).float().mean().item()
-            raise AssertionError(f"3-NN window ({label}): {bad:.2e} of "
-                                 "queries differ from the plain version or "
-                                 "the full row kernel")
-        if not (torch.equal(dk, dp) and torch.equal(dk, df)):
-            raise AssertionError(f"3-NN window ({label}): distances are not "
-                                 "bitwise those of the plain version and "
-                                 "the full row kernel")
-        torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
-        err = (ok - op).abs().max().item()
+        for fast in (False, True):
+            dk, ik, ok = kernels.three_nn_window_interpolate(x1, x2, p2, C,
+                                                             tile, fast)
+            dp, ip, op = core.three_nn_window_interpolate(x1, x2, p2, C,
+                                                          tile, fast)
+            df, i_full = kernels.three_nn_expansion(x1, x2)
+            if not (torch.equal(ik, ip) and torch.equal(ik, i_full)):
+                bad = (ik != ip).any(-1).float().mean().item()
+                raise AssertionError(f"3-NN window ({label}): {bad:.2e} of "
+                                     "queries differ from the plain version "
+                                     "or the full row kernel")
+            if not (torch.equal(dk, dp) and torch.equal(dk, df)):
+                raise AssertionError(f"3-NN window ({label}): distances are "
+                                     "not bitwise those of the plain version "
+                                     "and the full row kernel")
+            if not torch.equal(ok, op):
+                raise AssertionError(f"3-NN window ({label}, fast={fast}): "
+                                     "the interpolation is not bitwise the "
+                                     "plain version's")
         fails = int((~core.window_guard(x1, x2, C, tile)).sum().item())
         if label == "mixed" and not 0 < fails < B * N:
             raise AssertionError(f"mixed input: {fails} guard failures")
         if label == "one z" and fails != B * N:
             raise AssertionError(f"one z: only {fails} guard failures")
-        print(f"[l] 3-NN window {label}: {fails} of {B * N} queries fail the "
-              f"guard and rescan all {S} sources")
-        # ~10 operations a candidate (the expansion-form distance and the
-        # compares into the top 3), the weights, 5 an output element
-        cand = B * N * C + fails * S
+        _, _, tested = walk_model(x1.cpu().numpy(), x2.cpu().numpy(),
+                                  "expansion")
+        print(f"[l] 3-NN window {label}: dists, idx and out bitwise the "
+              f"plain version in both modes; {fails} of {B * N} queries "
+              f"fail tumseg's window guard; the walk tests "
+              f"{tested / (B * N):.1f} candidates a query (walk model)")
+        # ~14 operations a candidate the walk tests (the expansion-form
+        # distance and the compares into the top 3), the weights, 5 an
+        # output element
+        ops[label] = 14 * tested + B * N * 10 + B * N * d * 5
         report.add(torch, "three_nn_window", f"{label} N={N} S={S} C={C}",
                    lambda: kernels.three_nn_window_interpolate(
                        x1, x2, p2, C, tile),
                    lambda: core.three_nn_window_interpolate(
-                       x1, x2, p2, C, tile), err,
-                   nbytes=4 * (B * N * 3 + B * S * 3 + B * S * d
-                               + B * N * 6 + B * N * d),
-                   ops=10 * cand + B * N * 10 + B * N * d * 5,
-                   plain_reps=1, phase="l", on_path=on_path)
-    # the full expansion-form row kernel (window = S: no sort, one window)
-    report.add(torch, "three_nn_window", f"full row N={N} S={S} C={S}",
-               lambda: kernels.three_nn_window_interpolate(xyz1, xyz2, p2, S),
-               lambda: core.three_nn_window_interpolate(xyz1, xyz2, p2, S),
-               0.0, nbytes=4 * (B * N * 3 + B * S * 3 + B * S * d
-                                + B * N * 6 + B * N * d),
-               ops=10 * B * N * S + B * N * 10 + B * N * d * 5,
-               plain_reps=1, phase="l", on_path=False)
+                       x1, x2, p2, C, tile), 0.0, nbytes=nbytes,
+                   ops=ops[label], plain_reps=1, phase="l", on_path=on_path)
+    # the full expansion-form row kernel (window = S): the same launch
+    _, full_dms = report.add(
+        torch, "three_nn_window", f"full row N={N} S={S} C={S}",
+        lambda: kernels.three_nn_window_interpolate(xyz1, xyz2, p2, S),
+        lambda: core.three_nn_window_interpolate(xyz1, xyz2, p2, S),
+        0.0, nbytes=nbytes, ops=ops["facade"], plain_reps=1, phase="l",
+        on_path=False)
+    for name, a, b in window_cases():
+        a, b = (torch.as_tensor(x, device=dev) for x in (a, b))
+        if not all(torch.equal(g, w) for g, w in zip(
+                kernels.three_nn_expansion(a, b),
+                core.three_nn_expansion(a, b))):
+            raise AssertionError(f"3-NN window case {name}: not bitwise the "
+                                 "plain expansion form")
+    print("[l] three_nn_probe.window_cases() (negative distances, far from "
+          "the origin, one z, mixed, lattice ties, S past one tile): bitwise "
+          "the plain expansion form")
     ms, runs = time_ms(torch, lambda: kernels.three_nn_interpolate(
         xyz1, xyz2, p2), 20)
+    dms = device_ms(torch, lambda: kernels.three_nn_interpolate(
+        xyz1, xyz2, p2), 20)
     print(f"[l] direct-form three_nn_interpolate at N={N} S={S} D={d}: "
-          f"{ms:.4f} ms {[round(r, 4) for r in runs]}")
-    # the wrapper's own torch ops (sorts, searchsorted, starts) next to the
-    # kernel: device time per call by kernel name
+          f"{ms:.4f} ms {[round(r, 4) for r in runs]}, device {_ms(dms)}; "
+          f"full row kernel device {_ms(full_dms)}")
+    # one call's device work by kernel: the window kernel alone, no sort
+    # (a trace that recorded no device event is taken again)
     calls = 10
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            kernels.three_nn_window_interpolate(xyz1, xyz2, p2, C, tile)
-        torch.cuda.synchronize()
-    per_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = ("three_nn_window_kernel" if "three_nn_window" in e.name
-                    else "sort" if "ort" in e.name else "other")
-            per_name[name] = (per_name.get(name, 0.0)
-                              + e.time_range.elapsed_us() / 1e3 / calls)
-    print(f"[l] device time of one facade call by part (torch.profiler, "
-          f"{calls} calls): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(per_name.items()))
-          + f", total {sum(per_name.values()):.4f} ms")
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                kernels.three_nn_window_interpolate(xyz1, xyz2, p2, C, tile)
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = ("window kernel" if "ExpansionForm" in e.name
+                        else "sort" if "ort" in e.name else "other")
+                spans.setdefault(name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if spans:
+            break
+    print(f"[l] device work of {calls} facade calls by kernel "
+          f"(torch.profiler): " + ", ".join(
+              f"{k} {len(v)} events of {np.mean(v):.4f} ms"
+              for k, v in sorted(spans.items())))
+    if set(spans) != {"window kernel"}:
+        raise AssertionError(f"3-NN window: a call launched more than its "
+                             f"kernel, or nothing was traced: {spans}")
 
 
 def scene_dataset(path):
@@ -1531,23 +1573,27 @@ def phase_fast(torch, report):
           "three runs")
 
 
-def fused_cost(torch, idx, C, n, fast):
+def fused_cost(idx, C, n, tested, fast):
     """Bytes and operations of the fused kernel: xyz, centroids and src
-    read, idx and the grouped tensor written; 9 operations a candidate the
-    queries scan, one subtraction an xyz output."""
+    read, idx and the grouped tensor written; 9 operations a candidate its
+    walk tests (``tested``, by ``ball_query_probe.walk_model``, as the ball
+    query's lines count theirs), one subtraction an xyz output."""
     Bq, S, Kq = idx.shape
     return dict(nbytes=Bq * n * 12 + Bq * S * 12 + Bq * n * C * 4
                 + Bq * S * Kq * 4 + Bq * S * Kq * C * (2 if fast else 4),
-                ops=9 * scanned(torch, idx, n).sum().item() + Bq * S * Kq * 3)
+                ops=9 * tested + Bq * S * Kq * 3)
 
 
 def phase_fused(torch, report):
     """The fused ball query + group at sa1-sa4 of the B=32 x 4096 forward,
     against the split kernels and its plain version, in both modes."""
     from tumseg_torch.ops import core, kernels
+    from tumseg_torch.tools.ball_query_probe import walk_model
 
     rng = np.random.default_rng(SEED + 10)
     xyzs, idxs, srcs = stage_inputs(torch, rng, B)
+    fused_device = dict.fromkeys(
+        [(k, f) for k in ("fused", "split") for f in (False, True)], 0.0)
     for stage, ((npoint, r), src, ctr) in enumerate(zip(SA, srcs, xyzs[1:])):
         xyz, n, c = xyzs[stage], srcs[stage].shape[1], srcs[stage].shape[2]
         for fast in (False, True):
@@ -1566,26 +1612,44 @@ def phase_fused(torch, report):
               f"split pair and plain in both modes; short balls "
               f"{short.mean().item():.3f}")
         label = f"sa{stage + 1} N={n} S={npoint} C={c}"
-        report.add(torch, "fused_ball_group", label,
-                   lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
-                   lambda: core.fused_ball_group(r, K, xyz, ctr, src), 0.0,
-                   plain_reps=2, phase="p",
-                   **fused_cost(torch, i_f, c, n, False))
+        _, tested = walk_model(xyz.cpu().numpy(), ctr.cpu().numpy(), (r,),
+                               (K,))
+        _, fused_dms = report.add(
+            torch, "fused_ball_group", label,
+            lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
+            lambda: core.fused_ball_group(r, K, xyz, ctr, src), 0.0,
+            plain_reps=2, phase="p", **fused_cost(i_f, c, n, tested, False))
         report.add_fast(torch, "fused_ball_group", label,
                         lambda: kernels.fused_ball_group(r, K, xyz, ctr, src,
                                                          True),
                         lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
                         0.0, "p")
-        fb = fused_cost(torch, i_f, c, n, True)
+        fb = fused_cost(i_f, c, n, tested, True)
         bound = max(fb["nbytes"] / HBM_BYTES_PER_S,
                     fb["ops"] / F32_OPS_PER_S) * 1e3
         print(f"[p] fused {label} fast: bound {bound:.5f} ms "
               f"({fb['nbytes'] / 1e6:.2f} MB, {fb['ops'] / 1e9:.3f} Gop)")
         for fast in (False, True):
-            split, runs = time_ms(torch, lambda: kernels.group_points(
-                kernels.query_ball_point(r, K, xyz, ctr), src, ctr, fast), 20)
-            print(f"[p] split pair (ball query + group) {label} fast={fast}: "
-                  f"{split:.4f} ms {[round(v, 4) for v in runs]}")
+            def split_call():
+                return kernels.group_points(kernels.query_ball_point(
+                    r, K, xyz, ctr), src, ctr, fast)
+
+            def fused_call():
+                return kernels.fused_ball_group(r, K, xyz, ctr, src, fast)
+
+            split, runs = time_ms(torch, split_call, 20)
+            split_dms = device_ms(torch, split_call, 20)
+            dms = fused_dms if not fast else device_ms(torch, fused_call, 20)
+            for key, v in (("fused", dms), ("split", split_dms)):
+                fused_device[key, fast] = _add(fused_device[key, fast], v)
+            print(f"[p] {label} fast={fast}: fused device {_ms(dms)} against "
+                  f"the split pair (ball query + group) device "
+                  f"{_ms(split_dms)}, event {split:.4f} ms "
+                  f"{[round(v, 4) for v in runs]}")
+    for fast in (False, True):
+        print(f"[p] sa1-sa4 device, fast={fast}: fused "
+              f"{_ms(fused_device['fused', fast])}, split pair "
+              f"{_ms(fused_device['split', fast])}")
     # balls that fill K (few facade balls do at the model's radii), then an
     # empty ball (a centroid far from every point), in both modes
     xyz, src, ctr = xyzs[0], srcs[0], xyzs[1]

@@ -5,10 +5,12 @@ it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Indices and grouping must be identical (the z-window 3-NN's distances too,
-bit for bit; the ball queries also on tests/test_torch_ball_query.py's
-inputs, walked and scanned, and at B=32 at every stage); the interpolation
-agrees within rtol 1e-5 / atol 1e-6. The
+Indices and grouping must be identical (the z-window 3-NN's distances and
+exact interpolation too, bit for bit, also on
+``tumseg_torch.tools.three_nn_probe.window_cases()``; the ball queries also
+on tests/test_torch_ball_query.py's inputs, walked and scanned, and at B=32
+at every stage, and the fused ball query + group there too, in both
+modes); the interpolation agrees within rtol 1e-5 / atol 1e-6. The
 group backward sums each source row in ascending row order with no atomics,
 so in both modes it is bitwise the plain version run on the CPU (what
 tests/test_torch_group_order.py pins that to) and bitwise itself across
@@ -33,6 +35,7 @@ from tumseg_torch import ops
 from tumseg_torch.ops import core, kernels
 from tumseg_torch.tools import ball_query_probe as bq_probe
 from tumseg_torch.tools import interp_backward_probe as ib_probe
+from tumseg_torch.tools import three_nn_probe as tn_probe
 
 
 @pytest.fixture
@@ -513,9 +516,9 @@ def _window_inputs(rng, case, B, N, S, device):
     (2, 4096, 1024, 128, 384, 256),   # fp1
 ])
 def test_three_nn_window(cuda, case, B, N, S, D, window, n_tile):
-    """The window kernel against the plain windowed 3-NN (indices and
-    distances bitwise), against itself run as the full row kernel, and its
-    fused interpolation against the plain one."""
+    """The window kernel against the plain windowed 3-NN (indices,
+    distances and the fused interpolation bitwise) and against itself run
+    as the full row kernel."""
     rng = np.random.default_rng(8)
     xyz1, xyz2 = _window_inputs(rng, case, B, N, S, cuda)
     p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
@@ -527,7 +530,7 @@ def test_three_nn_window(cuda, case, B, N, S, D, window, n_tile):
     dp, ip, op = core.three_nn_window_interpolate(xyz1, xyz2, p2, window,
                                                   n_tile)
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
-    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+    assert torch.equal(ok, op)
     df, i_full = kernels.three_nn_expansion(xyz1, xyz2)
     assert torch.equal(ik, i_full) and torch.equal(dk, df)
     guard = core.window_guard(xyz1, xyz2, window, n_tile)
@@ -535,6 +538,72 @@ def test_three_nn_window(cuda, case, B, N, S, D, window, n_tile):
         assert not guard.any()
     elif case == "mixed":
         assert guard.any() and not guard.all()
+
+
+WINDOW_CASES = {name: case for name, *case in tn_probe.window_cases()}
+
+
+def _window_check(xyz1, xyz2, p2, fast):
+    """The window kernel at a window of 128 where the plain version takes
+    one (S % 128 == 0, tiles of 64 queries), else with none: dists and idx
+    bitwise the plain windowed and full expansion forms and the kernel's
+    own full row; out bitwise in exact mode, within rtol 1e-5 / atol 1e-6
+    in the fast mode (and printed: bitwise or not)."""
+    S = xyz2.shape[1]
+    window = 128 if S % 128 == 0 and S > 128 else S
+    kernels.reset_launches()
+    dk, ik, ok = kernels.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                                     64, fast)
+    assert kernels.launches["three_nn_window"] == 1
+    assert kernels.fast_launches["three_nn_window"] == int(fast)
+    dp, ip, op = core.three_nn_window_interpolate(xyz1, xyz2, p2, window, 64,
+                                                  fast)
+    de, ie = core.three_nn_expansion(xyz1, xyz2)
+    df, i_full = kernels.three_nn_expansion(xyz1, xyz2)
+    for d, i in ((dp, ip), (de, ie), (df, i_full)):
+        assert torch.equal(ik, i) and torch.equal(dk, d)
+    if fast:
+        torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(ok, op)
+    print(f"three_nn_window B, N, S = {tuple(xyz1.shape[:2])}, {S} "
+          f"fast={fast}: out bitwise {torch.equal(ok, op)}")
+    return dk
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_three_nn_window_adversarial(cuda, name, fast):
+    """``three_nn_probe.window_cases()``: facade, mixed, one z, negative
+    distances (a third one too), far from the origin, lattice ties, S past
+    one tile and two."""
+    xyz1, xyz2 = (torch.as_tensor(a, device=cuda)
+                  for a in WINDOW_CASES[name])
+    rng = np.random.default_rng(17)
+    p2 = torch.as_tensor(rng.standard_normal(
+        (xyz2.shape[0], xyz2.shape[1], 40)).astype(np.float32), device=cuda)
+    dk = _window_check(xyz1, xyz2, p2, fast)
+    if name == "negative":
+        assert (dk[..., 2] < 0).any()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("B,N,S,D", [(32, 4096, 1024, 128),   # fp1
+                                     (2, 4096, 2048, 64),      # two tiles
+                                     (1, 300, 2100, 33)])
+def test_three_nn_window_fp1_and_past_tile(cuda, B, N, S, D, fast):
+    """Facade blocks at fp1's shape and with S past one source tile, the
+    sources the blocks' own points, as FPS picks them."""
+    rng = np.random.default_rng(18)
+    n = max(N, S)
+    pts = torch.as_tensor(_fps_points("facade", rng, B, n), device=cuda)
+    pick = torch.as_tensor(np.stack([rng.permutation(n)[:S]
+                                     for _ in range(B)]), device=cuda)
+    xyz2 = core.index_points(pts, pick).contiguous()
+    xyz1 = pts[:, :N].contiguous()
+    p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
+                         device=cuda)
+    _window_check(xyz1, xyz2, p2, fast)
 
 
 @pytest.mark.parametrize("B,N,S", [(2, 300, 77), (1, 70, 3), (3, 4099, 1024)])
@@ -748,6 +817,50 @@ def test_fused_ball_group(cuda, fast, B, N, S, K, C, r):
     assert (idx[:, 0] == N).all()
     short = (idx[..., -1] == idx[..., 0]) & (idx[..., 0] != N)
     assert short.any()
+
+
+def _fused_check(xyz, new_xyz, r, K, C, fast, seed=0):
+    """The fused kernel bitwise the ball-query kernel then the group kernel
+    of the same mode, and the plain fused op; -> idx."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(xyz, device="cuda")
+    q = torch.as_tensor(new_xyz, device="cuda")
+    src = torch.cat([x, torch.as_tensor(rng.standard_normal(
+        (x.shape[0], x.shape[1], C - 3)).astype(np.float32),
+        device="cuda")], -1)
+    kernels.reset_launches()
+    grouped, idx = kernels.fused_ball_group(r, K, x, q, src, fast)
+    assert kernels.launches["fused_ball_group"] == 1
+    want_idx = kernels.query_ball_point(r, K, x, q)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(grouped, kernels.group_points(want_idx, src, q, fast))
+    pg, pi = core.fused_ball_group(r, K, x, q, src, fast)
+    assert torch.equal(idx, pi) and torch.equal(grouped, pg)
+    return idx
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("stage", range(4))
+def test_fused_ball_group_stages(cuda, stage, fast):
+    """sa1-sa4 of the B=32 forward on facade blocks, at the model's widths
+    C = 9, 67, 131, 259."""
+    xyz, new_xyz, radii, ks = bq_probe.stage_inputs(32, stage)
+    _fused_check(xyz, new_xyz, radii[0], ks[0], (9, 67, 131, 259)[stage],
+                 fast)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", sorted(
+    name for name, case in BALL_CASES.items() if len(case[2]) == 1))
+def test_fused_ball_group_adversarial(cuda, name, fast):
+    """The single-radius adversarial inputs of the ball queries (ragged N,
+    N past a tile and at FPS_MAX_N, empty and overfull balls, |dz| = r and
+    an ulp either side), at widths 3, 7 and 35."""
+    xyz, new_xyz, radii, ks = BALL_CASES[name]
+    for C in (3, 7, 35):
+        idx = _fused_check(xyz, new_xyz, radii[0], ks[0], C, fast, seed=C)
+    if name == "empty":
+        assert (idx[0, 0] == xyz.shape[1]).all()
 
 
 def test_fused_switch_on_card(cuda):

@@ -29,7 +29,8 @@ import pytest
 import torch
 
 from tumseg_torch.ops import core, kernels
-from tumseg_torch.tools.three_nn_probe import walk_model
+from tumseg_torch.tools.three_nn_probe import (interpolation_model,
+                                               walk_model)
 
 # the shared memory a block may take on Hopper, and the static shared
 # memory of csrc/three_nn_interpolate.cu: the float4 source tile, the
@@ -144,28 +145,6 @@ def test_walk_model_on_facade_blocks(stage):
     np.testing.assert_array_equal(dists, want_d.numpy())
     if S >= 256:
         assert tested < 0.25 * 2 * N * S
-
-
-def bf16_round(a):
-    """f32 -> nearest bf16 (ties to even) -> f32, as __float2bfloat16_rn."""
-    u = a.astype(np.float32).view(np.uint32)
-    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
-        & np.uint32(0xFFFF0000)
-    return u.view(np.float32)
-
-
-def interpolation_model(dists, idx, points2, fast):
-    """The kernel's weights (once a query) and row sums in numpy f32."""
-    eps = np.float32(1e-8)
-    r = np.float32(1) / (dists + eps)
-    w = r / ((r[..., 0:1] + r[..., 1:2]) + r[..., 2:3])
-    p = points2
-    if fast:
-        w, p = bf16_round(w), bf16_round(p)
-    rows = np.take_along_axis(p[:, None, :, :], idx[..., None].astype(
-        np.int64), axis=2)                   # [B, N, 3, D]
-    return ((rows[:, :, 0] * w[..., 0:1] + rows[:, :, 1] * w[..., 1:2])
-            + rows[:, :, 2] * w[..., 2:3])
 
 
 @pytest.mark.parametrize("fast", [False, True])

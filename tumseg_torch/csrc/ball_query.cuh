@@ -9,7 +9,9 @@
 // differ only in TPU layout; ball_query_multi.cu with the MSG layer's radii,
 // the answer to _ballquery_kernel_bp_multi (:293), one distance a candidate
 // shared by every radius. Both equal tumseg_torch/ops/core.py's
-// query_ball_point(_multi) bit for bit.
+// query_ball_point(_multi) bit for bit. fused_ball_group.cu launches it with
+// one radius and a grouping epilogue (below), the answer to
+// tumseg/ops/pallas/fusedgroup.py's _fused_kernel and _fused_gridk_kernel.
 //
 // What bounds it on an H100. Bytes: xyz and new_xyz read once, the indices
 // written once (sa1 of the B=32 x 4096 forward: 6.2 MB, 0.0018 ms at
@@ -58,9 +60,27 @@
 // - Shared memory: the tile (16 bytes a source), the groups' masks, each
 //   query's counts and coordinates; at sa1 (Q = 256, L = 8) 138 KB, one
 //   block an SM, in one wave.
+// - The grouping epilogue (a template argument: the ball queries take
+//   none, and their code is the same as without it). After the fill and a
+//   barrier, which makes the block's idx rows visible to the whole block,
+//   the block reads its [nq, K] rows back (from L1/L2) into the shared
+//   memory the tile and the masks held, in chunks of (source row, query)
+//   pairs, and writes its contiguous [nq, K, C] region of the grouped
+//   output with common.cuh's write_grouped_span, group.cu's code: 16 bytes
+//   a store where the span allows, each element grouped_value of the
+//   gathered source and the query's centre (staged with the queries), the
+//   stores marked evict-first (an output of 17-70 MB a stage would
+//   otherwise push the gathered sources out of the L2). The idx never
+//   makes a round trip through a second launch, and the epilogue takes no
+//   shared memory of its own. Tried and dropped (PERF.md): each
+//   group grouping its query as soon as its row is final, so that groups
+//   write while others walk (lost where a block has few queries, sa3-sa4),
+//   and two or four vectors a thread in flight (no gain).
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "z_slabs.cuh"
 
@@ -77,12 +97,30 @@ struct MultiRadii {
   int* out[kMaxRadii];
 };
 
+// The ball queries' epilogue: none.
+struct NoGroup {};
+
+// The fused ball query + group's epilogue: the grouped tensor out
+// [B, S, K, C] (f32, or bf16 in the fast mode) of radius 0's idx, from src
+// [B, N, C] (xyz first). magic gives t / C over a chunk's span (div_c), or
+// is 0 where it would not be exact (kernels.fused_geometry).
+template <typename T>
+struct GroupRows {
+  using Out = T;
+  const float* src;
+  T* out;
+  int C;
+  unsigned magic;
+};
+
 }  // namespace tumseg
 
 namespace {
 
+using tumseg::GroupRows;
 using tumseg::kFull;
 using tumseg::MultiRadii;
+using tumseg::NoGroup;
 using tumseg::Slabs;
 
 constexpr int kThreads = 1024;  // kernels.BALL_QUERY_THREADS
@@ -140,14 +178,58 @@ __device__ __forceinline__ void append_bits(int* o, int& pos, int K,
   }
 }
 
+// Rows of the grouping epilogue staged at a time in the shared memory that
+// the tile and the groups' masks held: a source row and a query, 8 bytes
+// (kernels.fused_chunk).
+__device__ __forceinline__ int group_chunk(int tile, int L) {
+  return (16 * tile + 4 * (kThreads / L) * radius_words(tile)) / 8;
+}
+
+// The grouping epilogue of the block's nq queries of row b, their K idx
+// rows at `rows` (global, written by this block before a barrier: plain
+// loads, never the read-only path), their coordinates at qs; `stage` is
+// the freed shared memory, `chunk` rows of it.
+template <typename T>
+__device__ __forceinline__ void group_rows(const GroupRows<T>& g,
+                                           const int* rows, const float* qs,
+                                           int* stage, int chunk, int nq,
+                                           int K, int N, int b,
+                                           long long first_row) {
+  const int C = g.C;
+  const float* __restrict__ src = g.src + static_cast<size_t>(b) * N * C;
+  int* row_src = stage;          // n, or -1: the row reads zeros
+  int* row_query = stage + chunk;
+  const int total = nq * K;
+  for (int r0 = 0; r0 < total; r0 += chunk) {
+    const int nr = total - r0 < chunk ? total - r0 : chunk;
+    if (r0 > 0) __syncthreads();  // the previous chunk is written
+    for (int i = threadIdx.x; i < nr; i += kThreads) {
+      const int n = rows[r0 + i];
+      row_src[i] = n >= 0 && n < N ? n : -1;
+      row_query[i] = (r0 + i) / K;
+    }
+    __syncthreads();
+    const long long base = (first_row + r0) * C;
+    tumseg::write_grouped_span<true>(
+        g.out + base, base, nr * C, C, g.magic, threadIdx.x, kThreads,
+        [&](int row, int c) {
+          const int n = row_src[row];
+          const float v = n >= 0 ? src[static_cast<size_t>(n) * C + c] : 0.0f;
+          return tumseg::grouped_value<T>(
+              v, c < 3 ? qs[3 * row_query[row] + c] : 0.0f);
+        });
+  }
+}
+
 // Q queries a block, from blockIdx.x * Q of row blockIdx.y, a group of L
 // lanes a query; sources in tiles of `tile`, walked through z-slabs or
-// scanned. kR bounds radii.R.
-template <int kR>
-__global__ void __launch_bounds__(kThreads, 1)
-ball_query_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ new_xyz, int N, int S, int Q,
-                  int L, int tile, bool walk, const MultiRadii radii) {
+// scanned. kR bounds radii.R. The kernels below are this and their
+// epilogue.
+template <int kR, typename Epilogue>
+__device__ __forceinline__ void ball_query_block(
+    const float* __restrict__ xyz, const float* __restrict__ new_xyz, int N,
+    int S, int Q, int L, int tile, bool walk, const MultiRadii& radii,
+    const Epilogue& epi) {
   extern __shared__ float4 dyn[];
   __shared__ int off[kMaxSlabs + 1];
   __shared__ int count[kMaxSlabs], lo[kMaxSlabs], hi[kMaxSlabs];
@@ -310,22 +392,58 @@ ball_query_kernel(const float* __restrict__ xyz,
       if (e - q * K >= c) o[e] = c == 0 ? N : o[q * K];
     }
   }
+
+  if constexpr (!std::is_same<Epilogue, NoGroup>::value) {
+    __syncthreads();  // the rows' fill is visible; the tile and masks free
+    group_rows(epi, radii.out[0] + (static_cast<size_t>(b) * S + s0) *
+                                       radii.K[0],
+               qs, reinterpret_cast<int*>(dyn), group_chunk(tile, L), nq,
+               radii.K[0], N, b,
+               (static_cast<long long>(b) * S + s0) * radii.K[0]);
+  }
+}
+
+template <int kR>
+__global__ void __launch_bounds__(kThreads, 1)
+ball_query_kernel(const float* __restrict__ xyz,
+                  const float* __restrict__ new_xyz, int N, int S, int Q,
+                  int L, int tile, bool walk, const MultiRadii radii) {
+  ball_query_block<kR>(xyz, new_xyz, N, S, Q, L, tile, walk, radii,
+                       NoGroup{});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ball_group_kernel(const float* __restrict__ xyz,
+                        const float* __restrict__ new_xyz, int N, int S,
+                        int Q, int L, int tile, bool walk,
+                        const MultiRadii radii, const GroupRows<T> epi) {
+  ball_query_block<1>(xyz, new_xyz, N, S, Q, L, tile, walk, radii, epi);
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-// Launches ball_query_kernel<kR> on `stream` at geometry (Q, L, tile,
-// walk); cudaErrorInvalidValue for a geometry or radii it cannot run.
-template <int kR>
+// Launches ball_query_kernel<kR> (or, with a GroupRows epilogue, the fused
+// kernel, one radius) on `stream` at geometry (Q, L, tile, walk);
+// cudaErrorInvalidValue for a geometry or radii it cannot run.
+template <int kR, typename Epilogue = NoGroup>
 int launch_ball_query(const float* xyz, const float* new_xyz,
                       const MultiRadii& radii, int B, int N, int S, int Q,
-                      int L, int tile, int walk, void* stream) {
+                      int L, int tile, int walk, void* stream,
+                      const Epilogue& epi = Epilogue()) {
+  constexpr bool kGroup = !std::is_same<Epilogue, NoGroup>::value;
   if (B == 0 || S == 0) return 0;
   if (radii.R < 1 || radii.R > kR || Q < 1 || Q > kThreads || !pow2(L) ||
       L > 32 || tile < 1 || tile > kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int r = 0; r < radii.R; ++r)
     if (radii.K[r] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = [] {
+    if constexpr (kGroup)
+      return fused_ball_group_kernel<typename Epilogue::Out>;
+    else
+      return ball_query_kernel<kR>;
+  }();
   // above 48 KB of dynamic shared memory only once allowed, per device
   static int allowed[kMaxDevices];
   int device = 0;
@@ -333,10 +451,10 @@ int launch_ball_query(const float* xyz, const float* new_xyz,
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (allowed[device] == 0) {
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ball_query_kernel<kR>);
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int most = kSmemPerBlock - static_cast<int>(attr.sharedSizeBytes);
-    err = cudaFuncSetAttribute(ball_query_kernel<kR>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                most);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -346,9 +464,13 @@ int launch_ball_query(const float* xyz, const float* new_xyz,
   if (bytes > static_cast<size_t>(allowed[device]))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + Q - 1) / Q, B);
-  ball_query_kernel<kR><<<grid, kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, N, S, Q, L, tile, walk != 0, radii);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (kGroup)
+    kernel<<<grid, kThreads, bytes, s>>>(xyz, new_xyz, N, S, Q, L, tile,
+                                         walk != 0, radii, epi);
+  else
+    kernel<<<grid, kThreads, bytes, s>>>(xyz, new_xyz, N, S, Q, L, tile,
+                                         walk != 0, radii);
   return tumseg::last_error();
 }
 

@@ -47,9 +47,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 // centre (0 on channels 3+). An f32 output stores it as it is. A bf16 output
 // is the fast mode of tumseg/ops/pallas/group.py:33-48,104-107: the source is
 // rounded to bf16 (its one-hot contraction is then exact), the centre
-// subtracted in f32, and the difference stored rounded to bf16. group.cu
-// (through grouped_value, in 16-byte vectors) and fused_ball_group.cu
-// (through store_grouped) both compute it here.
+// subtracted in f32, and the difference stored rounded to bf16. group.cu and
+// the fused ball query + group (ball_query.cuh's grouping epilogue) both
+// compute it here and store it through write_grouped_span below.
 template <typename T>
 __device__ T grouped_value(float v, float centre);
 template <>
@@ -61,77 +61,85 @@ __device__ __forceinline__ __nv_bfloat16
 grouped_value<__nv_bfloat16>(float v, float centre) {
   return __float2bfloat16_rn(bf16_round(v) - centre);
 }
-template <typename T>
-__device__ __forceinline__ void store_grouped(T* out, float v, float centre) {
-  *out = grouped_value<T>(v, centre);
-}
 
-// The block's neighbour table for the interpolation tail below: one row per
-// thread.
-template <int kThreads>
-struct NeighbourTile {
-  int idx[kThreads][3];
-  float w[kThreads][3];
-  long long row[kThreads];
+// 16 bytes of a grouped output: 4 f32 or 8 bf16 elements, packed for one
+// store.
+template <typename T>
+struct GroupedVector;
+template <>
+struct GroupedVector<float> {
+  static constexpr int kSize = 4;
+  static __device__ __forceinline__ float4 pack(const float (&v)[4]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct GroupedVector<__nv_bfloat16> {
+  static constexpr int kSize = 8;
+  static __device__ __forceinline__ unsigned pack(__nv_bfloat16 lo,
+                                                  __nv_bfloat16 hi) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+           (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint4 pack(const __nv_bfloat16 (&v)[8]) {
+    return make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]),
+                      pack(v[6], v[7]));
+  }
 };
 
-// The tail shared by the 3-NN kernels. Each thread of the block holds one
-// query's three nearest sources (d0 <= d1 <= d2, indices i0..i2); `row` is
-// the query's row b*N + n in the outputs and the block's queries are its
-// threads 0..nq-1. Writes dists [.., 3] and idx [.., 3] at that row, then
-// the inverse-distance interpolation of the batch row's points2 `p2` [S, D]
-// into out [.., D], d fastest so stores coalesce and each gathered source
-// row is read contiguously. Weights follow tumseg/ops/__init__.py:323-324:
-// r = 1/(d + 1e-8), w = r / ((r0 + r1) + r2); out = (w0*p[i0] + w1*p[i1]) +
-// w2*p[i2], IEEE divisions. `fast` is the single bf16 MXU pass of
-// tumseg/ops/pallas/interpolate.py:136-148 at Precision.DEFAULT: w and p are
-// rounded to bf16 first, so each product is exact and the sum is f32. Every
-// thread of the block must call it.
-template <int kThreads>
-__device__ __forceinline__ void three_nn_interpolate_tail(
-    NeighbourTile<kThreads>& tile, bool valid, long long row, float d0,
-    float d1, float d2, int i0, int i1, int i2, const float* __restrict__ p2,
-    float* __restrict__ dists, int* __restrict__ idx, float* __restrict__ out,
-    int nq, int D, bool fast) {
-  const float eps = static_cast<float>(1e-8);  // f32 rounding of the double
-  const float r0 = 1.0f / (d0 + eps);
-  const float r1 = 1.0f / (d1 + eps);
-  const float r2 = 1.0f / (d2 + eps);
-  const float norm = (r0 + r1) + r2;
-  float w0 = r0 / norm, w1 = r1 / norm, w2 = r2 / norm;
-  if (fast) {
-    w0 = bf16_round(w0);
-    w1 = bf16_round(w1);
-    w2 = bf16_round(w2);
-  }
-  tile.idx[threadIdx.x][0] = i0;
-  tile.idx[threadIdx.x][1] = i1;
-  tile.idx[threadIdx.x][2] = i2;
-  tile.w[threadIdx.x][0] = w0;
-  tile.w[threadIdx.x][1] = w1;
-  tile.w[threadIdx.x][2] = w2;
-  tile.row[threadIdx.x] = row;
-  if (valid) {
-    dists[row * 3] = d0;
-    dists[row * 3 + 1] = d1;
-    dists[row * 3 + 2] = d2;
-    idx[row * 3] = i0;
-    idx[row * 3 + 1] = i1;
-    idx[row * 3 + 2] = i2;
-  }
-  __syncthreads();
+// t / C for 0 <= t < a span's length: the multiply-high is exact there
+// when magic != 0 (the caller leaves it 0 where it would not be; see
+// ops/kernels.py:group_geometry).
+__device__ __forceinline__ int div_c(int t, int C, unsigned magic) {
+  return magic ? static_cast<int>(__umulhi(static_cast<unsigned>(t), magic))
+               : t / C;
+}
 
-  for (int t = threadIdx.x; t < nq * D; t += kThreads) {
-    const int q = t / D;
-    const int c = t - q * D;
-    float p[3];
+// Writes the span [0, len) of a grouped output [rows, C] that starts at
+// element `base` of an output 16-byte aligned (span = out + base): element
+// t is (row, c) = divmod(t, C) (div_c with `magic`) and holds
+// value(row, c), a T. Lanes 0..lanes-1 (`lane` this thread's) write 16
+// bytes at a time (4 f32 or 8 bf16 elements, 16-byte aligned, each
+// vector's first (row, c) by one division and the rest by stepping c); the
+// span's ragged head and tail, where its ends are not on a 16-byte
+// boundary, take scalar stores. kStream marks the vectors evict-first in
+// L2 (st.global.cs), so that an output larger than the L2 does not evict
+// the sources its gathers read.
+template <bool kStream = false, typename T, typename Value>
+__device__ __forceinline__ void write_grouped_span(T* __restrict__ span,
+                                                   long long base, int len,
+                                                   int C, unsigned magic,
+                                                   int lane, int lanes,
+                                                   Value value) {
+  constexpr int V = GroupedVector<T>::kSize;
+  const int head = min(static_cast<int>((V - base % V) % V), len);
+  const int nvec = (len - head) / V;
+  for (int j = lane; j < nvec; j += lanes) {
+    const int t = head + j * V;
+    int row = div_c(t, C, magic);
+    int c = t - row * C;
+    T v[V];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      p[k] = p2[static_cast<size_t>(tile.idx[q][k]) * D + c];
-      if (fast) p[k] = bf16_round(p[k]);
+    for (int e = 0; e < V; ++e) {
+      v[e] = value(row, c);
+      if (++c == C) {
+        c = 0;
+        ++row;
+      }
     }
-    out[tile.row[q] * D + c] =
-        (p[0] * tile.w[q][0] + p[1] * tile.w[q][1]) + p[2] * tile.w[q][2];
+    using Packed = decltype(GroupedVector<T>::pack(v));
+    Packed* to = reinterpret_cast<Packed*>(span + t);
+    if constexpr (kStream)
+      __stcs(to, GroupedVector<T>::pack(v));
+    else
+      *to = GroupedVector<T>::pack(v);
+  }
+  const int tail = head + nvec * V;
+  const int ragged = head + (len - tail);
+  for (int j = lane; j < ragged; j += lanes) {
+    const int t = j < head ? j : tail + (j - head);
+    const int row = div_c(t, C, magic);
+    span[t] = value(row, t - row * C);
   }
 }
 

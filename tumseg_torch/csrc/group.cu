@@ -41,44 +41,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 1024;  // ops/kernels.py:GROUP_MAX_ROWS
 
-// 16 bytes of output: 4 f32 or 8 bf16 elements.
-template <typename T>
-struct Vector;
-template <>
-struct Vector<float> {
-  static constexpr int kSize = 4;
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <>
-struct Vector<__nv_bfloat16> {
-  static constexpr int kSize = 8;
-  static __device__ __forceinline__ unsigned pack(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-    return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
-           (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const __nv_bfloat16 (&v)[8]) {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]),
-                   pack(v[6], v[7]));
-  }
-};
-
 // The rows of one block.
 struct Rows {
   int src[kMaxRows];  // b*N + n, or -1: the row reads zeros
   float centre[kMaxRows][3];
 };
-
-// t / C for 0 <= t < the block's span: the multiply-high is exact there
-// when magic != 0 (the wrapper leaves it 0 where it would not be).
-__device__ __forceinline__ int div_c(int t, int C, unsigned magic) {
-  return magic ? static_cast<int>(__umulhi(static_cast<unsigned>(t), magic))
-               : t / C;
-}
 
 template <typename T>
 __device__ __forceinline__ T element(const Rows& rows,
@@ -111,34 +78,10 @@ group_kernel(const int* __restrict__ idx, const float* __restrict__ src,
   }
   __syncthreads();
 
-  constexpr int V = Vector<T>::kSize;
   const long long base = static_cast<long long>(r0) * C;
-  T* span = out + base;
-  const int len = nrows * C;
-  const int head = min(static_cast<int>((V - base % V) % V), len);
-  const int nvec = (len - head) / V;
-  for (int j = threadIdx.x; j < nvec; j += kThreads) {
-    const int t = head + j * V;
-    int row = div_c(t, C, magic);
-    int c = t - row * C;
-    T v[V];
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      v[e] = element<T>(rows, src, row, c, C);
-      if (++c == C) {
-        c = 0;
-        ++row;
-      }
-    }
-    Vector<T>::store(span + t, v);
-  }
-  const int tail = head + nvec * V;
-  const int ragged = head + (len - tail);
-  for (int j = threadIdx.x; j < ragged; j += kThreads) {
-    const int t = j < head ? j : tail + (j - head);
-    const int row = div_c(t, C, magic);
-    span[t] = element<T>(rows, src, row, t - row * C, C);
-  }
+  tumseg::write_grouped_span(
+      out + base, base, nrows * C, C, magic, threadIdx.x, kThreads,
+      [&](int row, int c) { return element<T>(rows, src, row, c, C); });
 }
 
 template <typename T>

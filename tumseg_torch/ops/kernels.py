@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from tumseg_torch.ops import build, core
+from tumseg_torch.ops import build
 
 KERNELS = ("fps", "ball_query", "ball_query_multi", "group",
            "three_nn_interpolate", "group_backward", "interpolate_backward",
@@ -184,6 +184,32 @@ def ball_query_geometry(B: int, N: int, S: int,
     while L < 32 and ball_query_smem(tile, Q, L, R) > BALL_QUERY_SMEM:
         L *= 2
     return Q, L, tile, int(N >= BALL_QUERY_WALK_N)
+
+
+def fused_chunk(tile: int, Q: int, L: int) -> int:
+    """Rows (b, s, k) the grouping epilogue of csrc/fused_ball_group.cu
+    stages at a time (``group_chunk`` of csrc/ball_query.cuh): a source
+    row and a query, 8 bytes each, in the shared memory that the tile and
+    the groups' masks held (the block's dynamic shared memory less its Q
+    queries' counts and coordinates)."""
+    return (ball_query_smem(tile, Q, L, 1) - 16 * Q) // 8
+
+
+@functools.lru_cache(maxsize=None)
+def fused_geometry(B: int, N: int, S: int,
+                   C: int) -> Tuple[int, int, int, int, int]:
+    """-> (Q, L, tile, walk, magic) of csrc/fused_ball_group.cu for B rows
+    of S queries over N sources grouping C channels: the single-radius ball
+    query's geometry (:func:`ball_query_geometry`), and the multiply-high
+    constant that splits a position t < chunk * C of the grouping
+    epilogue's span into (row, c), chunk the block's :func:`fused_chunk`
+    (2^32 // C + 1 where (chunk * C - 1) * C < 2^32, as
+    :func:`group_geometry`'s, else 0: the kernel divides). Retune from
+    ``tumseg_torch/tools/ball_query_probe.py --fused``."""
+    Q, L, tile, walk = ball_query_geometry(B, N, S, 1)
+    chunk = fused_chunk(tile, Q, L)
+    magic = 2 ** 32 // C + 1 if (chunk * C - 1) * C < 2 ** 32 else 0
+    return Q, L, tile, walk, magic
 
 
 def group_backward_tiles(B: int, N: int, C: int) -> Tuple[int, int]:
@@ -385,7 +411,9 @@ def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
     """xyz [B, N, 3], new_xyz [B, S, 3], src [B, N, C] f32 (C >= 3, xyz
     first) -> (grouped [B, S, nsample, C] f32, or bf16 with ``fast``;
     idx [B, S, nsample] int32): :func:`query_ball_point` and
-    :func:`group_points` of the same mode in one launch, bit for bit."""
+    :func:`group_points` of the same mode in one launch, bit for bit
+    (csrc/fused_ball_group.cu: the ball-query walk of csrc/ball_query.cuh
+    with a grouping epilogue)."""
     _check("xyz", xyz, torch.float32, (None, None, 3))
     B, N, _ = xyz.shape
     _check("new_xyz", new_xyz, torch.float32, (B, None, 3))
@@ -402,7 +430,7 @@ def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
     r2 = float(radius) * float(radius)  # rounded to f32 by ctypes
     _launch("fused_ball_group", "tumseg_fused_ball_group", device, _ptr(xyz),
             _ptr(new_xyz), _ptr(src), _ptr(grouped), _ptr(idx), B, N, S,
-            nsample, C, r2, fast=fast)
+            nsample, C, r2, *fused_geometry(B, N, S, C), fast=fast)
     return grouped, idx
 
 
@@ -435,11 +463,13 @@ def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
                                 n_tile: int = 256, fast: bool = False):
     """xyz1 [B, N, 3], xyz2 [B, S, 3], points2 [B, S, D] f32 -> (dists
     [B, N, 3] f32, idx [B, N, 3] int32, out [B, N, D] f32): the z-window
-    3-NN of ``core.three_nn_windowed`` and the interpolation, one launch.
-    The z-sorts, window starts and the largest source norm are computed
-    here in torch; where ``core.window_plan`` gives no window the kernel
-    runs as the full expansion-form row kernel. ``fast`` as in
-    :func:`three_nn_interpolate`."""
+    3-NN of ``core.three_nn_windowed`` and the interpolation, one launch of
+    csrc/three_nn_window.cu and no torch op besides the outputs. The
+    windowed answer is the full expansion-form row's for every query (the
+    guard sends the queries a window could miss to the full form), so the
+    kernel searches the row by three_nn.cuh's z-slab walk in the expansion
+    form; ``window`` and ``n_tile`` shape only the plain version, not the
+    launch. ``fast`` as in :func:`three_nn_interpolate`."""
     _check("xyz1", xyz1, torch.float32, (None, None, 3))
     B, N, _ = xyz1.shape
     _check("xyz2", xyz2, torch.float32, (B, None, 3))
@@ -452,31 +482,16 @@ def three_nn_window_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     dists = torch.empty((B, N, 3), dtype=torch.float32, device=device)
     idx = torch.empty((B, N, 3), dtype=torch.int32, device=device)
     out = torch.empty((B, N, D), dtype=torch.float32, device=device)
-    plan = core.window_plan(N, S, window, n_tile)
-    null = ctypes.c_void_p(None)
-    if plan is None:
-        sorted_args = (null,) * 5
-        C, n_tile = S, N
-    else:
-        C, n_tile = plan
-        srt, sorder = core.sort_by_z(xyz2)
-        qs, qorder = core.sort_by_z(xyz1)
-        starts = core.window_starts(srt[..., 2].contiguous(),
-                                    qs[..., 2].contiguous(), n_tile, C)
-        ssq_max = core._sqnorm(srt).amax(1)
-        keep = tuple(t.contiguous()
-                     for t in (srt, sorder, qorder, starts, ssq_max))
-        sorted_args = tuple(_ptr(t) for t in keep)
     _launch("three_nn_window", "tumseg_three_nn_window", device, _ptr(xyz1),
-            _ptr(xyz2), *sorted_args, _ptr(points2), _ptr(dists), _ptr(idx),
-            _ptr(out), B, N, S, D, C, n_tile, fast=fast)
+            _ptr(xyz2), _ptr(points2), _ptr(dists), _ptr(idx), _ptr(out), B,
+            N, S, D, *three_nn_geometry(B, N, D), fast=fast)
     return dists, idx, out
 
 
 def three_nn_expansion(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """xyz1 [B, N, 3], xyz2 [B, S, 3] f32 -> (dists [B, N, 3] f32, idx
-    [B, N, 3] int32) of ``core.three_nn_expansion``: the window kernel run
-    as the full row kernel, with nothing to interpolate."""
+    [B, N, 3] int32) of ``core.three_nn_expansion``: the window kernel
+    with nothing to interpolate (D = 0)."""
     _check("xyz2", xyz2, torch.float32, (None, None, 3))
     empty = xyz2.new_empty(xyz2.shape[0], xyz2.shape[1], 0)
     dists, idx, _ = three_nn_window_interpolate(xyz1, xyz2, empty,

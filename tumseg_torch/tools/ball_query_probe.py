@@ -4,6 +4,7 @@ layer's) on one NVIDIA GPU:
 
     python3 -m tumseg_torch.tools.ball_query_probe [--out DIR]
     PYTHONPATH=. python3 PATH/TO/ball_query_probe.py --stages
+    PYTHONPATH=. python3 PATH/TO/ball_query_probe.py --fused [--out DIR]
 
 from the root of a checkout (it takes the facade blocks and the timers of
 that checkout's ``chip_smoke.py``). ``--stages`` only times the wrappers
@@ -27,6 +28,19 @@ prints, and writes to ``DIR/ball_query_probe.json`` (``DIR`` defaults to
    profiler device ms, beside the geometry ``kernels.ball_query_geometry``
    picks, which is also timed at r = 0 (the tile's staging and one slab a
    query: what the staging costs).
+
+``--fused`` probes the fused ball query + group instead
+(``csrc/fused_ball_group.cu``, the same walk with a grouping epilogue;
+:func:`fused_probe`), and writes ``DIR/fused_probe.json``: ``-Xptxas -v``
+of ``fused_ball_group.cu`` (its SASS into ``DIR/fused_sass.txt``); at
+sa1-sa4 of the B=32 forward (C = 9, 67, 131, 259), each checked bitwise
+against the split pair and the plain version first in both modes, device
+ms of the fused kernel (exact, fast) beside the split pair's (ball query
+then group), the ball query's and the group's alone, its event ms, the
+candidates its walk tests and its bound; and, where the checkout has
+``kernels.fused_geometry``, each candidate geometry's device ms. Run from
+another checkout's root with this file's path, it probes that checkout's
+kernel (through its wrapper).
 
 The module also holds the inputs the CPU and card tests share
 (:func:`stage_inputs`, :func:`adversarial_cases`).
@@ -386,10 +400,10 @@ def candidates(B, N, S, R):
     return list(dict.fromkeys(fits))
 
 
-def ptxas_report() -> str:
+def ptxas_report(names=("ball_query", "ball_query_multi")) -> str:
     OUT.mkdir(parents=True, exist_ok=True)
     report = ""
-    for name in ("ball_query", "ball_query_multi"):
+    for name in names:
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                "-o", str(OUT / f"{name}.o"), str(build.CSRC / f"{name}.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -397,6 +411,135 @@ def ptxas_report() -> str:
             raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
         report += res.stdout + res.stderr
     return report
+
+
+def fused_at(xyz, new_xyz, src, r, K, geometry, fast=False):
+    """The fused kernel at an explicit (Q, L, tile, walk, magic)."""
+    B, N, _ = xyz.shape
+    S, C = new_xyz.shape[1], src.shape[2]
+    dev = xyz.device
+    grouped = torch.empty((B, S, K, C), device=dev,
+                          dtype=torch.bfloat16 if fast else torch.float32)
+    idx = torch.empty((B, S, K), dtype=torch.int32, device=dev)
+    kernels._launch("fused_ball_group", "tumseg_fused_ball_group", dev,
+                    xyz.data_ptr(), new_xyz.data_ptr(), src.data_ptr(),
+                    grouped.data_ptr(), idx.data_ptr(), B, N, S, K, C,
+                    float(r) * float(r), *geometry, fast=fast)
+    return grouped, idx
+
+
+def fused_candidates(B, N, S, C):
+    """:func:`candidates` of one radius, each with its magic
+    (``kernels.fused_geometry``'s rule)."""
+    out = []
+    for Q, L, tile, walk in candidates(B, N, S, 1):
+        chunk = kernels.fused_chunk(tile, Q, L)
+        magic = 2 ** 32 // C + 1 if (chunk * C - 1) * C < 2 ** 32 else 0
+        out.append((Q, L, tile, walk, magic))
+    return out
+
+
+def fused_probe(dev, dump) -> None:
+    """``--fused`` (the module docstring)."""
+    from chip_smoke import SA_CHANNELS, device_ms, time_ms
+
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+
+    result = {"stages": [], "geometry": []}
+    report = ptxas_report(("fused_ball_group",))
+    print("[ptxas]\n" + "\n".join(
+        line for line in report.splitlines()
+        if "registers" in line or "spill" in line or "Compiling" in line))
+    build.library()
+    sweep = hasattr(kernels, "fused_geometry")
+    rng = np.random.default_rng(3)
+    total = {}
+    B = 32
+    for lvl, (xyz, new_xyz, radii, ks) in enumerate(levels(dev, B)):
+        N, S, C = xyz.shape[1], new_xyz.shape[1], SA_CHANNELS[lvl]
+        r, K = radii[0], ks[0]
+        src = torch.cat([xyz, torch.as_tensor(rng.standard_normal(
+            (B, N, C - 3)).astype(np.float32), device=dev)], -1)
+        stage = f"sa{lvl + 1} N={N} S={S} C={C}"
+
+        def split(fast):
+            return kernels.group_points(kernels.query_ball_point(
+                r, K, xyz, new_xyz), src, new_xyz, fast)
+
+        for fast in (False, True):
+            g, i = kernels.fused_ball_group(r, K, xyz, new_xyz, src, fast)
+            pg, pi = core.fused_ball_group(r, K, xyz, new_xyz, src, fast)
+            if not (torch.equal(i, pi) and torch.equal(g, pg)
+                    and torch.equal(g, split(fast))):
+                raise AssertionError(f"fused {stage} fast={fast}: not "
+                                     "bitwise the split pair and plain")
+        _, tested = walk_model(xyz.cpu().numpy(), new_xyz.cpu().numpy(),
+                               radii, ks)
+        nbytes = 4 * (B * N * 3 + B * S * 3 + B * N * C + B * S * K
+                      + B * S * K * C)
+        bound = max(nbytes / 3.35e12, (9 * tested + 3 * B * S * K)
+                    / 67e12) * 1e3
+        idx = kernels.query_ball_point(r, K, xyz, new_xyz)
+        ev, runs = time_ms(torch, lambda: kernels.fused_ball_group(
+            r, K, xyz, new_xyz, src), 20)
+        row = dict(stage=f"sa{lvl + 1}", event_ms=ev, bound_ms=bound,
+                   tested=tested)
+        for key, fn in (
+                ("fused_ms", lambda: kernels.fused_ball_group(
+                    r, K, xyz, new_xyz, src)),
+                ("fused_fast_ms", lambda: kernels.fused_ball_group(
+                    r, K, xyz, new_xyz, src, True)),
+                ("split_ms", lambda: split(False)),
+                ("split_fast_ms", lambda: split(True)),
+                ("ball_query_ms", lambda: kernels.query_ball_point(
+                    r, K, xyz, new_xyz)),
+                ("group_ms", lambda: kernels.group_points(
+                    idx, src, new_xyz)),
+                ("group_fast_ms", lambda: kernels.group_points(
+                    idx, src, new_xyz, True))):
+            row[key] = device_ms(torch, fn, 20)
+            total[key] = (None if row[key] is None or total.get(key, 0.0)
+                          is None else total.get(key, 0.0) + row[key])
+        result["stages"].append(row)
+        print(f"[fused] B={B} {stage}: fused device {ms(row['fused_ms'])} "
+              f"(fast {ms(row['fused_fast_ms'])}), event {ev:.4f} ms "
+              f"{[round(v, 4) for v in runs]}; split pair "
+              f"{ms(row['split_ms'])} (fast {ms(row['split_fast_ms'])}) = "
+              f"ball query {ms(row['ball_query_ms'])} + group "
+              f"{ms(row['group_ms'])} (fast {ms(row['group_fast_ms'])}); "
+              f"{tested / (B * S):.1f} candidates a query, bound "
+              f"{bound:.5f} ms ({nbytes / 1e6:.1f} MB)")
+        if not sweep:
+            continue
+        chosen = kernels.fused_geometry(B, N, S, C)
+        for geometry in fused_candidates(B, N, S, C):
+            for fast in (False, True):
+                g, i = fused_at(xyz, new_xyz, src, r, K, geometry, fast)
+                if not (torch.equal(i, idx) and torch.equal(g, split(fast))):
+                    raise AssertionError(f"fused {stage} {geometry}: not "
+                                         "bitwise the split pair")
+            dms = device_ms(torch, lambda: fused_at(
+                xyz, new_xyz, src, r, K, geometry), 20)
+            fms = device_ms(torch, lambda: fused_at(
+                xyz, new_xyz, src, r, K, geometry, True), 20)
+            mark = " <- fused_geometry" if geometry == chosen else ""
+            print(f"[geometry] fused {stage} (Q, L, tile, walk, magic) "
+                  f"{geometry}: device {ms(dms)}, fast {ms(fms)}{mark}")
+            result["geometry"].append(dict(
+                stage=f"sa{lvl + 1}", geometry=list(geometry),
+                device_ms=dms, fast_ms=fms, chosen=bool(mark)))
+    result["total"] = total
+    print("[fused] B=32 sa1-sa4 device: " + ", ".join(
+        f"{k} {ms(v)}" for k, v in total.items()))
+    dump.mkdir(parents=True, exist_ok=True)
+    (dump / "fused_probe.json").write_text(json.dumps(result, indent=1))
+    (dump / "fused_ptxas.txt").write_text(report)
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    (dump / "fused_sass.txt").write_text(subprocess.run(
+        [cuobjdump, "-sass", str(OUT / "fused_ball_group.o")],
+        capture_output=True, text=True).stdout)
+    print("ball_query_probe --fused: ok")
 
 
 def main() -> int:
@@ -407,8 +550,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    if "--stages" in sys.argv[1:]:
+    args = sys.argv[1:]
+    dump = Path(args[args.index("--out") + 1]) if "--out" in args else OUT
+    if "--stages" in args:
         stages(dev)
+        return 0
+    if "--fused" in args:
+        fused_probe(dev, dump)
         return 0
     from chip_smoke import device_ms
 
@@ -461,8 +609,6 @@ def main() -> int:
                         geometry=list(geometry), device_ms=dms,
                         chosen=bool(mark)))
 
-    args = sys.argv[1:]
-    dump = Path(args[args.index("--out") + 1]) if "--out" in args else OUT
     dump.mkdir(parents=True, exist_ok=True)
     (dump / "ball_query_probe.json").write_text(json.dumps(result, indent=1))
     (dump / "ball_query_probe_ptxas.txt").write_text(report)

@@ -1,8 +1,11 @@
-"""Probe of the 3-NN + interpolation kernel (``csrc/three_nn_interpolate.cu``)
-on one NVIDIA GPU:
+"""Probe of the 3-NN + interpolation kernels (``csrc/three_nn.cuh``: the
+direct form, ``three_nn_interpolate.cu``, and the expansion form,
+``three_nn_window.cu``) on one NVIDIA GPU:
 
     python3 -m tumseg_torch.tools.three_nn_probe [--out DIR]
     PYTHONPATH=. python3 PATH/TO/three_nn_probe.py --stages
+    PYTHONPATH=. python3 PATH/TO/three_nn_probe.py --window [--out DIR]
+    python3 -m tumseg_torch.tools.three_nn_probe --sass-against OTHER_ROOT
 
 from the root of a checkout (it takes the facade blocks and the timers of
 that checkout's ``chip_smoke.py``). ``--stages`` only times the wrapper of
@@ -26,11 +29,34 @@ two trees compare in one call. Without it the probe prints, and writes to
 3. the candidates the kernel's search tests at each stage, counted by
    :func:`walk_model` (numpy, on the host) on the same facade blocks: the
    work of the search on these inputs, for its bound.
+
+``--window`` probes the expansion form instead (``window_probe``), and
+writes ``DIR/three_nn_window_probe.json``: ``-Xptxas -v`` of
+``three_nn_window.cu`` (its SASS into ``DIR/three_nn_window_sass.txt``);
+the candidates its walk tests at fp1-fp4 of B=32 beside the direct form's
+(:func:`walk_model`, checked against the plain expansion form); at each
+stage the kernel through ``kernels.three_nn_window_interpolate`` (the
+window ``ops`` takes at fp1, the full row elsewhere), checked bitwise
+against the plain version first, with CUDA-event and device ms, fast and
+search-alone (D = 0) device ms beside the direct-form kernel's device ms,
+and the wrapper's host time a call; and every input of
+:func:`window_cases` bitwise. Run from another checkout's root with this
+file's path, it probes that checkout's kernel.
+
+``--sass-against OTHER_ROOT`` compiles the kernels that share
+``three_nn.cuh``, ``ball_query.cuh`` and ``common.cuh``'s grouping code
+(``three_nn_interpolate.cu``, ``ball_query.cu``, ``ball_query_multi.cu``,
+``group.cu``) in this checkout and in the one at OTHER_ROOT, and prints for
+each file whether every kernel's SASS, names stripped, is the same
+(:func:`sass_bodies`), with each side's ``-Xptxas -v`` registers and
+spills: a refactor of shared code that must leave a kernel unchanged is
+checked so.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -161,22 +187,40 @@ def _top3(d, ids):
     return np.concatenate(out_d, 1), np.concatenate(out_i, 1)
 
 
-def walk_model(xyz1, xyz2):
-    """csrc/three_nn_interpolate.cu's search in numpy f32: each tile of
-    ``THREE_NN_TILE`` sources split into z-slabs by the kernel's f32
-    arithmetic, each query testing its own slab, then the slabs above and
-    below in turn, each direction stopping at the first non-empty slab
-    whose nearest z gives fl(dz*dz) above the query's third distance,
-    entries kept by (distance, index). -> (dists [B, N, 3] f32, idx
-    [B, N, 3] int32, the candidates tested)."""
+def _sqnorm(p):
+    """[..., 3] f32 -> (x*x + y*y) + z*z, every product rounded."""
+    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) \
+        + p[..., 2] * p[..., 2]
+
+
+# the expansion form's walk stops where fl(dz*dz) > d2 + slack, slack =
+# ((1 + qsq) + the largest ssq of the tiles so far) * 2^-19 (three_nn.cuh)
+SLACK = np.float32(2.0 ** -19)
+
+
+def walk_model(xyz1, xyz2, form="direct"):
+    """csrc/three_nn.cuh's search in numpy f32, in the direct form
+    (three_nn_interpolate.cu) or the expansion form (three_nn_window.cu):
+    each tile of ``THREE_NN_TILE`` sources split into z-slabs by the
+    kernel's f32 arithmetic, each query testing its own slab, then the
+    slabs above and below in turn, each direction stopping at the first
+    non-empty slab whose nearest z gives fl(dz*dz) above the query's
+    limit (its third distance; in the expansion form plus the slack of
+    :data:`SLACK`), entries kept by (distance, index). -> (dists [B, N, 3]
+    f32, idx [B, N, 3] int32, the candidates tested)."""
     B, N, _ = xyz1.shape
     S = xyz2.shape[1]
     f32 = np.float32
+    expansion = form == "expansion"
+    if form not in ("direct", "expansion"):
+        raise ValueError(f"form is direct or expansion, got {form!r}")
     dists = np.empty((B, N, 3), f32)
     idx = np.empty((B, N, 3), np.int32)
     tested = 0
     for b in range(B):
         q = xyz1[b]
+        qsq = _sqnorm(q)
+        ssq_max = f32(0)
         bd = np.full((N, 3), np.inf, f32)
         bi = np.tile(np.arange(S, S + 3), (N, 1))        # unfilled: past S
         for base in range(0, S, kernels.THREE_NN_TILE):
@@ -198,9 +242,19 @@ def walk_model(xyz1, xyz2):
             hi = np.full(n, -np.inf, f32)
             np.minimum.at(lo, ks, z)
             np.maximum.at(hi, ks, z)
-            diff = tile[None, :, :] - q[:, None, :]          # [N, m, 3]
-            sq = diff * diff
-            dist = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+            if expansion:
+                ssq = _sqnorm(tile)
+                ssq_max = max(ssq_max, ssq.max())
+                slack = ((f32(1) + qsq) + ssq_max) * SLACK
+                cross = ((q[:, None, 0] * tile[None, :, 0]
+                          + q[:, None, 1] * tile[None, :, 1])
+                         + q[:, None, 2] * tile[None, :, 2])
+                dist = (qsq[:, None] + ssq[None, :]) - f32(2) * cross
+            else:
+                slack = f32(0)
+                diff = tile[None, :, :] - q[:, None, :]      # [N, m, 3]
+                sq = diff * diff
+                dist = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
             ids = base + np.arange(m)
             masked = 2 * S + 8 + np.arange(m)   # unique, never chosen
 
@@ -225,7 +279,8 @@ def walk_model(xyz1, xyz2):
                     at = np.clip(walk[step], 0, n - 1)
                     full = go[step] & (count[at] > 0)
                     dz = edge[at] - q[:, 2]
-                    stop = full & (dz * dz > bd[:, 2])
+                    limit = bd[:, 2] + slack if expansion else bd[:, 2]
+                    stop = full & (dz * dz > limit)
                     tested += visit(at, full & ~stop)
                     go[step] &= ~stop
                     walk[step] = np.where(go[step], walk[step] + step,
@@ -235,15 +290,236 @@ def walk_model(xyz1, xyz2):
     return dists, idx, tested
 
 
-def ptxas_report() -> str:
+def bf16_round(a):
+    """f32 -> nearest bf16 (ties to even) -> f32, as __float2bfloat16_rn."""
+    u = a.astype(np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def interpolation_model(dists, idx, points2, fast):
+    """csrc/three_nn.cuh's weights (once a query) and row sums in numpy
+    f32, both modes: -> out [B, N, D]."""
+    eps = np.float32(1e-8)
+    r = np.float32(1) / (dists + eps)
+    w = r / ((r[..., 0:1] + r[..., 1:2]) + r[..., 2:3])
+    p = points2
+    if fast:
+        w, p = bf16_round(w), bf16_round(p)
+    rows = np.take_along_axis(p[:, None, :, :], idx[..., None].astype(
+        np.int64), axis=2)                   # [B, N, 3, D]
+    return ((rows[:, :, 0] * w[..., 0:1] + rows[:, :, 1] * w[..., 1:2])
+            + rows[:, :, 2] * w[..., 2:3])
+
+
+def window_cases():
+    """[(name, xyz1 [B, N, 3], xyz2 [B, S, 3])] f32, small, the inputs the
+    expansion form's walk must survive (tests/test_torch_window_walk.py and
+    the card tests share them): facade blocks; half the sources on one z
+    (tumseg's "mixed": some of its tiles fail the window guard); every point
+    on one z (all fail; the walk becomes a full scan); queries on top of
+    sources a few metres from the origin, one of them at three indices
+    (expansion distances below 0, the third among them); coordinates tens
+    of metres out (qsq ~ 1e3, where the slack matters); an integer lattice
+    (ties everywhere); sources past one tile (S = 1100 and 2100, d2
+    carried across tiles)."""
+    rng = np.random.default_rng(21)
+
+    def facade(b, n, z0=0.0):
+        wall = rng.random((b, n)) < 0.7
+        return np.stack([rng.uniform(-0.5, 0.5, (b, n)),
+                         np.where(wall, rng.normal(0.0, 0.02, (b, n)),
+                                  rng.uniform(-0.5, 0.5, (b, n))),
+                         z0 + rng.uniform(0.0, 10.0, (b, n))],
+                        -1).astype(np.float32)
+
+    def pick(xyz, s):
+        return np.ascontiguousarray(xyz[:, rng.permutation(xyz.shape[1])[:s]])
+
+    cases = []
+    x1 = facade(2, 512)
+    cases.append(("facade", x1, pick(x1, 256)))
+    x2 = pick(x1, 256).copy()
+    x2[:, :128, 2] = np.float32(5.0)
+    cases.append(("mixed", x1, x2))
+    flat = rng.random((2, 300, 3)).astype(np.float32)
+    flat[..., 2] = np.float32(2.5)
+    cases.append(("one_z", flat, np.ascontiguousarray(flat[:, :130])))
+    src = (rng.random((2, 200, 3)) * 4 + np.float32(3.0)).astype(np.float32)
+    src[:, 8:10] = src[:, 7:8]        # one source at three indices
+    on = np.concatenate([src[:, :60], (src[:, :60] + rng.normal(
+        0, 1e-4, (2, 60, 3))).astype(np.float32)], 1)
+    cases.append(("negative", on, src))
+    far = facade(2, 400) + np.float32(20.0)
+    cases.append(("far", far, pick(far, 160)))
+    lattice = rng.integers(0, 4, (2, 300, 3)).astype(np.float32)
+    cases.append(("lattice", lattice, rng.integers(0, 4, (2, 100, 3)).astype(
+        np.float32)))
+    for s in (1100, 2100):
+        big = facade(1, 3 * s // 2)
+        cases.append((f"past_tile_{s}", pick(big, 300), pick(big, s)))
+    return cases
+
+
+def ptxas_report(name="three_nn_interpolate") -> str:
     OUT.mkdir(parents=True, exist_ok=True)
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-           str(OUT / "three_nn_interpolate.o"),
-           str(build.CSRC / "three_nn_interpolate.cu")]
+           str(OUT / f"{name}.o"), str(build.CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
     return res.stdout + res.stderr
+
+
+def _ptxas_lines(report):
+    return "\n".join(line for line in report.splitlines()
+                     if "registers" in line or "spill" in line
+                     or "Compiling" in line)
+
+
+SHARED = ("three_nn_interpolate", "ball_query", "ball_query_multi", "group")
+
+
+def sass_bodies(sass: str) -> list:
+    """``cuobjdump -sass`` text -> the sorted instruction lists of its
+    kernels, names and addresses stripped."""
+    funcs, cur = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = []
+            funcs.append(cur)
+        elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line.split(";")[0])
+            if ins.strip():
+                cur.append(ins.strip())
+    return sorted(funcs)
+
+
+def sass_against(other: Path) -> None:
+    """``--sass-against`` (the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+
+    def compile_(side, csrc, name):
+        obj = OUT / f"{side}_{name}.o"
+        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas",
+                              "-v", "-c", "-o", str(obj),
+                              str(csrc / f"{name}.cu")],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+        sass = subprocess.run([cuobjdump, "-sass", str(obj)],
+                              capture_output=True, text=True).stdout
+        return res.stdout + res.stderr, sass_bodies(sass)
+
+    jobs = [(side, csrc, name) for name in SHARED
+            for side, csrc in (("this", build.CSRC),
+                               ("other", other / "tumseg_torch" / "csrc"))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(lambda j: compile_(*j), jobs)))
+    for name in SHARED:
+        (mine, a), (theirs, b) = (done[side, csrc, name] for side, csrc, n
+                                  in jobs if n == name)
+        print(f"[sass] {name}.cu: {len(a)} kernels, SASS the same as "
+              f"{other}'s: {a == b}")
+        for side, report in (("this", mine), ("other", theirs)):
+            print(f"  {side}: " + "; ".join(
+                line.split(":", 1)[-1].strip() for line in report.splitlines()
+                if "registers" in line or "spill" in line))
+
+
+def window_probe(dev, dump) -> None:
+    """``--window``: the expansion-form kernel (the module docstring)."""
+    from chip_smoke import device_ms, host_us, time_ms
+    from tumseg_torch import ops
+
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+
+    result = {"walk": [], "stages": [], "cases": []}
+    report = ptxas_report("three_nn_window")
+    print("[ptxas]\n" + _ptxas_lines(report))
+    build.library()
+    B = 32
+    rng = np.random.default_rng(3)
+    for lvl, (xyz1, xyz2, d) in enumerate(levels(dev, B)):
+        N, S = xyz1.shape[1], xyz2.shape[1]
+        stage = f"fp{lvl + 1}"
+        x1, x2 = xyz1.cpu().numpy(), xyz2.cpu().numpy()
+        md, mi, tested = walk_model(x1, x2, "expansion")
+        _, _, direct = walk_model(x1, x2, "direct")
+        want_d, want_i = core.three_nn_expansion(xyz1, xyz2)
+        if not (np.array_equal(md, want_d.cpu().numpy())
+                and np.array_equal(mi, want_i.cpu().numpy())):
+            raise AssertionError(f"{stage}: the expansion walk model differs "
+                                 "from the plain version")
+        print(f"[walk] B={B} {stage} N={N} S={S}: expansion {tested} "
+              f"candidates ({tested / (B * N):.1f} a query), direct {direct} "
+              f"({direct / (B * N):.1f})")
+        result["walk"].append(dict(stage=stage, expansion=tested,
+                                   direct=direct, full=B * N * S))
+        p2 = torch.as_tensor(rng.standard_normal((B, S, d)).astype(
+            np.float32), device=dev)
+        none = p2[..., :0].contiguous()
+        window = (ops.three_nn_window(S) if S >= 1024 and S % 128 == 0
+                  else S)
+        tile = ops.WINDOW_N_TILE
+        for fast in (False, True):
+            got = kernels.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                                      tile, fast)
+            want = core.three_nn_window_interpolate(xyz1, xyz2, p2, window,
+                                                    tile, fast)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{stage} fast={fast}: not bitwise the "
+                                     "plain version")
+
+        def call(points2=p2, fast=False):
+            return kernels.three_nn_window_interpolate(
+                xyz1, xyz2, points2, window, tile, fast)
+
+        ev, runs = time_ms(torch, call, 20)
+        row = dict(stage=stage, window=window, event_ms=ev,
+                   device_ms=device_ms(torch, call, 20),
+                   fast_ms=device_ms(torch, lambda: call(fast=True), 20),
+                   search_ms=device_ms(torch, lambda: call(none), 20),
+                   direct_ms=device_ms(torch, lambda: kernels.
+                                       three_nn_interpolate(xyz1, xyz2, p2),
+                                       20))
+        result["stages"].append(row)
+        print(f"[window] B={B} {stage} N={N} S={S} D={d} window={window}: "
+              f"event {ev:.4f} ms {[round(r, 4) for r in runs]}, device "
+              f"{ms(row['device_ms'])}, fast {ms(row['fast_ms'])}, search "
+              f"alone {ms(row['search_ms'])}; direct form "
+              f"{ms(row['direct_ms'])}; bitwise both modes")
+    xyz1, xyz2, d = levels(dev, B)[0]
+    p2 = torch.as_tensor(rng.standard_normal((B, xyz2.shape[1], d)).astype(
+        np.float32), device=dev)
+    host = host_us(torch, lambda: kernels.three_nn_window_interpolate(
+        xyz1, xyz2, p2, ops.three_nn_window(xyz2.shape[1]),
+        ops.WINDOW_N_TILE))
+    result["host_us"] = host
+    print(f"[window] host time a call of the wrapper at fp1: {host:.2f} us")
+    for name, x1, x2 in window_cases():
+        a, b = (torch.as_tensor(x, device=dev) for x in (x1, x2))
+        got = kernels.three_nn_expansion(a, b)
+        want = core.three_nn_expansion(a, b)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        result["cases"].append(dict(case=name, bitwise=same))
+        print(f"[cases] {name}: bitwise {same}")
+        if not same:
+            raise AssertionError(f"window case {name}: not bitwise")
+    dump.mkdir(parents=True, exist_ok=True)
+    (dump / "three_nn_window_probe.json").write_text(
+        json.dumps(result, indent=1))
+    (dump / "three_nn_window_ptxas.txt").write_text(report)
+    sass = subprocess.run([str(Path(build._nvcc()).with_name("cuobjdump")),
+                           "-sass", str(OUT / "three_nn_window.o")],
+                          capture_output=True, text=True)
+    (dump / "three_nn_window_sass.txt").write_text(sass.stdout + sass.stderr)
+    print("three_nn_probe --window: ok")
 
 
 def main() -> int:
@@ -254,16 +530,22 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    if "--stages" in sys.argv[1:]:
+    args = sys.argv[1:]
+    dump = Path(args[args.index("--out") + 1]) if "--out" in args else OUT
+    if "--sass-against" in args:
+        sass_against(Path(args[args.index("--sass-against") + 1]))
+        return 0
+    if "--stages" in args:
         stages(dev)
+        return 0
+    if "--window" in args:
+        window_probe(dev, dump)
         return 0
     from chip_smoke import device_ms
 
     result = {"card": smi, "three_nn": [], "walk": []}
     report = ptxas_report()
-    print("[ptxas]\n" + "\n".join(
-        line for line in report.splitlines()
-        if "registers" in line or "spill" in line or "Compiling" in line))
+    print("[ptxas]\n" + _ptxas_lines(report))
     build.library()
     rng = np.random.default_rng(2)
     for B in (32, 16):
@@ -310,8 +592,6 @@ def main() -> int:
                     device_ms=dms, search_ms=sms, bitwise=bitwise,
                     chosen=bool(mark)))
 
-    args = sys.argv[1:]
-    dump = Path(args[args.index("--out") + 1]) if "--out" in args else OUT
     dump.mkdir(parents=True, exist_ok=True)
     (dump / "three_nn_probe.json").write_text(json.dumps(result, indent=1))
     (dump / "three_nn_probe_ptxas.txt").write_text(report)
