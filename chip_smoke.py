@@ -142,6 +142,27 @@ r. (after k) fast against exact training: one SSG and one MSG step from the
    layer's largest gradient (what the bf16 gathers cost; no threshold); the
    kernels' fast launches are > 0 in the fast step and 0 in the exact step
    and in eval.
+s. (after r) bf16 compute (``compute_dtype=torch.bfloat16``, ``--bf16``):
+   checks that ``allow_bf16_reduced_precision_reduction`` leaves a bf16
+   GEMM with an f32 output unchanged; the SSG and MSG forwards at B=32 x
+   4096 in bf16 with the kernels against the same forwards under
+   ``ops.plain()`` (log-probs within 1e-4, argmax equal on >= 99.99% of
+   points), every neighbourhood group and interpolation launched in the
+   fast mode and none in the exact one (the 4 centroid gathers are
+   exact); bf16 against f32 compute with the same weights (max |dlogp| and
+   argmax agreement, printed beside f32 with the fast gathers alone; the
+   agreement >= ``BF16_AGREE_MIN``, a guard against breakage, and >= 2
+   classes); the forwards' times (median of 3, two turns each) and peak
+   memory over what was held before, bf16 beside f32, the event time of a
+   forward's weight casts, and a profiler breakdown of each forward's
+   device time by kind of kernel; serves d's tile through
+   ``tumseg_torch.cli.test`` with and without ``--bf16`` in turns (f32,
+   bf16, bf16, f32; 2 votes each; fast launches only in bf16):
+   scene-points/s and the agreement of the two label dumps; one bf16
+   training step at B=16 x 4096 (fast gathers) with the kernels against
+   plain as in f, timed beside the f32 step; and trains SSG as in g and
+   MSG as in k through ``tumseg_torch.cli.train --bf16``, serving each
+   ``best_model.pth`` with ``--bf16``.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -195,6 +216,12 @@ MSG_SA = [(1024, (0.05, 0.1)), (256, (0.1, 0.2)), (64, (0.2, 0.4)),
           (16, (0.4, 0.8))]  # (npoint, radii) of pointnet2_sem_seg_msg
 MSG_K = (16, 32)
 MSG_CHANNELS = [9, 99, 259, 515]  # grouped channels of MSG sa1..sa4
+# least argmax agreement of a bf16 forward with the f32 one of the same
+# weights in s: the seeded random net's labels move under any bf16 rounding
+# (0.71 SSG, 0.74 MSG at B=32 x 4096 on an H100, where f32 compute with the
+# fast gathers alone gives 0.75, 0.76), so this guards against breakage
+# only (chance is ~1/8)
+BF16_AGREE_MIN = 0.5
 # H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -696,9 +723,12 @@ def phase_forward(torch, model_name, tag):
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def phase_serve(torch, work, state_dict, model_name, tag):
-    """Serves the tile ``work/data/facade.las`` through the test CLI; counts
-    of zero before the run, read after it."""
+def phase_serve(torch, work, state_dict, model_name, tag, bf16=False,
+                run=""):
+    """Serves the tile ``work/data/facade.las`` through the test CLI (with
+    ``--bf16``: in bf16 compute, which gathers fast); counts of zero before
+    the run, read after it; ``run`` tells repeated runs' log directories
+    apart. -> (launches, fast launches, rate, labels)."""
     from tumseg_torch.cli import test as test_cli
     from tumseg_torch.data.dataset import TestGridDataset
     from tumseg_torch.models.convert import variables_from_state_dict
@@ -708,7 +738,8 @@ def phase_serve(torch, work, state_dict, model_name, tag):
 
     n = SCENE_POINTS
     data = work / "data"
-    ckpt_dir = work / "log" / "sem_seg" / model_name / "checkpoints"
+    log_dir = model_name + ("_bf16" if bf16 else "") + run
+    ckpt_dir = work / "log" / "sem_seg" / log_dir / "checkpoints"
     ckpt_dir.mkdir(parents=True)
     save_checkpoint(str(ckpt_dir / "best_model.pth"), epoch=0,
                     variables=variables_from_state_dict(state_dict))
@@ -717,16 +748,17 @@ def phase_serve(torch, work, state_dict, model_name, tag):
     args = test_cli.parse_args([
         "--model", model_name, "--rootdir", str(data), "--test_area",
         "facade.las", "--exp_dir", str(work / "log") + "/sem_seg/",
-        "--log_dir", model_name, "--num_votes", str(votes), "--batch_size",
+        "--log_dir", log_dir, "--num_votes", str(votes), "--batch_size",
         str(B), "--num_point", str(N), "--class8", "--RGB_OFF", "--seed",
-        str(SEED)])
+        str(SEED)] + (["--bf16"] if bf16 else []))
     kernels.reset_launches()
     out = test_cli.main(args)
     launches = dict(kernels.launches)
+    fast = dict(kernels.fast_launches)
 
     if not math.isfinite(out["miou"]) or not 0.0 <= out["miou"] <= 1.0:
         raise AssertionError(f"mIoU {out['miou']} is not a finite ratio")
-    txt = work / "log" / "sem_seg" / model_name / "visual" / "facade.txt"
+    txt = work / "log" / "sem_seg" / log_dir / "visual" / "facade.txt"
     pred = read_labels_txt(str(txt))
     if pred.shape != (n,) or pred.min() < 0 or pred.max() >= 8:
         raise AssertionError(f"{txt}: {pred.shape} labels for {n} points")
@@ -743,12 +775,25 @@ def phase_serve(torch, work, state_dict, model_name, tag):
             raise AssertionError(f"{name}: {launches[name]} launches in the "
                                  f"serving run, expected "
                                  f"{'>= ' if per else ''}{forwards * per}")
+    # bf16 compute gathers fast: every neighbourhood group and every
+    # interpolation, none exact (the K = 1 centroid gathers, one a FPS,
+    # always are); f32 compute none fast
+    exact = {k: launches[k] - fast[k] for k in fast}
+    if bf16 and (fast["group"] < forwards * (PER_FORWARD[model_name]["group"]
+                                             - 4)
+                 or exact["group"] != launches["fps"]
+                 or fast["three_nn_interpolate"] < forwards * 4
+                 or exact["three_nn_interpolate"] != 0):
+        raise AssertionError(f"bf16 serving launched {launches}, of them "
+                             f"fast {fast}")
+    if not bf16 and any(fast.values()):
+        raise AssertionError(f"f32 serving launched fast {fast}")
     rate = n * votes / out["infer_seconds"]
     print(f"[{tag}] {model_name} served {n} points x {votes} votes ({blocks} "
-          f"blocks/vote, {forwards} forwards) in {out['infer_seconds']:.3f} "
-          f"s: {rate:.0f} scene-points/s; mIoU {out['miou']:.4f}; "
-          f"launches {launches}")
-    return launches
+          f"blocks/vote, {forwards} forwards){' in bf16' if bf16 else ''} in "
+          f"{out['infer_seconds']:.3f} s: {rate:.0f} scene-points/s; mIoU "
+          f"{out['miou']:.4f}; launches {launches}, of them fast {fast}")
+    return launches, fast, rate, pred
 
 
 def phase_multi(torch, report):
@@ -1032,7 +1077,10 @@ def fast_step_limit(first, repeats):
     return spread, max(1e-4, 3 * spread[0])
 
 
-def phase_train_step(torch, state_dict, model_name, tag):
+def phase_train_step(torch, state_dict, model_name, tag, compute_dtype=None):
+    """One training step with the kernels against plain: exact and fast
+    gathers in f32 compute; with a ``compute_dtype``, fast gathers in that
+    compute (the engine's default), timed beside the f32 step."""
     import copy
 
     from tumseg_torch import models, ops
@@ -1048,8 +1096,8 @@ def phase_train_step(torch, state_dict, model_name, tag):
     base.load_state_dict(state_dict)
     base.train()
 
-    def step(model, fast, opt=None):
-        logp, _ = model(x, fast_gather=fast)
+    def step(model, fast, opt=None, dtype=compute_dtype):
+        logp, _ = model(x, fast_gather=fast, compute_dtype=dtype)
         loss = model.loss(logp, target, weight)
         if opt is not None:
             opt.zero_grad(set_to_none=True)
@@ -1068,8 +1116,11 @@ def phase_train_step(torch, state_dict, model_name, tag):
         return float(loss), {n: p.grad for n, p in model.named_parameters()}
 
     # exact gathers, then the fast ones that the training engine takes by
-    # default, kernels and plain in the same mode
-    for fast in (False, True):
+    # default, kernels and plain in the same mode; in bf16 compute the fast
+    # ones only
+    compute = ("" if compute_dtype is None else
+               f" {str(compute_dtype).replace('torch.', '')} compute,")
+    for fast in (False, True) if compute_dtype is None else (True,):
         lk, gk = grads(False, fast)
         lp, gp = grads(True, fast)
         if not (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
@@ -1086,22 +1137,32 @@ def phase_train_step(torch, state_dict, model_name, tag):
             raise AssertionError(f"gradient of {worst_name}: max|dg| = "
                                  f"{worst:g} x its layer's max|g|, "
                                  f"fast={fast}")
-        print(f"[{tag}] {model_name} train step B={TRAIN_B}x{N} "
+        print(f"[{tag}] {model_name} train step B={TRAIN_B}x{N}{compute} "
               f"{'fast' if fast else 'exact'} gathers: loss {lk:.6f} "
               f"(kernels) {lp:.6f} (plain); worst gradient {worst:.3g} x "
               f"max|g| ({worst_name}), {len(gk)} tensors{spread}")
 
-    def timed(plain, fast):
+    def timed(plain, fast, dtype=compute_dtype):
         model = copy.deepcopy(base)
         opt = make_optimizer(model.parameters(), "Adam", 1e-4)
 
         def one():
             if plain:
                 with ops.plain():
-                    step(model, fast, opt)
+                    step(model, fast, opt, dtype)
             else:
-                step(model, fast, opt)
+                step(model, fast, opt, dtype)
         return time_ms(torch, one, 1)
+
+    if compute_dtype is not None:
+        runs = {None: [], compute_dtype: []}
+        for dtype in (None, compute_dtype, compute_dtype, None):
+            runs[dtype].append(timed(False, True, dtype)[0])
+        print(f"[{tag}] train step B={TRAIN_B}x{N} with the kernels, fast "
+              f"gathers (forward + backward + Adam, median of 3, two turns "
+              f"each):{compute} {[round(v, 3) for v in runs[compute_dtype]]}"
+              f" ms; f32 compute {[round(v, 3) for v in runs[None]]} ms")
+        return
 
     runs = {}
     for label, plain, fast in (
@@ -1116,20 +1177,24 @@ def phase_train_step(torch, state_dict, model_name, tag):
           f"{[round(v, 3) for v in runs['plain']]} ms")
 
 
-def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
+def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
+                    bf16=False):
     """Trains through the CLI on ``work/train_data`` (counts of zero before
-    the run, read after it), then serves the best checkpoint."""
+    the run, read after it), then serves the best checkpoint; with
+    ``bf16``, both with ``--bf16``."""
     from tumseg_torch.cli import test as test_cli
     from tumseg_torch.cli import train as train_cli
     from tumseg_torch.ops import kernels
 
     data = work / "train_data"
     log = work / "train_log"
+    log_dir = model_name + ("_bf16" if bf16 else "")
+    bf16_flag = ["--bf16"] if bf16 else []
     args = train_cli.parse_args([
         "--model", model_name, "--rootdir", str(data), "--test_area",
-        "held_out.las", "--exp_dir", str(log), "--log_dir", model_name,
+        "held_out.las", "--exp_dir", str(log), "--log_dir", log_dir,
         "--epoch", str(epochs), "--batch_size", str(TRAIN_B), "--npoint",
-        str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)])
+        str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)] + bf16_flag)
     blocks = int(TRAIN_POINTS / N)
     steps = epochs * (int(0.7 * blocks) // TRAIN_B)
     if steps < min_steps:
@@ -1139,7 +1204,7 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     launches = dict(kernels.launches)
     fast = dict(kernels.fast_launches)
 
-    run = log / "sem_seg" / model_name
+    run = log / "sem_seg" / log_dir
     text = (run / "logs" / f"{model_name}.txt").read_text()
     losses = [float(line.rsplit(":", 1)[1]) for line in text.splitlines()
               if "Training mean loss:" in line]
@@ -1162,15 +1227,16 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag):
     out = test_cli.main(test_cli.parse_args([
         "--model", model_name, "--rootdir", str(data), "--test_area",
         "held_out.las", "--exp_dir", str(log / "sem_seg") + "/",
-        "--log_dir", model_name, "--num_votes", "1", "--batch_size",
+        "--log_dir", log_dir, "--num_votes", "1", "--batch_size",
         str(TRAIN_B), "--num_point", str(N), "--class8", "--RGB_OFF",
-        "--seed", str(SEED)]))
+        "--seed", str(SEED)] + bf16_flag))
     if not 0.0 <= out["miou"] <= 1.0:
         raise AssertionError(f"served mIoU {out['miou']}")
     for epoch, rate in enumerate(rates):
         print(f"[{tag}] epoch {epoch + 1} Training points/sec: {rate}")
     print(f"[{tag}] {model_name} trained {steps} steps of B={TRAIN_B}x{N} "
-          f"over {epochs} epochs: mean losses {losses}, eval losses "
+          f"over {epochs} epochs{' with --bf16' if bf16 else ''}: mean "
+          f"losses {losses}, eval losses "
           f"{list(eval_loss)}, best mIoU {max(iou):.4f}; best_model.pth "
           f"served with mIoU {out['miou']:.4f}; launches {launches}, of "
           f"them fast (bf16 gathers) {fast}")
@@ -1801,6 +1867,192 @@ def phase_fast_vs_exact(torch, state_dict, model_name, tag):
           f"{fast}, 0 in the exact step and in eval")
 
 
+def bf16_gemm_check(torch):
+    """Whether ``allow_bf16_reduced_precision_reduction`` changes a bf16
+    GEMM with an f32 output (``aten::mm.dtype``, the bf16 ``Dense``'s) at
+    sa1's and fp4's shapes: -> True where both settings give the same bits.
+    The entry points leave the flag as PyTorch sets it."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    same = True
+    try:
+        for m, k, n in ((B * 1024 * K, 32, 32), (B * 64, 768, 256)):
+            x = torch.randn(m, k, device=DEVICE, generator=g).bfloat16()
+            w = torch.randn(n, k, device=DEVICE, generator=g).bfloat16()
+            outs = []
+            for flag in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = flag
+                outs.append(torch.mm(x, w.t(), out_dtype=torch.float32))
+            same = same and torch.equal(*outs)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+    return same
+
+
+KERNEL_KINDS = (("GEMM", ("gemm", "xmma", "cutlass", "sm90", "nvjet")),
+                ("point kernels", ("fps", "ball_query", "group", "three_nn",
+                                   "interp")),
+                ("reduction", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def forward_breakdown(torch, fn):
+    """One call of ``fn`` (after a warm-up) under ``torch.profiler``: ->
+    (device ms by kind of kernel, the 6 kernels of most device time as
+    (name, ms, launches), kernel events). The profiler loses events now and
+    then (``device_ms``), so this is a breakdown, not a time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = names.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    kinds = {}
+    for name, (ms, _) in names.items():
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(w in name.lower() for w in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    top = sorted(((n[:48], round(ms, 4), c) for n, (ms, c) in names.items()),
+                 key=lambda r: -r[1])[:6]
+    return ({k: round(v, 4) for k, v in kinds.items()}, top,
+            sum(c for _, c in names.values()))
+
+
+def phase_bf16(torch, work, states):
+    """bf16 compute on the card: the SSG and MSG forwards with the kernels
+    against plain and against f32 compute, launches, times and peak
+    memory; serving (beside f32, in turns) and training through
+    ``--bf16``. ``states`` maps a model's name to its weights of c / i."""
+    from tumseg_torch import models, ops
+    from tumseg_torch.nn.layers import Dense
+    from tumseg_torch.ops import kernels
+
+    bf16 = torch.bfloat16
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    print(f"[s] allow_bf16_reduced_precision_reduction {flag}; a bf16 GEMM "
+          f"with f32 output gives the same bits with it on and off: "
+          f"{bf16_gemm_check(torch)}")
+    x = torch.as_tensor(facade_batch(np.random.default_rng(SEED + 1), B, N),
+                        device=DEVICE)
+    for model_name, state in states.items():
+        model = models.get_module(model_name).get_model(8).to(DEVICE).eval()
+        model.load_state_dict(state)
+
+        def fwd(dtype):
+            return model(x, compute_dtype=dtype)[0]
+
+        def plain_fwd():
+            with ops.plain():
+                return fwd(bf16)
+
+        with torch.inference_mode():
+            kernels.reset_launches()
+            lk = fwd(bf16)
+            launches = dict(kernels.launches)
+            fast = dict(kernels.fast_launches)
+            lp, l32 = plain_fwd(), fwd(None)
+            # the yardstick of this random net's sensitivity: f32 compute
+            # with the fast gathers alone, as the f32 train step takes them
+            lf = model(x, fast_gather=True)[0]
+            if lk.shape != (B, N, 8) or not torch.isfinite(lk).all():
+                raise AssertionError("bf16 log-probs not finite / bad shape")
+            diff = (lk - lp).abs().max().item()
+            agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+            d32 = (lk - l32).abs().max().item()
+            agree32 = (lk.argmax(-1) == l32.argmax(-1)).float().mean().item()
+            dfast = (lf - l32).abs().max().item()
+            agreefast = (lf.argmax(-1) == l32.argmax(-1)).float().mean(
+                ).item()
+            classes = lk.argmax(-1).unique().numel()
+            print(f"[s] {model_name} bf16 forward B={B}x{N}: kernels against "
+                  f"plain max|dlogp| {diff:g}, argmax agree {agree:.6f}; "
+                  f"against f32 compute (same weights) max|dlogp| {d32:g}, "
+                  f"argmax agree {agree32:.6f} (f32 compute with the fast "
+                  f"gathers alone: max|dlogp| {dfast:g}, argmax agree "
+                  f"{agreefast:.6f}); {classes} classes predicted")
+            if diff > 1e-4 or agree < 0.9999:
+                raise AssertionError("bf16 kernel forward disagrees with "
+                                     "plain")
+            # a guard against breakage only: this random net's argmax
+            # moves under any bf16 rounding (the fast gathers alone move a
+            # quarter of it), and a broken path agrees near chance (1/8)
+            if agree32 < BF16_AGREE_MIN or classes < 2:
+                raise AssertionError("bf16 forward is far from f32's")
+            # every neighbourhood group and interpolation fast, none exact;
+            # the 4 centroid gathers (K = 1) are exact
+            exact = {k: launches[k] - fast[k] for k in fast}
+            groups = PER_FORWARD[model_name]["group"] - 4
+            if (fast["group"], exact["group"], fast["three_nn_interpolate"],
+                    exact["three_nn_interpolate"]) != (groups, 4, 4, 0):
+                raise AssertionError(f"bf16 forward launched {launches}, "
+                                     f"fast {fast}")
+            print(f"[s] {model_name} bf16 forward launches: group "
+                  f"{fast['group']} fast + {exact['group']} exact (the "
+                  f"centroid gathers), three_nn_interpolate "
+                  f"{fast['three_nn_interpolate']} fast + "
+                  f"{exact['three_nn_interpolate']} exact")
+
+            times = {None: [], bf16: []}
+            for dtype in (None, bf16, bf16, None):
+                times[dtype].append(time_ms(torch, lambda: fwd(dtype), 3))
+            peak = {}
+            for dtype in (None, bf16):
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fwd(dtype)
+                torch.cuda.synchronize()
+                peak[dtype] = (torch.cuda.max_memory_allocated() - held) / 1e6
+            weights = [m.weight for m in model.modules()
+                       if isinstance(m, Dense)]
+            cast_ms = time_ms(torch, lambda: [w.to(bf16) for w in weights],
+                              20)[0]
+            for dtype in (None, bf16):
+                kinds, top, events = forward_breakdown(torch,
+                                                       lambda: fwd(dtype))
+                print(f"[s] {model_name} {'bf16' if dtype else 'f32'} "
+                      f"forward, profiler "
+                      f"device ms by kind ({events} kernel events): "
+                      f"{kinds}; most: {top}")
+        print(f"[s] {model_name} forward B={B}x{N} (median of 3, two turns "
+              f"each): bf16 {[round(t, 3) for t, _ in times[bf16]]} ms "
+              f"{[[round(r, 3) for r in runs] for _, runs in times[bf16]]}; "
+              f"f32 {[round(t, 3) for t, _ in times[None]]} ms "
+              f"{[[round(r, 3) for r in runs] for _, runs in times[None]]}; "
+              f"peak memory over what was held before: bf16 "
+              f"{peak[bf16]:.1f} MB, f32 {peak[None]:.1f} MB; the casts of "
+              f"its {len(weights)} Dense weights to bf16 {cast_ms:.4f} ms "
+              f"a forward (event)")
+
+    rates, labels = {False: [], True: []}, {}
+    for bf, run in ((False, "_1"), (True, "_1"), (True, "_2"),
+                    (False, "_2")):
+        _, _, rate, labels[bf] = phase_serve(
+            torch, work, states["pointnet2_sem_seg"], "pointnet2_sem_seg",
+            "s", bf16=bf, run=run)
+        rates[bf].append(rate)
+    print(f"[s] served labels, bf16 against f32 compute (the same weights "
+          f"and votes): agree on {(labels[True] == labels[False]).mean():.6f}"
+          f" of {labels[True].size} points; scene-points/s in turns (f32, "
+          f"bf16, bf16, f32): bf16 {[round(r) for r in rates[True]]}, f32 "
+          f"{[round(r) for r in rates[False]]}")
+    phase_train_step(torch, states["pointnet2_sem_seg"], "pointnet2_sem_seg",
+                     "s", compute_dtype=bf16)
+    phase_train_cli(torch, work, "pointnet2_sem_seg", TRAIN_EPOCHS, 10, "s",
+                    bf16=True)
+    phase_train_cli(torch, work, "pointnet2_sem_seg_msg", MSG_TRAIN_EPOCHS, 6,
+                    "s", bf16=True)
+
+
 def main() -> int:
     import torch
 
@@ -1835,7 +2087,7 @@ def main() -> int:
     phase_window(torch, report)
     phase_fused(torch, report)
     state_dict = phase_forward(torch, ssg, "c")
-    launches = phase_serve(torch, work, state_dict, ssg, "d")
+    launches = phase_serve(torch, work, state_dict, ssg, "d")[0]
     launches["fused_ball_group"] = phase_fused_switch(
         torch, state_dict)["fused_ball_group"]
     phase_backward(torch, report)
@@ -1848,11 +2100,12 @@ def main() -> int:
     phase_multi(torch, report)
     msg_state = phase_forward(torch, msg, "i")
     launches["ball_query_multi"] = phase_serve(
-        torch, work, msg_state, msg, "j")["ball_query_multi"]
+        torch, work, msg_state, msg, "j")[0]["ball_query_multi"]
     phase_train_step(torch, msg_state, msg, "k")
     phase_train_cli(torch, work, msg, MSG_TRAIN_EPOCHS, 6, "k")
     phase_fast_vs_exact(torch, state_dict, ssg, "r")
     phase_fast_vs_exact(torch, msg_state, msg, "r")
+    phase_bf16(torch, work, {ssg: state_dict, msg: msg_state})
 
     launches["three_nn_window"] = phase_serve_paths(
         torch, work, state_dict)["three_nn_window"]

@@ -1,0 +1,647 @@
+"""The port's bf16 compute (``compute_dtype=torch.bfloat16``, ``--bf16``)
+against tumseg's (``compute_dtype=jnp.bfloat16``) on the CPU, on the same
+numpy inputs and weights (tumseg init -> convert -> load_state_dict).
+
+tumseg's XLA ops ignore ``fast_gather`` on the CPU, so every comparison with
+tumseg gathers exactly on both sides: the port is given
+``fast_gather=False`` (the runner's model through a wrapper that adds it).
+The fast modes are held apart by tests/test_torch_fast.py, and here only
+their routing is checked, by recording the ``fast`` flag the plain ops
+receive.
+
+Tolerances. A bf16 step is 2^-8 of a value's binade (at most 2^-7
+relative). The port's CPU ``Dense`` rounds its operands to bf16 and
+multiplies them in f32, where every product is exact, so it differs from
+tumseg's ``dense`` only in summation order (rtol 1e-5 / atol 1e-6), and a
+gradient rounded to bf16 by one bf16 step where the two f32 sums straddle a
+rounding boundary. Through a stack of layers, an f32 value the two compute
+an ulp apart now and then rounds to bf16 values a step apart; each such
+activation moves what follows by a bf16 step of its own contribution. So
+a layer's output is held within ``LAYER_STEPS`` bf16 steps of its largest
+|value|, and the log-probs within ``LOGP_STEPS`` bf16 steps of the largest
+|log-prob|, the least whole numbers of steps above what this file's
+inputs give (a layer at most 0.19, the SSG forward 2.2, MSG 3.2). An argmax
+may differ only where the reference's top two log-probs lie within twice
+that tolerance, which the log-prob bound allows to swap; the rest agree on
+>= 99% of points (they agree on all here). The random net's BN statistics
+are calibrated on the batch, so many of its points sit that close to a
+tie, and the plain argmax agreement is 0.971 (SSG) and 0.992 (MSG).
+
+Each test jits at most one JAX function: a model's bf16 forward, the bf16
+step's value and gradient, or the runner's forward."""
+
+import math
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tumseg.data.dataset import TestGridDataset
+from tumseg.data.las import write_las
+from tumseg.models import pointnet2_sem_seg as jssg
+from tumseg.models import pointnet2_sem_seg_msg as jmsg
+from tumseg.nn import layers as L
+from tumseg.train import checkpoint as jckpt
+from tumseg_torch import models
+from tumseg_torch.models.convert import (state_dict_from_variables,
+                                         variables_from_state_dict)
+from tumseg_torch.nn.layers import (BatchNorm, Dense, FeaturePropagation,
+                                    MLPStack, SetAbstraction,
+                                    SetAbstractionMsg, calibrate_batch_norm)
+from tumseg_torch.ops import core
+from tumseg_torch.train import checkpoint as tckpt
+
+ROOT = Path(__file__).resolve().parents[1]
+B, N, C = 2, 256, 8
+BF = jnp.bfloat16
+TBF = torch.bfloat16
+STEP = 2.0 ** -8      # a bf16 step, relative to the binade of the value
+LAYER_STEPS = 1       # one layer: at most 0.19 on this file's inputs
+LOGP_STEPS = 4        # a whole forward: 2.2 (SSG) and 3.2 (MSG) here
+JAX_MODELS = {"pointnet2_sem_seg": jssg, "pointnet2_sem_seg_msg": jmsg}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _bf16_step(a):
+    """The bf16 step (ulp) at each |a|; 2^-133 at 0."""
+    a = np.maximum(np.abs(a), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def _assert_within_steps(got, want, steps, what=""):
+    got, want = _np(got), _np(want)
+    tol = steps * STEP * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol, f"{what}: max|diff| {err:g} > {tol:g}"
+
+
+def _assert_argmax_agrees(got, want, tol):
+    """Every argmax disagreement lies where the reference's top two are
+    within 2 * tol (the log-prob bound lets them swap); elsewhere >= 99%
+    agree."""
+    got, want = _np(got), _np(want)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    agree = got.argmax(-1) == want.argmax(-1)
+    assert np.all(margin[~agree] <= 2 * tol), np.sort(margin[~agree])[-3:]
+    assert agree[margin > 2 * tol].mean() >= 0.99
+    assert len(np.unique(want.argmax(-1))) > 1  # not a constant output
+
+
+def _load_stage(layer, stage, params, stats):
+    """tumseg layer params/stats -> ``layer`` (its state_dict keys without
+    the ``stage.`` prefix)."""
+    sd = state_dict_from_variables(jax.tree_util.tree_map(
+        np.asarray, {"params": {stage: params},
+                     "batch_stats": {stage: stats}}))
+    layer.load_state_dict({k[len(stage) + 1:]: v for k, v in sd.items()},
+                          strict=True)
+    return layer.eval()
+
+
+def _random_stats(stats, seed):
+    """BN running stats away from (0, 1), so that eval BN does something:
+    a stack's list of {mean, var}, or MSG's list of such lists."""
+    r = np.random.default_rng(seed)
+
+    def one(st):
+        return {"mean": r.normal(0.0, 0.5, np.shape(st["mean"])).astype(
+                    np.float32),
+                "var": r.uniform(0.5, 2.0, np.shape(st["var"])).astype(
+                    np.float32)}
+
+    return [[one(x) for x in st] if isinstance(st, list) else one(st)
+            for st in stats]
+
+
+# --------------------------------------------------------------------------
+# Dense, BatchNorm, MLPStack
+# --------------------------------------------------------------------------
+
+def _dense_pair(conv_rank, seed, in_dim=40, out_dim=24):
+    r = np.random.default_rng(seed)
+    w = (r.standard_normal((in_dim, out_dim)) * 0.3).astype(np.float32)
+    b = r.standard_normal(out_dim).astype(np.float32)
+    dense = Dense(in_dim, out_dim, conv_rank)
+    with torch.no_grad():
+        dense.weight.copy_(_t(w.T).reshape(dense.weight.shape))
+        dense.bias.copy_(_t(b))
+    return dense, {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+
+
+@pytest.mark.parametrize("conv_rank,shape", [(2, (B, 16, 8, 40)),
+                                             (1, (B, 64, 40))])
+def test_dense_forward_matches_tumseg(conv_rank, shape):
+    """f32 output, the bias added in f32; the same products summed in
+    another order: rtol 1e-5 / atol 1e-6."""
+    dense, p = _dense_pair(conv_rank, 0)
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    want = L.dense(p, jnp.asarray(x), compute_dtype=BF)
+    with torch.no_grad():
+        got = dense(_t(x), TBF)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_dense_backward_matches_jax_grad(x_dtype):
+    """dW and dX are f32 sums rounded to bf16 (dX in x's dtype, dW as
+    f32): equal on >= 99% of entries, each within one bf16 step; db is the
+    f32 sum of the cotangent, within rtol 1e-5 / atol 1e-5 (256 rows)."""
+    dense, p = _dense_pair(2, 2)
+    r = np.random.default_rng(3)
+    x = r.standard_normal((B, 16, 8, 40)).astype(np.float32)
+    g = r.standard_normal((B, 16, 8, 24)).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.dtype(x_dtype))
+    tx = _t(x).to(getattr(torch, x_dtype)).requires_grad_()
+
+    def f(params, xx):
+        return jnp.sum(L.dense(params, xx, compute_dtype=BF) * g)
+
+    jp, jgx = jax.grad(f, argnums=(0, 1))(p, jx)
+    dense(tx, TBF).backward(_t(g))
+    assert tx.grad.dtype == tx.dtype and dense.weight.grad.dtype == \
+        torch.float32
+    dw = dense.weight.grad.reshape(24, 40).numpy().T
+    for name, got, want in (("dW", dw, jp["w"]), ("dX", tx.grad, jgx)):
+        got, want = _np(got), _np(want)
+        # bf16 values (held in f32 for dW and an f32 dX)
+        np.testing.assert_array_equal(got, _np(_t(got).to(TBF)))
+        assert (got == want).mean() >= 0.99, name
+        assert np.all(np.abs(got - want) <= _bf16_step(
+            np.maximum(np.abs(got), np.abs(want)))), name
+    np.testing.assert_allclose(dense.bias.grad.numpy(), np.asarray(jp["b"]),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_returns_input_dtype(training, dtype):
+    """BN computes in f32 and returns its input's dtype, as tumseg's
+    ``batch_norm``: the bf16 output is tumseg's rounded the same way,
+    within one bf16 step (f32 values an ulp apart can round apart)."""
+    r = np.random.default_rng(4)
+    x = (r.standard_normal((B, 8, 4, 16)) * 2 + 1).astype(np.float32)
+    bn = BatchNorm(16, momentum=0.3)
+    with torch.no_grad():
+        bn.weight.copy_(_t(r.random(16).astype(np.float32)))
+        bn.bias.copy_(_t(r.random(16).astype(np.float32)))
+        bn.running_var.copy_(_t(r.random(16).astype(np.float32) + 0.5))
+    params = {"scale": bn.weight.detach().numpy().copy(),
+              "bias": bn.bias.detach().numpy().copy()}
+    stats = {"mean": bn.running_mean.numpy().copy(),
+             "var": bn.running_var.numpy().copy()}
+    xt = _t(x).to(dtype)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want, _ = L.batch_norm(params, stats, jnp.asarray(_np(xt)).astype(jdtype),
+                           training=training, momentum=0.3)
+    got = bn.train(training)(xt)
+    assert got.dtype == dtype
+    got, want = _np(got), _np(want)
+    if dtype == torch.bfloat16:
+        assert np.all(np.abs(got - want) <= _bf16_step(want))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_mlp_stack_stores_bf16_between_layers():
+    """Each Dense after the first reads bf16 (the activations between
+    layers are stored bf16), the stack returns f32, and it agrees with
+    tumseg's ``mlp_stack`` within ``LAYER_STEPS`` bf16 steps."""
+    p, s = L.mlp_stack_init(jax.random.PRNGKey(5), 12, [16, 32, 24])
+    s = _random_stats(s, 6)
+    x = np.random.default_rng(7).standard_normal((B, 32, 8, 12)).astype(
+        np.float32)
+    want, _ = L.mlp_stack(p, s, jnp.asarray(x), training=False, momentum=0.1,
+                          compute_dtype=BF)
+    stack = _load_stage(MLPStack(12, [16, 32, 24], conv_rank=2), "sa", p, s)
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].dtype))
+        for m in stack.mlp_convs]
+    with torch.no_grad():
+        got = stack.mlp(_t(x), TBF)
+    for h in hooks:
+        h.remove()
+    assert seen == [torch.float32, TBF, TBF]
+    assert got.dtype == torch.float32
+    _assert_within_steps(got, want, LAYER_STEPS, "mlp_stack")
+
+
+# --------------------------------------------------------------------------
+# the layers with exact gathers, and the resolution of fast_gather
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cloud():
+    r = np.random.default_rng(8)
+    xyz = r.random((B, N, 3)).astype(np.float32)
+    points = r.standard_normal((B, N, 6)).astype(np.float32)
+    return xyz, points
+
+
+SA_CFG = dict(npoint=64, radius=0.2, nsample=16, mlp=[16, 32, 24])
+MSG_CFG = dict(npoint=64, radius_list=[0.1, 0.2], nsample_list=[8, 16],
+               mlp_list=[[16, 32], [16, 24]])
+
+
+def _sa(cloud):
+    p, s = L.set_abstraction_init(jax.random.PRNGKey(9), 9, SA_CFG["mlp"])
+    s = _random_stats(s, 10)
+    layer = _load_stage(SetAbstraction(SA_CFG["npoint"], SA_CFG["radius"],
+                                       SA_CFG["nsample"], 9, SA_CFG["mlp"]),
+                        "sa", p, s)
+    return layer, (p, s, SA_CFG, *map(jnp.asarray, cloud))
+
+
+def _msg(cloud):
+    p, s = L.set_abstraction_msg_init(
+        jax.random.PRNGKey(11), MSG_CFG["npoint"], MSG_CFG["radius_list"],
+        MSG_CFG["nsample_list"], 6, MSG_CFG["mlp_list"])
+    s = _random_stats(s, 12)
+    layer = _load_stage(SetAbstractionMsg(
+        MSG_CFG["npoint"], MSG_CFG["radius_list"], MSG_CFG["nsample_list"],
+        6, MSG_CFG["mlp_list"]), "sa", p, s)
+    return layer, (p, s, MSG_CFG, *map(jnp.asarray, cloud))
+
+
+def _fp_inputs(cloud):
+    xyz, points = cloud
+    r = np.random.default_rng(13)
+    return (xyz, xyz[:, ::4].copy(), points,
+            r.standard_normal((B, N // 4, 20)).astype(np.float32))
+
+
+def _fp(cloud):
+    p, s = L.feature_propagation_init(jax.random.PRNGKey(14), 26, [32, 16])
+    s = _random_stats(s, 15)
+    return _load_stage(FeaturePropagation(26, [32, 16]), "fp", p, s), (p, s)
+
+
+def test_set_abstraction_matches_tumseg(cloud):
+    layer, args = _sa(cloud)
+    want_xyz, want, _ = L.set_abstraction(*args, training=False,
+                                          momentum=0.1, compute_dtype=BF)
+    with torch.no_grad():
+        got_xyz, got = layer(*map(_t, cloud), fast_gather=False,
+                             compute_dtype=TBF)
+    assert got.dtype == torch.float32 and got.shape == (B, 64, 24)
+    np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
+    _assert_within_steps(got, want, LAYER_STEPS, "set_abstraction")
+
+
+def test_set_abstraction_msg_matches_tumseg(cloud):
+    layer, args = _msg(cloud)
+    want_xyz, want, _ = L.set_abstraction_msg(
+        *args, training=False, momentum=0.1, compute_dtype=BF)
+    with torch.no_grad():
+        got_xyz, got = layer(*map(_t, cloud), fast_gather=False,
+                             compute_dtype=TBF)
+    assert got.dtype == torch.float32 and got.shape == (B, 64, 56)
+    np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
+    _assert_within_steps(got, want, LAYER_STEPS, "set_abstraction_msg")
+
+
+def test_feature_propagation_matches_tumseg(cloud):
+    layer, (p, s) = _fp(cloud)
+    inputs = _fp_inputs(cloud)
+    want, _ = L.feature_propagation(p, s, *map(jnp.asarray, inputs),
+                                    training=False, momentum=0.1,
+                                    compute_dtype=BF)
+    with torch.no_grad():
+        got = layer(*map(_t, inputs), fast_gather=False, compute_dtype=TBF)
+    assert got.dtype == torch.float32 and got.shape == (B, N, 16)
+    _assert_within_steps(got, want, LAYER_STEPS, "feature_propagation")
+
+
+class _Spy:
+    """Records the ``fast`` flag of every plain neighbourhood group (K > 1),
+    interpolation and backward call."""
+
+    def __init__(self, monkeypatch):
+        self.flags = {}
+        for name in ("group_points", "three_nn_interpolate",
+                     "group_points_backward", "interpolate_backward"):
+            monkeypatch.setattr(core, name, self._wrap(name,
+                                                       getattr(core, name)))
+
+    def _wrap(self, name, fn):
+        def spy(*args, fast=False):
+            if name != "group_points" or args[0].shape[-1] > 1:
+                self.flags.setdefault(name, set()).add(fast)
+            return fn(*args, fast=fast)
+        return spy
+
+
+@pytest.mark.parametrize("compute_dtype", [None, TBF])
+@pytest.mark.parametrize("layer", ["sa", "msg", "fp"])
+def test_layer_fast_gather_resolves_from_compute_dtype(monkeypatch, cloud,
+                                                       layer, compute_dtype):
+    """``fast_gather=None`` (the default) is fast under a compute dtype and
+    exact without one, as tumseg's layers resolve it."""
+    spy = _Spy(monkeypatch)
+    with torch.no_grad():
+        if layer == "fp":
+            _fp(cloud)[0](*map(_t, _fp_inputs(cloud)),
+                          compute_dtype=compute_dtype)
+            name = "three_nn_interpolate"
+        else:
+            (_sa if layer == "sa" else _msg)(cloud)[0](
+                *map(_t, cloud), compute_dtype=compute_dtype)
+            name = "group_points"
+    assert spy.flags == {name: {compute_dtype is not None}}
+
+
+@pytest.mark.parametrize("compute_dtype", [None, TBF])
+@pytest.mark.parametrize("model_name", list(JAX_MODELS))
+def test_model_fast_gather_resolves_from_compute_dtype(
+        monkeypatch, model_name, compute_dtype):
+    """Both models, forward and backward: every neighbourhood group,
+    interpolation and their backward passes fast under a compute dtype,
+    exact without."""
+    torch.manual_seed(0)
+    model = models.get_module(model_name).get_model(C).train()
+    spy = _Spy(monkeypatch)
+    x = np.random.default_rng(16).random((B, N, 6)).astype(np.float32)
+    logp, _ = model(_t(x), compute_dtype=compute_dtype)
+    logp.sum().backward()
+    want = {compute_dtype is not None}
+    assert spy.flags == dict.fromkeys(
+        ("group_points", "three_nn_interpolate", "group_points_backward",
+         "interpolate_backward"), want)
+
+
+@pytest.mark.parametrize("exact_gathers", [False, True])
+def test_engine_routes_gathers_under_bf16(monkeypatch, exact_gathers):
+    """``TrainEngine(compute_dtype=bf16)``: the train step gathers as
+    ``exact_gathers`` says; eval passes no ``fast_gather`` and so, as
+    tumseg's eval step, gathers fast under bf16. Weights, their gradients
+    and the optimizer state stay f32, and each Dense weight's gradient is a
+    bf16 value (tumseg's rounded dW)."""
+    from tumseg_torch.train.loop import TrainEngine
+
+    torch.manual_seed(0)
+    eng = TrainEngine(models.get_module("pointnet2_sem_seg").get_model(C),
+                      C, np.ones(C), device="cpu", compute_dtype=TBF,
+                      exact_gathers=exact_gathers)
+    x = np.random.default_rng(17).random((B, N, 6)).astype(np.float32)
+    t = (x[..., 2] * C).astype(np.int32)
+    spy = _Spy(monkeypatch)
+    loss, _ = eng.train_batch(x, t, 1e-3, 0.1)
+    assert math.isfinite(float(loss))
+    assert spy.flags == dict.fromkeys(
+        ("group_points", "three_nn_interpolate", "group_points_backward",
+         "interpolate_backward"), {not exact_gathers})
+    for name, p in eng.model.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, name
+        if name.endswith("weight") and p.dim() > 1:
+            assert torch.equal(p.grad, p.grad.to(TBF).float()), name
+    assert all(v.dtype == torch.float32 for st in
+               eng.optimizer.state.values() for v in st.values()
+               if v.is_floating_point())
+    spy.flags.clear()
+    eng.eval_batch(x, t)
+    assert spy.flags == {"group_points": {True},
+                         "three_nn_interpolate": {True}}
+
+
+# --------------------------------------------------------------------------
+# the models, a training step and the runner against tumseg
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def inputs():
+    return np.random.default_rng(1).random((B, N, 6)).astype(np.float32)
+
+
+def _calibrated(model_name, inputs):
+    """tumseg init, BN running stats calibrated on the inputs, as numpy
+    variables, and the port model holding them."""
+    var = jax.tree_util.tree_map(
+        np.asarray, JAX_MODELS[model_name].init(jax.random.PRNGKey(0), C, 0))
+    model = models.get_module(model_name).get_model(C).eval()
+    model.load_state_dict(state_dict_from_variables(var), strict=True)
+    calibrate_batch_norm(model, _t(inputs))
+    return variables_from_state_dict(model.state_dict()), model
+
+
+@pytest.mark.parametrize("model_name", list(JAX_MODELS))
+def test_forward_matches_tumseg(model_name, inputs):
+    """Log-probs within ``LOGP_STEPS`` bf16 steps of the largest |log-prob|
+    of tumseg's bf16 ``apply``; argmax as ``_assert_argmax_agrees``."""
+    variables, model = _calibrated(model_name, inputs)
+    jm = JAX_MODELS[model_name]
+    want = jax.jit(lambda v, x: jm.apply(v, x, compute_dtype=BF)[0])(
+        jax.tree_util.tree_map(jnp.asarray, variables), jnp.asarray(inputs))
+    with torch.inference_mode():
+        got, _ = model(_t(inputs), fast_gather=False, compute_dtype=TBF)
+    assert got.dtype == torch.float32 and got.shape == (B, N, C)
+    _assert_within_steps(got, want, LOGP_STEPS, model_name)
+    _assert_argmax_agrees(got, want, LOGP_STEPS * STEP
+                          * float(np.abs(_np(want)).max()))
+
+
+def _bf16_step_grads(training):
+    """One bf16 SSG step (FPS from 0, no dropout, weighted NLL) from
+    tumseg's init on centred inputs, BN in train mode or in eval mode on
+    tumseg's initial running stats: -> (port loss, port gradients, tumseg
+    loss, tumseg gradients), the gradients as (path, array) lists in
+    tumseg's order, tumseg's through ``jax.value_and_grad`` of its bf16
+    ``apply``."""
+    r = np.random.default_rng(18)
+    x = r.random((B, N, 6)).astype(np.float32) - np.float32(0.5)
+    t = r.integers(0, C, (B, N)).astype(np.int32)
+    w = (r.random(C) + 0.5).astype(np.float32)
+    var = jax.tree_util.tree_map(np.asarray,
+                                 jssg.init(jax.random.PRNGKey(0), C, 0))
+
+    @jax.jit
+    def value_and_grad(params):
+        def loss_fn(p):
+            logp, aux, _ = jssg.apply(
+                {"params": p, "batch_stats": var["batch_stats"]},
+                jnp.asarray(x), training=training, bn_momentum=0.1, rngs={},
+                compute_dtype=BF)
+            return jssg.loss(logp, jnp.asarray(t), aux, jnp.asarray(w))
+        return jax.value_and_grad(loss_fn)(params)
+
+    jloss, jgrads = value_and_grad(jax.tree_util.tree_map(jnp.asarray,
+                                                          var["params"]))
+    model = models.get_module("pointnet2_sem_seg").get_model(C)
+    model.load_state_dict(state_dict_from_variables(var), strict=True)
+    model.train(training)
+    logp, _ = model(_t(x), fast_gather=False, compute_dtype=TBF)
+    loss = model.loss(logp, _t(t), _t(w))
+    loss.backward()
+    sd = dict(model.state_dict())
+    sd.update({n: p.grad for n, p in model.named_parameters()})
+    got = list(tckpt._flatten(variables_from_state_dict(sd)["params"]))
+    want = jckpt._flatten_model(jgrads)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert all(g.shape == np.shape(jg) for (_, g), (_, jg) in zip(got, want))
+    return float(loss.detach()), got, float(jloss), want
+
+
+def _norm_gap(got, want):
+    """|got - want| / |want| over the whole gradient."""
+    diff = np.concatenate([np.ravel(g - np.asarray(jg))
+                           for (_, g), (_, jg) in zip(got, want)])
+    ref = np.concatenate([np.ravel(np.asarray(jg)) for _, jg in want])
+    return np.linalg.norm(diff) / np.linalg.norm(ref)
+
+
+def test_train_step_matches_tumseg():
+    """The bf16 train step as the engine takes it (train-mode BN): the loss
+    within one bf16 step (rtol 2^-8; 1.2e-3 here), every gradient finite.
+    Its gradients are not held to tumseg's here: in train mode on the CPU
+    each BN backward turns the bf16 steps of its input's batch sums into
+    gradients that move by about their own norm (tumseg's bf16 gradient is
+    0.95 of its norm away from tumseg's f32 one at this size, the port's
+    0.75 away from tumseg's; tests/test_torch_train.py says why the f32
+    step already moves by 10%). The next test holds them where the step is
+    conditioned."""
+    loss, got, jloss, want = _bf16_step_grads(True)
+    np.testing.assert_allclose(loss, jloss, rtol=STEP)
+    assert all(np.isfinite(g).all() for _, g in got)
+
+
+def test_gradients_match_tumseg_eval_bn():
+    """The same bf16 step with BN in eval mode on tumseg's initial running
+    stats, where the step is well conditioned: the loss within rtol 1e-5
+    and the whole gradient within 2% of tumseg's in norm (0.72% here,
+    where bf16 itself moves it 1.2% from the f32 gradient, in both
+    packages)."""
+    loss, got, jloss, want = _bf16_step_grads(False)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    assert _norm_gap(got, want) <= 0.02
+
+
+@pytest.fixture
+def scene(tmp_path):
+    r = np.random.default_rng(0)
+    n = 3000
+    xyz = np.stack([r.uniform(0, 4, n), r.uniform(0, 2, n),
+                    r.uniform(0, 6, n)], 1)
+    p = str(tmp_path / "scene.las")
+    write_las(p, xyz, r.choice([1, 2, 3, 7], n))
+    return p
+
+
+def test_runner_matches_tumseg_runner(scene, monkeypatch):
+    """``InferenceRunner(compute_dtype=bf16)`` against tumseg's bf16
+    runner (host featurization), same weights and dataset seed, one vote:
+    labels agree on >= 99% of scene points. The port's model is given
+    ``fast_gather=False`` (tumseg's CPU runner gathers exactly)."""
+    from tumseg.infer.voting import InferenceRunner as JaxRunner
+    from tumseg_torch.infer.voting import InferenceRunner
+
+    def dataset():
+        return TestGridDataset(las_file_list=[scene], num_classes=C,
+                               block_points=256, class8=True, color=False,
+                               seed=0)
+
+    var = jax.tree_util.tree_map(np.asarray,
+                                 jssg.init(jax.random.PRNGKey(0), C, 0))
+    model = models.get_module("pointnet2_sem_seg").get_model(C).eval()
+    model.load_state_dict(state_dict_from_variables(var), strict=True)
+    calibrate_batch_norm(model, _t(dataset()[0][0][:4].astype(np.float32)))
+    var = jax.tree_util.tree_map(
+        jnp.asarray, variables_from_state_dict(model.state_dict()))
+    want = JaxRunner(jssg, var, num_classes=C, batch_size=4,
+                     compute_dtype=BF, device_features=False,
+                     device_reblock=False).infer_scene(dataset(), 0, 1)
+    forward = model.forward
+    monkeypatch.setattr(model, "forward",
+                        lambda x, **kw: forward(x, fast_gather=False, **kw))
+    runner = InferenceRunner(model, num_classes=C, batch_size=4,
+                             device="cpu", compute_dtype=TBF)
+    got = runner.infer_scene(dataset(), 0, 1)
+    assert got.shape == want.shape == (3000,)
+    assert len(np.unique(want)) > 1
+    assert (got == want).mean() >= 0.98
+
+
+# --------------------------------------------------------------------------
+# the CLIs
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def workspace(tmp_path):
+    data_dir = tmp_path / "data"
+    data_dir.mkdir()
+    r = np.random.default_rng(0)
+    # 2000 points a m^2: a 1 m block holds the > 1024 points that the block
+    # sampler waits for
+    for name in ("building.las", "test_tile.las"):
+        xyz = np.stack([r.uniform(0, 2, 4000), r.uniform(0, 1, 4000),
+                        r.uniform(0, 5, 4000)], 1)
+        write_las(str(data_dir / name), xyz, r.choice([1, 2, 3, 7], 4000))
+    return tmp_path
+
+
+def test_cli_train_and_serve_bf16(workspace, monkeypatch):
+    """``cli.train --bf16`` for one epoch builds its engine with
+    ``compute_dtype=torch.bfloat16`` and logs finite losses; its
+    ``best_model.pth`` holds f32 weights that tumseg reads, and ``cli.test
+    --bf16`` serves it through a bf16 runner. SSG only, for time: the MSG
+    model's bf16 forward is held above, and ``chip_smoke.py`` [s] trains
+    and serves it through both CLIs with ``--bf16``."""
+    model_name = "pointnet2_sem_seg"
+    from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.cli import train as train_cli
+    from tumseg_torch.infer.voting import InferenceRunner
+    from tumseg_torch.train.loop import TrainEngine
+
+    seen = []
+    for cls in (TrainEngine, InferenceRunner):
+        def record(self, *args, _init=cls.__init__, **kw):
+            _init(self, *args, **kw)
+            seen.append((type(self).__name__, self.compute_dtype))
+        monkeypatch.setattr(cls, "__init__", record)
+    monkeypatch.chdir(workspace)
+    acc, loss, _ = train_cli.main(train_cli.parse_args([
+        "--model", model_name, "--rootdir", str(workspace / "data"),
+        "--test_area", "test_tile.las", "--class8", "--RGB_OFF",
+        "--exp_dir", str(workspace / "log"), "--log_dir", "run1", "--seed",
+        "0", "--npoint", "256", "--batch_size", "2", "--epoch", "1",
+        "--gpu", "cpu", "--bf16"]))
+    assert len(loss) == 1 and math.isfinite(loss[0]) and 0 <= acc[0] <= 1
+    run = workspace / "log" / "sem_seg" / "run1"
+    text = (run / "logs" / f"{model_name}.txt").read_text()
+    losses = [float(line.rsplit(":", 1)[1]) for line in text.splitlines()
+              if "Training mean loss:" in line]
+    assert len(losses) == 1 and math.isfinite(losses[0])
+    state = jckpt.load_checkpoint(str(run / "checkpoints" / "best_model.pth"))
+    assert all(np.asarray(a).dtype == np.float32 for a in
+               jax.tree_util.tree_leaves(state["model_state_dict"]))
+    out = test_cli.main(test_cli.parse_args([
+        "--model", model_name, "--rootdir", str(workspace / "data"),
+        "--test_area", "test_tile.las", "--class8", "--RGB_OFF",
+        "--exp_dir", str(workspace / "log") + "/sem_seg/", "--log_dir",
+        "run1", "--num_point", "256", "--batch_size", "4", "--num_votes",
+        "1", "--seed", "0", "--gpu", "cpu", "--bf16"]))
+    assert 0.0 <= out["miou"] <= 1.0 and len(out["iou"]) == C
+    assert seen == [("TrainEngine", TBF), ("InferenceRunner", TBF)]

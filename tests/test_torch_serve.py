@@ -102,15 +102,16 @@ def test_runner_predict_blocks_pads_and_trims(scene):
     np.testing.assert_array_equal(preds[4:], runner.predict_blocks(data[4:]))
 
 
-@pytest.mark.parametrize("option", ["mesh", "compute_dtype",
-                                    "device_features", "device_reblock"])
+@pytest.mark.parametrize("option", ["mesh", "device_features",
+                                    "device_reblock"])
 def test_runner_unported_options_raise(option):
-    """The mesh and bf16 compute are not ported and raise; the device
-    featurization and re-blocking paths are, and construct on the CPU when
-    asked for (tests/test_torch_vote_device.py drives them)."""
+    """The mesh is not ported and raises; the device featurization and
+    re-blocking paths are, and construct on the CPU when asked for
+    (tests/test_torch_vote_device.py drives them; tests/test_torch_bf16.py
+    the bf16 compute)."""
     from tumseg_torch.models.pointnet2_sem_seg import get_model
 
-    if option in ("mesh", "compute_dtype"):
+    if option == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceRunner(get_model(8), num_classes=8, device="cpu",
                             **{option: True})
@@ -185,7 +186,7 @@ def test_cli_end_to_end(workspace, monkeypatch):
     assert (run / "eval.txt").exists()
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--num_devices", "2"],
+@pytest.mark.parametrize("flag", [["--num_devices", "2"],
                                   ["--num_processes", "2"]])
 def test_cli_unported_flags_raise(workspace, flag):
     from tumseg_torch.cli import test as test_cli

@@ -409,7 +409,7 @@ def test_train_cli_end_to_end(workspace, monkeypatch):
     assert 0.0 <= out["miou"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--num_devices", "2"],
+@pytest.mark.parametrize("flag", [["--num_devices", "2"],
                                   ["--process_id", "0"],
                                   ["--data_pipeline", "device"]])
 def test_train_cli_unported_flags_raise(workspace, flag):

@@ -10,7 +10,10 @@ It runs on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu``; without
 a CUDA device any other ``--gpu`` raises. The runner keeps its "auto"
 defaults, as ``tumseg``'s CLI does: on CUDA it serves through the device
 re-blocking path (scene uploaded once, re-blocking, featurization and vote
-pooling on the device), on the CPU through host re-blocking.
+pooling on the device), on the CPU through host re-blocking. ``--bf16``
+serves in bf16 compute (``compute_dtype=torch.bfloat16``), with the
+single-pass bf16 gathers, as ``tumseg``'s ``--bf16`` does; the f32
+checkpoint serves either way.
 """
 
 from __future__ import annotations
@@ -112,10 +115,6 @@ def main(args):
     if (args.coordinator_address is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError("multi-process serving " + _NOT_PORTED)
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 1, "
-            "item 1)")
     device = resolve_device(args.gpu)
     print(args.class8)
     classes, NUM_CLASSES, label2color = class_tables(bool(args.class8))
@@ -178,8 +177,9 @@ def main(args):
     state = ckpt.load_checkpoint(ckpt_path)
     model.load_state_dict(state_dict_from_variables(state["model_state_dict"]))
 
-    runner = InferenceRunner(model, NUM_CLASSES, batch_size=args.batch_size,
-                             device=device)
+    runner = InferenceRunner(
+        model, NUM_CLASSES, batch_size=args.batch_size, device=device,
+        compute_dtype=torch.bfloat16 if args.bf16 else None)
     print("Begin testing")
     out = run_testing(
         dataset, runner, num_votes=args.num_votes,

@@ -9,10 +9,11 @@ that ``tumseg`` and the port both read. A checkpoint at
 ``<exp_dir>/sem_seg/<log_dir>/checkpoints<output_model>`` is resumed.
 
 It trains on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu`` (without
-a CUDA device any other ``--gpu`` raises), in f32 with exact gathers (TF32
-off). The ``--bf16``,
-multi-device, multi-process and device-pipeline options are not ported yet
-and raise.
+a CUDA device any other ``--gpu`` raises), with f32 weights and TF32 off,
+the train step on the single-pass bf16 gathers of the engine's default.
+``--bf16`` computes in bf16 (``TrainEngine(compute_dtype=torch.bfloat16)``)
+in the train step and in eval; the checkpoints stay f32. The multi-device,
+multi-process and device-pipeline options are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -116,10 +117,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported to tumseg_torch yet (ROADMAP Queue 1, "
-            "item 1)")
     if args.num_devices and args.num_devices > 1:
         raise NotImplementedError("--num_devices > 1 is not ported to "
                                   "tumseg_torch yet (ROADMAP Queue 1, item 5)")
@@ -234,7 +231,8 @@ def main(args):
     engine = TrainEngine(model, NUM_CLASSES, train_labelweights,
                          optimizer=args.optimizer,
                          weight_decay=args.decay_rate, seed=args.seed or 0,
-                         device=device)
+                         device=device,
+                         compute_dtype=torch.bfloat16 if args.bf16 else None)
 
     model_name = args.output_model
     resume_path = str(experiment_dir) + "/checkpoints" + model_name

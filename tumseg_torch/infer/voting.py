@@ -16,7 +16,11 @@ scene's ground truth. Three paths, chosen as ``tumseg`` chooses them:
 - host re-blocking: ``TestGridDataset.__getitem__`` builds the feature
   blocks on the host (the next vote's on a worker thread).
 
-Not ported: the device mesh and bf16 compute (ROADMAP Queue 1) raise
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs every forward in that
+compute dtype and, as ``tumseg``'s runner passes only the compute dtype,
+with the single-pass bf16 gathers (``tumseg/infer/voting.py:250-252``).
+
+Not ported: the device mesh (ROADMAP Queue 1) raises
 ``NotImplementedError``. The TPU's scene-shape buckets and block granules
 (``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
 exist to spare XLA recompiles, and PyTorch does not recompile. So is the
@@ -188,19 +192,19 @@ class InferenceRunner:
     device too, from draws of a ``torch.Generator`` seeded by
     ``(seed, scene, vote)``. ``window_ops`` ("auto" is off, as ``tumseg``
     measured it) takes the z-window 3-NN at fp1 inside the vote loop. True
-    works on the CPU as well, with the plain ops."""
+    works on the CPU as well, with the plain ops. ``compute_dtype`` (None:
+    f32) is the model's compute dtype, ``tumseg``'s ``--bf16``."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  batch_size: int = 32, device="cuda", mesh=None,
                  compute_dtype=None, device_features="auto",
                  device_reblock="auto", window_ops="auto", seed: int = 0):
-        for name, value in (("mesh", mesh), ("compute_dtype", compute_dtype)):
-            if value:
-                raise NotImplementedError(f"InferenceRunner {name} "
-                                          + _NOT_PORTED)
+        if mesh:
+            raise NotImplementedError("InferenceRunner mesh " + _NOT_PORTED)
         # full f32 everywhere: TF32 would cost the parity with tumseg
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.num_classes = num_classes
@@ -218,6 +222,11 @@ class InferenceRunner:
         self._scene_cache = {}
         self._grid_cache = {}
         self._cache_lock = threading.Lock()
+
+    def _labels(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N] argmax labels of the model's forward of ``x``."""
+        return self.model(x, compute_dtype=self.compute_dtype)[0].argmax(
+            dim=-1)
 
     def predict_blocks(self, scene_data: np.ndarray) -> np.ndarray:
         """scene_data [num_blocks, N, C] -> predicted labels [num_blocks, N].
@@ -239,7 +248,7 @@ class InferenceRunner:
             x = torch.as_tensor(np.ascontiguousarray(chunk, np.float32),
                                 device=self.device)
             with torch.inference_mode():
-                pred = self.model(x)[0].argmax(dim=-1)
+                pred = self._labels(x)
             yield pred, real
 
     def _cached(self, cache, dataset, scene_idx: int, build):
@@ -376,7 +385,7 @@ class InferenceRunner:
                 offs = torch.cat([offs, offs.new_zeros(pad, 2)])
             points = featurize(scene_xyz, scene_extra, coord_max, color_mask,
                                idx.clamp(max=n - 1), offs, block_size)
-            pred = self.model(points)[0].argmax(dim=-1)
+            pred = self._labels(points)
             flat = idx.reshape(-1).long() * C + pred.reshape(-1)
             pool_flat.index_add_(0, flat,
                                  torch.ones_like(flat, dtype=pool_flat.dtype))

@@ -54,7 +54,7 @@ class PointNet2SemSeg(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                fast_gather: bool = False):
+                fast_gather: Optional[bool] = None, compute_dtype=None):
         """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
         room-normalized xyz, then extra features) ->
         (log_probs [B, N, num_classes], l4_points [B, 16, sa4's width]).
@@ -65,7 +65,11 @@ class PointNet2SemSeg(nn.Module):
         one, FPS starts at 0 and there is no dropout, as ``apply`` does
         without ``rngs``. ``fast_gather`` takes the single-pass bf16 gathers
         in every set abstraction and feature propagation, as ``apply`` does
-        with ``fast_gather=True``."""
+        with ``fast_gather=True``; None resolves to ``compute_dtype is not
+        None`` in each layer. ``compute_dtype`` (e.g. ``torch.bfloat16``)
+        is ``apply``'s: every ``Dense``, the head's two included, rounds its
+        operands to it and returns f32; BN, ReLU, dropout and log_softmax
+        run in f32."""
         draw = generator is not None and self.training
         B = x.shape[0]
         l_xyz = [x[..., :3].contiguous()]
@@ -78,21 +82,22 @@ class PointNet2SemSeg(nn.Module):
                                       dtype=torch.int32)
             new_xyz, new_points = getattr(self, f"sa{i}")(
                 l_xyz[-1], l_points[-1], fps_start=start,
-                fast_gather=fast_gather)
+                fast_gather=fast_gather, compute_dtype=compute_dtype)
             l_xyz.append(new_xyz)
             l_points.append(new_points)
         feat = l_points[4]
         for i, lvl in zip([4, 3, 2, 1], [3, 2, 1, 0]):
             skip = l_points[lvl] if lvl > 0 else None
             feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
-                                           feat, fast_gather)
-        h = F.relu(self.bn1(self.conv1(feat)))
+                                           feat, fast_gather, compute_dtype)
+        h = F.relu(self.bn1(self.conv1(feat, compute_dtype)))
         if draw:
             keep = 1.0 - DROPOUT_RATE
             mask = torch.rand(h.shape, generator=generator,
                               device=h.device) < keep
             h = torch.where(mask, h / keep, 0.0)
-        return F.log_softmax(self.conv2(h), dim=-1), l_points[4]
+        return (F.log_softmax(self.conv2(h, compute_dtype), dim=-1),
+                l_points[4])
 
     @staticmethod
     def loss(log_probs: torch.Tensor, target: torch.Tensor,

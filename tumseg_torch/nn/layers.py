@@ -8,11 +8,21 @@ abstractions, ``[out, in, 1]`` in feature propagation and the head — so
 the last axis of a 2-D view of that weight, never a cuDNN convolution, whose
 default TF32 would cost the 2e-3 log-prob parity with ``tumseg``.
 
-``fast_gather`` (default False, as ``tumseg``'s layers resolve it without a
-``compute_dtype``) takes the single-pass bf16 gathers of ``tumseg_torch.ops``.
-A set abstraction's grouped tensor is then bf16, and its MLP is fed
-``grouped.float()``: exact, and what ``tumseg``'s ``dense`` does with a bf16
-operand and f32 weights (``tumseg/nn/layers.py:62-71``).
+``compute_dtype`` (None, or e.g. ``torch.bfloat16``) is ``tumseg``'s
+compute dtype (``tumseg/nn/layers.py:62-71``, ``:147-164``): each
+:class:`Dense` rounds its input and weight to it and returns f32 (an f32
+accumulation, the bias added in f32), BatchNorm computes in f32, and an MLP
+stores the activations between its layers in that dtype; the last layer's
+output, and so the K-max of a set abstraction, stays f32. Without it every
+layer computes in f32.
+
+``fast_gather`` takes the single-pass bf16 gathers of ``tumseg_torch.ops``.
+None resolves it as ``tumseg``'s layers do, to ``compute_dtype is not None``
+(``tumseg/nn/layers.py:189-190``, ``:225-226``, ``:266-267``). A set
+abstraction's grouped tensor is then bf16: with a compute dtype it goes to
+the first ``Dense`` as it is; in f32 compute the MLP is fed
+``grouped.float()``, exact, and what ``tumseg``'s ``dense`` does with a bf16
+operand and f32 weights.
 """
 
 from __future__ import annotations
@@ -51,9 +61,63 @@ class Dense(nn.Module):
             nn.init.uniform_(self.weight, -bound, bound)
             nn.init.uniform_(self.bias, -bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """x [..., in] -> [..., out]. In f32, ``F.linear`` (TF32 off at the
+        entry points); with a ``compute_dtype``, :class:`LowPrecisionLinear`:
+        f32 output from operands rounded to that dtype."""
         w = self.weight.view(self.weight.shape[0], self.weight.shape[1])
-        return F.linear(x, w, self.bias)
+        if compute_dtype is None:
+            return F.linear(x, w, self.bias)
+        return LowPrecisionLinear.apply(x, w, self.bias, compute_dtype)
+
+
+def _mm_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [N, K]^T of two low-precision operands with an f32
+    result. On the card, cuBLAS's GEMM with f32 accumulation and output
+    (``aten::mm.dtype``); on the CPU, which has no such kernel, the f32
+    product of the upcast operands: each product of two bf16 (or f16)
+    values is exact in f32, so the two differ only in summation order."""
+    if x.device.type == "cuda":
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return x.float() @ w.float().t()
+
+
+class LowPrecisionLinear(torch.autograd.Function):
+    """``tumseg``'s ``dense`` with a compute dtype and its ``jax.grad``
+    (``tumseg/nn/layers.py:62-71``): x [..., in] (any float dtype), w
+    [out, in] f32, b [out] f32 -> y [..., out] f32 =
+    ``round(x) @ round(w)^T`` accumulated in f32, plus b in f32, where
+    ``round`` is to ``dtype``.
+
+    The backward is the transpose that JAX derives, not autograd's of a
+    low-precision ``F.linear``: with the f32 cotangent g,
+    ``dx = round(g @ round(w))`` in x's dtype, ``dw = round(g^T @ round(x))``
+    as f32 and ``db = sum(g)`` in f32; both products are f32 GEMMs of the
+    rounded operands (TF32 off at the entry points)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                dtype) -> torch.Tensor:
+        x2 = x.reshape(-1, x.shape[-1]).to(dtype)
+        w2 = w.to(dtype)
+        ctx.save_for_backward(x2, w2)
+        ctx.dtype, ctx.x_dtype, ctx.x_shape = dtype, x.dtype, x.shape
+        y = _mm_f32_out(x2, w2).add_(b)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, w2 = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w2.float()).to(ctx.dtype).to(ctx.x_dtype)
+            dx = dx.reshape(ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = (g2.t() @ x2.float()).to(ctx.dtype).float()
+        if ctx.needs_input_grad[2]:
+            db = g2.sum(dim=0)
+        return dx, dw, db, None
 
 
 class BatchNorm(nn.Module):
@@ -64,7 +128,8 @@ class BatchNorm(nn.Module):
     stats become ``(1 - momentum) * running + momentum * batch`` with the
     unbiased batch var; the training engine sets ``momentum`` each step.
     ``F.batch_norm`` computes the variance another way, so it is not used.
-    In eval mode the running stats are used."""
+    In eval mode the running stats are used. It computes in f32 and returns
+    its input's dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -78,9 +143,10 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean) * inv + self.bias
+            return ((x - self.running_mean) * inv + self.bias).to(dtype)
         dims = tuple(range(x.dim() - 1))
         mean = x.mean(dim=dims)
         var = (x * x).mean(dim=dims) - mean * mean
@@ -92,7 +158,7 @@ class BatchNorm(nn.Module):
             self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
             self.num_batches_tracked += 1
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        return ((x - mean) * inv + self.bias).to(dtype)
 
 
 @torch.no_grad()
@@ -126,10 +192,16 @@ def _mlp_layers(in_dim: int, dims: Sequence[int], conv_rank: int):
     return convs, bns
 
 
-def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList,
-             x: torch.Tensor) -> torch.Tensor:
-    for conv, bn in zip(convs, bns):
-        x = F.relu(bn(conv(x)))
+def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList, x: torch.Tensor,
+             compute_dtype=None) -> torch.Tensor:
+    """[Dense -> BatchNorm -> ReLU] * L; with a ``compute_dtype`` the
+    activations between layers are stored in it (the next ``Dense`` would
+    round them anyway) and the last layer's output stays f32."""
+    last = len(convs) - 1
+    for i, (conv, bn) in enumerate(zip(convs, bns)):
+        x = F.relu(bn(conv(x, compute_dtype)))
+        if compute_dtype is not None and i < last:
+            x = x.to(compute_dtype)
     return x
 
 
@@ -141,8 +213,14 @@ class MLPStack(nn.Module):
         super().__init__()
         self.mlp_convs, self.mlp_bns = _mlp_layers(in_dim, dims, conv_rank)
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return _run_mlp(self.mlp_convs, self.mlp_bns, x)
+    def mlp(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        return _run_mlp(self.mlp_convs, self.mlp_bns, x, compute_dtype)
+
+
+def _mlp_input(grouped: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A grouped tensor as an MLP's input: as it is with a compute dtype
+    (the first ``Dense`` rounds it), else f32."""
+    return grouped if compute_dtype is not None else grouped.float()
 
 
 class SetAbstraction(MLPStack):
@@ -157,15 +235,18 @@ class SetAbstraction(MLPStack):
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
-                fast_gather: bool = False):
+                fast_gather: Optional[bool] = None, compute_dtype=None):
         """``fps_start`` [B] int32 seeds FPS (default index 0). The max over
         K is ``amax``, which splits the gradient evenly among tied entries,
         as ``jnp.max`` does: a short ball repeats its first hit, so ties
         are the rule."""
+        if fast_gather is None:
+            fast_gather = compute_dtype is not None
         new_xyz, grouped = ops.sample_and_group(
             self.npoint, self.radius, self.nsample, xyz, points,
             fps_start=fps_start, fast_gather=fast_gather)
-        return new_xyz, self.mlp(grouped.float()).amax(dim=2)
+        feat = self.mlp(_mlp_input(grouped, compute_dtype), compute_dtype)
+        return new_xyz, feat.amax(dim=2)
 
 
 class SetAbstractionMsg(nn.Module):
@@ -193,8 +274,10 @@ class SetAbstractionMsg(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
-                fast_gather: bool = False):
+                fast_gather: Optional[bool] = None, compute_dtype=None):
         """``fps_start`` [B] int32 seeds FPS (default index 0)."""
+        if fast_gather is None:
+            fast_gather = compute_dtype is not None
         new_xyz = ops.gather_rows(xyz, ops.farthest_point_sample(
             xyz, self.npoint, start=fps_start))
         src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
@@ -206,7 +289,9 @@ class SetAbstractionMsg(nn.Module):
             if points is not None:  # [centred xyz, points] -> [points, xyz]
                 grouped = torch.cat([grouped[..., 3:], grouped[..., :3]],
                                     dim=-1)
-            outs.append(_run_mlp(convs, bns, grouped.float()).amax(dim=2))
+            outs.append(_run_mlp(convs, bns,
+                                 _mlp_input(grouped, compute_dtype),
+                                 compute_dtype).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -219,7 +304,10 @@ class FeaturePropagation(MLPStack):
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 points1: Optional[torch.Tensor], points2: torch.Tensor,
-                fast_gather: bool = False) -> torch.Tensor:
+                fast_gather: Optional[bool] = None,
+                compute_dtype=None) -> torch.Tensor:
+        if fast_gather is None:
+            fast_gather = compute_dtype is not None
         if xyz2.shape[1] == 1:
             interpolated = points2.expand(-1, xyz1.shape[1], -1)
         else:
@@ -227,4 +315,4 @@ class FeaturePropagation(MLPStack):
                                                  fast_gather)
         if points1 is not None:
             interpolated = torch.cat([points1, interpolated], dim=-1)
-        return self.mlp(interpolated)
+        return self.mlp(interpolated, compute_dtype)

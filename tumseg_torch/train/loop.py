@@ -11,9 +11,13 @@ Same behaviour as ``tumseg``'s host-pipeline path:
   all drawn from the engine's ``torch.Generator`` on the device;
 - f32 weights and, unless ``exact_gathers``, single-pass bf16 gathers in
   the train step (``fast_gather``: the neighbourhood groups store bf16, the
-  interpolations round their operands to bf16), exact gathers in eval, as
-  ``tumseg``'s engine trains on its accelerator (``tumseg/train/loop.py:85,
-  126, 147-150``);
+  interpolations round their operands to bf16), as ``tumseg``'s engine
+  trains on its accelerator (``tumseg/train/loop.py:85, 126``);
+- ``compute_dtype`` (``--bf16``: ``torch.bfloat16``), ``tumseg``'s compute
+  dtype, in the train step and in eval; eval passes no ``fast_gather``, so
+  it gathers exactly in f32 compute and takes the single-pass bf16 gathers
+  under a compute dtype (``tumseg/train/loop.py:147-150``). The weights,
+  their gradients, Adam and the checkpoints stay f32;
 - per-epoch eval with per-class IoU and mIoU, a checkpoint every 5 epochs
   and on the best mIoU, and the accuracy / loss / IoU charts.
 
@@ -68,17 +72,20 @@ def make_optimizer(params, name: str = "Adam",
 class TrainEngine:
     """Holds the model, its optimizer and the random stream of training.
     ``exact_gathers`` (default False, as in ``tumseg``) makes the train step
-    gather exactly too."""
+    gather exactly too; ``compute_dtype`` (None: f32) is the model's compute
+    dtype in the train step and in eval."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
-                 seed: int = 0, device="cuda", exact_gathers: bool = False):
+                 seed: int = 0, device="cuda", exact_gathers: bool = False,
+                 compute_dtype=None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.num_classes = num_classes
         self.augment_rotate = augment_rotate
         self.exact_gathers = exact_gathers
+        self.compute_dtype = compute_dtype
         self.weights = torch.as_tensor(
             np.asarray(train_weights, dtype=np.float32), device=self.device)
         self.optimizer = make_optimizer(self.model.parameters(), optimizer,
@@ -125,7 +132,8 @@ class TrainEngine:
             points = torch.cat([rotate_z(points[..., :3], angles),
                                 points[..., 3:]], dim=-1)
         logp, _ = self.model(points, generator=self.generator,
-                             fast_gather=not self.exact_gathers)
+                             fast_gather=not self.exact_gathers,
+                             compute_dtype=self.compute_dtype)
         loss = self.model.loss(logp, target, self.weights)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -135,11 +143,12 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_batch(self, points, target):
-        """-> (loss, {seen, predicted, correct}) as device tensors; the
-        gathers are exact."""
+        """-> (loss, {seen, predicted, correct}) as device tensors. The
+        gathers resolve as in ``tumseg``'s eval step: exact in f32 compute,
+        single-pass bf16 under a compute dtype."""
         points, target = self._put(points, target)
         self.model.eval()
-        logp, _ = self.model(points)
+        logp, _ = self.model(points, compute_dtype=self.compute_dtype)
         loss = self.model.loss(logp, target, self.weights)
         return loss, M.confusion_tallies(logp.argmax(-1), target,
                                          self.num_classes)
