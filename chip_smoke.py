@@ -163,6 +163,33 @@ s. (after r) bf16 compute (``compute_dtype=torch.bfloat16``, ``--bf16``):
    plain as in f, timed beside the f32 step; and trains SSG as in g and
    MSG as in k through ``tumseg_torch.cli.train --bf16``, serving each
    ``best_model.pth`` with ``--bf16``.
+t. (after n) ``pointnet_sem_seg``, which reaches no point kernel: its
+   B=32 x 4096 forward from seeded weights, BN statistics calibrated on the
+   facade blocks (all but the STN's fc batch norms, which normalise over
+   the blocks alone): the card's f32 log-probs of two blocks within 1e-3
+   of the CPU's forward of the same weights and blocks, argmax agreement
+   >= 0.999, >= 2 classes; bf16 compute against f32 (max |dlogp|, argmax
+   agreement; printed, not held); f32 and bf16 timed in turns (median of
+   3), peak memory over what was held before and a profiler breakdown by
+   kind of kernel as in s; no kernel launched;
+u. serves d's tile with those weights through ``tumseg_torch.cli.test
+   --model pointnet_sem_seg``, f32 and ``--bf16`` in turns: scene-points/s,
+   a finite mIoU, labels not constant, every kernel's launches 0;
+v. one PointNet training step at B=16 x 4096 on the card and on the CPU,
+   in train-mode and in eval-mode BN: loss within rtol 1e-5 of the CPU's
+   (with the regularizer, > 0); gradients held against an f64 step on the
+   CPU, no further from it than three times the CPU's f32 step (at least
+   1e-4; see ``phase_pointnet_train``); the step timed in f32 and bf16 in
+   turns; trains through ``tumseg_torch.cli.train --model
+   pointnet_sem_seg`` (1 epoch, >= 6 steps, no kernel launched: training
+   points/s) and serves its ``best_model.pth``;
+w. the frozen variants: ``pointnet2_sem_seg_trial`` serves d's tile with
+   c's weights through the CLI, with the SSG's launches per forward;
+   ``pointnet2_sem_seg_original`` (9 channels, 3 of them uniform in
+   [0, 1)) runs a forward with the kernels against plain as c does;
+   ``pointnet_sem_seg_original`` a finite forward at 9 channels with no
+   kernel launched; each variant raises ``ValueError`` on another count of
+   extra channels.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -271,12 +298,20 @@ PER_FORWARD = {
                               "three_nn_interpolate": 4,
                               "three_nn_window": 0},
 }
+PER_FORWARD["pointnet2_sem_seg_trial"] = PER_FORWARD["pointnet2_sem_seg"]
+# PointNet reaches no point kernel: every count stays 0 in its runs
+POINTNET = "pointnet_sem_seg"
+PER_FORWARD[POINTNET] = dict.fromkeys(SOURCES, 0)
+# the frozen variants and the extra feature channels each one pins
+FROZEN = {"pointnet2_sem_seg_original": 3, "pointnet2_sem_seg_trial": 0,
+          "pointnet_sem_seg_original": 3}
 # backward launches of one training step: group backward where the source
 # needs a gradient (sa2-sa4, once per radius), interpolation at fp1-fp4
 PER_STEP = {
     "pointnet2_sem_seg": {"group_backward": 3, "interpolate_backward": 4},
     "pointnet2_sem_seg_msg": {"group_backward": 6, "interpolate_backward": 4,
                               "ball_query_multi": 4},
+    POINTNET: {},
 }
 # fast launches of one training step with fast gathers: the neighbourhood
 # groups (once per radius), the interpolations and both backward kernels
@@ -286,6 +321,7 @@ FAST_PER_STEP = {
     "pointnet2_sem_seg_msg": {"group": 8, "three_nn_interpolate": 4,
                               "group_backward": 6,
                               "interpolate_backward": 4},
+    POINTNET: {},
 }
 
 
@@ -307,6 +343,17 @@ def facade_batch(rng, b, n):
     norm = xyz - xyz.min(axis=(0, 1)) + 0.01
     return np.concatenate([xyz, norm / norm.max(axis=(0, 1))],
                           axis=-1).astype(np.float32)
+
+
+def model_batch(b, n, extra=0):
+    """[b, n, 6 + extra] inputs of seed SEED + 1: ``facade_batch``, then
+    ``extra`` channels uniform in [0, 1) (an RGB of sorts)."""
+    x = facade_batch(np.random.default_rng(SEED + 1), b, n)
+    if extra:
+        rgb = np.random.default_rng(SEED + 6).random((b, n, extra),
+                                                     dtype=np.float32)
+        x = np.concatenate([x, rgb], axis=-1)
+    return x
 
 
 def write_facade_tile(rng, path, n, length=20.0):
@@ -681,12 +728,11 @@ def phase_kernels(torch, report):
               f"{torch.equal(ok, op)}")
 
 
-def phase_forward(torch, model_name, tag):
+def phase_forward(torch, model_name, tag, extra=0):
     from tumseg_torch import models, ops
     from tumseg_torch.nn.layers import calibrate_batch_norm
 
-    x = torch.as_tensor(facade_batch(np.random.default_rng(SEED + 1), B, N),
-                        device=DEVICE)
+    x = torch.as_tensor(model_batch(B, N, extra), device=DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
@@ -779,11 +825,11 @@ def phase_serve(torch, work, state_dict, model_name, tag, bf16=False,
     # interpolation, none exact (the K = 1 centroid gathers, one a FPS,
     # always are); f32 compute none fast
     exact = {k: launches[k] - fast[k] for k in fast}
-    if bf16 and (fast["group"] < forwards * (PER_FORWARD[model_name]["group"]
-                                             - 4)
-                 or exact["group"] != launches["fps"]
-                 or fast["three_nn_interpolate"] < forwards * 4
-                 or exact["three_nn_interpolate"] != 0):
+    if bf16 and PER_FORWARD[model_name]["group"] and (
+            fast["group"] < forwards * (PER_FORWARD[model_name]["group"] - 4)
+            or exact["group"] != launches["fps"]
+            or fast["three_nn_interpolate"] < forwards * 4
+            or exact["three_nn_interpolate"] != 0):
         raise AssertionError(f"bf16 serving launched {launches}, of them "
                              f"fast {fast}")
     if not bf16 and any(fast.values()):
@@ -1097,8 +1143,8 @@ def phase_train_step(torch, state_dict, model_name, tag, compute_dtype=None):
     base.train()
 
     def step(model, fast, opt=None, dtype=compute_dtype):
-        logp, _ = model(x, fast_gather=fast, compute_dtype=dtype)
-        loss = model.loss(logp, target, weight)
+        logp, aux = model(x, fast_gather=fast, compute_dtype=dtype)
+        loss = model.loss(logp, target, aux, weight)
         if opt is not None:
             opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -2053,6 +2099,238 @@ def phase_bf16(torch, work, states):
                     "s", bf16=True)
 
 
+def no_launches(what):
+    """Raises if any point kernel was launched since the counts were set to
+    0 (the caller sets them)."""
+    from tumseg_torch.ops import kernels
+
+    launched = {k: n for k, n in kernels.launches.items() if n}
+    if launched:
+        raise AssertionError(f"{what} launched point kernels: {launched}")
+
+
+def phase_pointnet_forward(torch):
+    """PointNet's forward at B=32 x 4096: the card's f32 log-probs of two
+    blocks against the CPU's forward of the same weights and blocks, bf16
+    beside f32, times in turns and peak memory; no kernel launched. ->
+    the weights (BN calibrated on the blocks), on the CPU."""
+    from tumseg_torch import models
+    from tumseg_torch.nn.layers import calibrate_batch_norm
+    from tumseg_torch.ops import kernels
+
+    bf16 = torch.bfloat16
+    xh = model_batch(B, N)
+    x = torch.as_tensor(xh, device=DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    model = models.get_module(POINTNET).get_model(8).to(DEVICE).eval()
+    calibrate_batch_norm(model, x)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu = models.get_module(POINTNET).get_model(8).eval()
+    cpu.load_state_dict(state)
+
+    def fwd(dtype):
+        return model(x, compute_dtype=dtype)[0]
+
+    with torch.inference_mode():
+        kernels.reset_launches()
+        l32, trans_feat = model(x)
+        lb = fwd(bf16)
+        no_launches("the PointNet forward")
+        if (l32.shape != (B, N, 8) or trans_feat.shape != (B, 64, 64)
+                or not torch.isfinite(l32).all()
+                or not torch.isfinite(lb).all()):
+            raise AssertionError("PointNet log-probs not finite / bad shape")
+        got = l32[:2].cpu()
+        want = cpu(torch.as_tensor(xh[:2]))[0]
+        diff = (got - want).abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        classes = l32.argmax(-1).unique().numel()
+        d32 = (lb - l32).abs().max().item()
+        agree32 = (lb.argmax(-1) == l32.argmax(-1)).float().mean().item()
+        print(f"[t] {POINTNET} forward B={B}x{N}: blocks 0-1 against the "
+              f"CPU's forward max|dlogp| {diff:g}, argmax agree "
+              f"{agree:.6f}; {classes} classes predicted; bf16 against f32 "
+              f"compute (same weights) max|dlogp| {d32:g}, argmax agree "
+              f"{agree32:.6f}")
+        if diff > 1e-3 or agree < 0.999:
+            raise AssertionError("PointNet on the card disagrees with the "
+                                 "CPU")
+        if classes < 2:
+            raise AssertionError("constant labels: the check would be void")
+        times = {None: [], bf16: []}
+        for dtype in (None, bf16, bf16, None):
+            times[dtype].append(time_ms(torch, lambda: fwd(dtype), 3))
+        peak = {}
+        for dtype in (None, bf16):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd(dtype)
+            torch.cuda.synchronize()
+            peak[dtype] = (torch.cuda.max_memory_allocated() - held) / 1e6
+        for dtype in (None, bf16):
+            kinds, top, events = forward_breakdown(torch, lambda: fwd(dtype))
+            print(f"[t] {POINTNET} {'bf16' if dtype else 'f32'} forward, "
+                  f"profiler device ms by kind ({events} kernel events): "
+                  f"{kinds}; most: {top}")
+    print(f"[t] {POINTNET} forward B={B}x{N} (median of 3, two turns each): "
+          f"f32 {[round(t, 3) for t, _ in times[None]]} ms "
+          f"{[[round(r, 3) for r in runs] for _, runs in times[None]]}; "
+          f"bf16 {[round(t, 3) for t, _ in times[bf16]]} ms "
+          f"{[[round(r, 3) for r in runs] for _, runs in times[bf16]]}; "
+          f"peak memory over what was held before: f32 {peak[None]:.1f} MB, "
+          f"bf16 {peak[bf16]:.1f} MB")
+    return state
+
+
+def phase_pointnet_serve(torch, work, state):
+    """PointNet serves d's tile through the test CLI, f32 and ``--bf16`` in
+    turns; ``phase_serve`` checks that no point kernel is launched."""
+    rates, labels = {False: [], True: []}, {}
+    for bf, run in ((False, "_1"), (True, "_1"), (True, "_2"),
+                    (False, "_2")):
+        _, _, rate, labels[bf] = phase_serve(torch, work, state, POINTNET,
+                                             "u", bf16=bf, run=run)
+        rates[bf].append(rate)
+    print(f"[u] {POINTNET} served labels, bf16 against f32 compute: agree on "
+          f"{(labels[True] == labels[False]).mean():.6f} of "
+          f"{labels[True].size} points; scene-points/s in turns (f32, bf16, "
+          f"bf16, f32): f32 {[round(r) for r in rates[False]]}, bf16 "
+          f"{[round(r) for r in rates[True]]}")
+
+
+def phase_pointnet_train(torch, work, state):
+    """One PointNet training step at B=16 x 4096 on the card against the
+    CPU's, in train-mode and in eval-mode BN, times of the step in f32 and
+    bf16, and a short run of the training CLI.
+
+    The loss is held to the CPU's within rtol 1e-5. The gradients are held
+    to an f64 step of the same model on the CPU (BN in f64 too), which both
+    f32 steps only approach: the batch's sums cancel, the STN's fc batch
+    norms divide by the spread of B = 16 block features, and in train mode
+    an argmax of the max over the points may move. So the card's gradients
+    may lie no further from the f64 step than three times the CPU's f32
+    step lies from it (``grad_gap``), and at least 1e-4, [f]'s limit."""
+    import copy
+
+    from tumseg_torch import models
+    from tumseg_torch.nn.layers import feature_transform_regularizer
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.train.loop import make_optimizer
+
+    rng = np.random.default_rng(SEED + 4)
+    xh = facade_batch(rng, TRAIN_B, N)
+    target_h = (xh[..., 5] * 7.999).astype(np.int64)
+    weight_h = rng.random(8).astype(np.float32) + 0.5
+    base = models.get_module(POINTNET).get_model(8)
+    base.load_state_dict(state)
+
+    def inputs(device, dtype=torch.float32):
+        return (torch.as_tensor(xh, device=device, dtype=dtype),
+                torch.as_tensor(target_h, device=device),
+                torch.as_tensor(weight_h, device=device, dtype=dtype))
+
+    def step(model, x, target, weight, compute_dtype=None, opt=None):
+        logp, trans_feat = model(x, compute_dtype=compute_dtype)
+        loss = model.loss(logp, target, trans_feat, weight)
+        if opt is not None:
+            opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if opt is not None:
+            opt.step()
+        return loss.detach(), trans_feat.detach()
+
+    def grads(device, dtype, train):
+        model = copy.deepcopy(base).to(device=device, dtype=dtype)
+        loss, trans_feat = step(model.train(train), *inputs(device, dtype))
+        reg = float(feature_transform_regularizer(trans_feat))
+        return float(loss), reg, {n: p.grad.double().cpu()
+                                  for n, p in model.named_parameters()}
+
+    kernels.reset_launches()
+    for train in (True, False):
+        mode = "train" if train else "eval"
+        lk, rk, gk = grads(DEVICE, torch.float32, train)
+        lc, rc, gc = grads("cpu", torch.float32, train)
+        l64, _, g64 = grads("cpu", torch.float64, train)
+        card, card_name = grad_gap(gk, g64)
+        cpu, cpu_name = grad_gap(gc, g64)
+        limit = max(1e-4, 3 * cpu)
+        print(f"[v] {POINTNET} step B={TRAIN_B}x{N}, {mode}-mode BN: loss "
+              f"{lk:.7f} (card) {lc:.7f} (CPU) {l64:.7f} (CPU f64), with "
+              f"0.001 x the regularizer {rk:.5f} (card) {rc:.5f} (CPU); "
+              f"gradients against the f64 step: card {card:.3g} "
+              f"({card_name}), CPU f32 {cpu:.3g} ({cpu_name}), limit "
+              f"{limit:.3g}; card against CPU f32 {grad_gap(gk, gc)[0]:.3g}")
+        if not (math.isfinite(lk) and abs(lk - lc) <= 1e-5 * abs(lc)):
+            raise AssertionError(f"PointNet {mode} step loss {lk} (card) vs "
+                                 f"{lc} (CPU)")
+        if not (rk > 0.0 and math.isfinite(rk)):
+            raise AssertionError(f"regularizer {rk}")
+        if card > limit:
+            raise AssertionError(f"gradient of {card_name}: {card:g} x its "
+                                 f"layer's max|g| from the f64 step, limit "
+                                 f"{limit:g}")
+    no_launches("the PointNet training steps")
+
+    def timed(dtype):
+        model = copy.deepcopy(base).to(DEVICE).train()
+        opt = make_optimizer(model.parameters(), "Adam", 1e-4)
+        args = inputs(DEVICE)
+        return time_ms(torch, lambda: step(model, *args, dtype, opt), 1)[0]
+
+    bf16 = torch.bfloat16
+    runs = {None: [], bf16: []}
+    for dtype in (None, bf16, bf16, None):
+        runs[dtype].append(timed(dtype))
+    print(f"[v] {POINTNET} train step B={TRAIN_B}x{N} (forward + backward + "
+          f"Adam, median of 3, two turns each): f32 "
+          f"{[round(v, 3) for v in runs[None]]} ms, bf16 compute "
+          f"{[round(v, 3) for v in runs[bf16]]} ms")
+    launches = phase_train_cli(torch, work, POINTNET, 1, 6, "v")
+    if any(launches.values()):
+        raise AssertionError(f"PointNet training launched {launches}")
+
+
+def phase_frozen(torch, work, ssg_state):
+    """The frozen variants: ``pointnet2_sem_seg_trial`` served through the
+    CLI with the SSG's weights of c and launches; ``pointnet2_sem_seg_
+    original`` (9 channels) held against plain as c holds the SSG;
+    ``pointnet_sem_seg_original`` run at 9 channels; each rejects another
+    count of extra channels."""
+    from tumseg_torch import models
+    from tumseg_torch.nn.layers import calibrate_batch_norm
+    from tumseg_torch.ops import kernels
+
+    phase_serve(torch, work, ssg_state, "pointnet2_sem_seg_trial", "w")
+    phase_forward(torch, "pointnet2_sem_seg_original", "w", extra=3)
+    x = torch.as_tensor(model_batch(B, N, 3), device=DEVICE)
+    torch.manual_seed(SEED)
+    model = models.get_module("pointnet_sem_seg_original").get_model(8)
+    model = model.to(DEVICE).eval()
+    kernels.reset_launches()
+    calibrate_batch_norm(model, x)
+    with torch.inference_mode():
+        logp = model(x)[0]
+        no_launches("pointnet_sem_seg_original")
+        classes = logp.argmax(-1).unique().numel()
+        if (logp.shape != (B, N, 8) or not torch.isfinite(logp).all()
+                or classes < 2):
+            raise AssertionError(f"pointnet_sem_seg_original: {logp.shape}, "
+                                 f"{classes} classes")
+    for name, fixed in FROZEN.items():
+        try:
+            models.get_module(name).get_model(8, fixed + 1)
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} took {fixed + 1} extra channels")
+    print(f"[w] pointnet_sem_seg_original forward B={B}x{N}x9: finite, "
+          f"{classes} classes, no kernel launched; every frozen variant "
+          f"rejects another extra-channel count")
+
+
 def main() -> int:
     import torch
 
@@ -2110,6 +2388,11 @@ def main() -> int:
     launches["three_nn_window"] = phase_serve_paths(
         torch, work, state_dict)["three_nn_window"]
     phase_scale(torch, work, state_dict)
+
+    pointnet_state = phase_pointnet_forward(torch)
+    phase_pointnet_serve(torch, work, pointnet_state)
+    phase_pointnet_train(torch, work, pointnet_state)
+    phase_frozen(torch, work, state_dict)
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

@@ -493,8 +493,8 @@ def _bf16_step_grads(training):
     model = models.get_module("pointnet2_sem_seg").get_model(C)
     model.load_state_dict(state_dict_from_variables(var), strict=True)
     model.train(training)
-    logp, _ = model(_t(x), fast_gather=False, compute_dtype=TBF)
-    loss = model.loss(logp, _t(t), _t(w))
+    logp, aux = model(_t(x), fast_gather=False, compute_dtype=TBF)
+    loss = model.loss(logp, _t(t), aux, _t(w))
     loss.backward()
     sd = dict(model.state_dict())
     sd.update({n: p.grad for n, p in model.named_parameters()})

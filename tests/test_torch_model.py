@@ -157,18 +157,32 @@ def test_checkpoint_rejects_pickle(tmp_path):
         tckpt.load_checkpoint(str(path))
 
 
-def test_registry():
-    from tumseg_torch.models import pointnet2_sem_seg_msg
+FROZEN_EXTRA = {"pointnet2_sem_seg_original": 3, "pointnet2_sem_seg_trial": 0,
+                "pointnet_sem_seg_original": 3}
 
-    assert models.get_module("pointnet2_sem_seg").get_model is get_model
-    assert models.get_module("pointnet2_sem_seg_geo_trial").get_model \
-        is get_model
-    assert models.get_module("pointnet2_sem_seg_msg") is pointnet2_sem_seg_msg
-    for name in ["pointnet_sem_seg", "pointnet2_sem_seg_original"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.get_module(name)
+
+@pytest.mark.parametrize("name", [*models.AVAILABLE,
+                                  "pointnet2_sem_seg_geo_trial"])
+def test_registry(name):
+    """Every name of tumseg's registry resolves to the port's module of
+    that name (the alias to the SSG model); a frozen variant builds its
+    pinned channel count and rejects any other, a live model takes any."""
+    live = {"pointnet2_sem_seg_geo_trial": "pointnet2_sem_seg"}.get(name,
+                                                                     name)
+    mod = models.get_module(name)
+    assert mod.__name__ == f"tumseg_torch.models.{live}"
+    if live == "pointnet2_sem_seg":
+        assert mod.get_model is get_model
+    fixed = FROZEN_EXTRA.get(name)
+    assert getattr(mod, "FIXED_EXTRA_FEATURES", None) == fixed
+    if fixed is None:
+        assert isinstance(mod.get_model(8, 2), torch.nn.Module)
+    else:
+        assert isinstance(mod.get_model(8), torch.nn.Module)
+        with pytest.raises(ValueError, match="frozen variant"):
+            mod.get_model(8, fixed + 1)
     with pytest.raises(ValueError, match="unknown model"):
-        models.get_module("resnet")
+        models.get_module(name + "_x")
 
 
 def test_gradients_match_tumseg(inputs):
@@ -197,8 +211,8 @@ def test_gradients_match_tumseg(inputs):
     model = get_model(8)
     model.load_state_dict(state_dict_from_variables(variables), strict=True)
     model.eval()
-    loss = model.loss(model(torch.from_numpy(inputs))[0],
-                      torch.from_numpy(t), torch.from_numpy(w))
+    logp, aux = model(torch.from_numpy(inputs))
+    loss = model.loss(logp, torch.from_numpy(t), aux, torch.from_numpy(w))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     sd = dict(model.state_dict())

@@ -209,8 +209,8 @@ def test_gradients_match_tumseg(inputs, training):
     model = get_model(C)
     model.load_state_dict(state_dict_from_variables(variables), strict=True)
     model.train(training)
-    loss = model.loss(model(torch.from_numpy(x))[0], torch.from_numpy(t),
-                      torch.from_numpy(w))
+    logp, aux = model(torch.from_numpy(x))
+    loss = model.loss(logp, torch.from_numpy(t), aux, torch.from_numpy(w))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss),
                                rtol=1e-4 if training else 1e-5)

@@ -124,8 +124,8 @@ def port_run(setup, tmp_path_factory):
             group["lr"] = LR
         # exact gathers: tumseg's CPU train step gathers exactly (its XLA
         # grouping ignores fast_gather off its accelerator)
-        logp, _ = model(torch.from_numpy(x), fast_gather=False)
-        loss = model.loss(logp, torch.from_numpy(t), tw)
+        logp, aux = model(torch.from_numpy(x), fast_gather=False)
+        loss = model.loss(logp, torch.from_numpy(t), aux, tw)
         opt.zero_grad()
         loss.backward()
         opt.step()

@@ -8,8 +8,10 @@ weight/bias/running_mean/running_var/num_batches_tracked. Stage entries
 (``sa*``, ``fp*``) are lists of ``{"conv", "bn"}`` layers, the port's
 ``<stage>.mlp_convs.j`` / ``<stage>.mlp_bns.j``; an MSG set abstraction is a
 list of such lists, one per scale, the port's ``<stage>.conv_blocks.s.j`` /
-``<stage>.bn_blocks.s.j``. Top-level entries with ``"w"`` are head convs and
-those with ``"scale"`` head batch norms.
+``<stage>.bn_blocks.s.j``. Any other entry with ``"w"`` is a conv or, under
+a name that starts with ``fc``, a Linear (``[out, in]``), one with
+``"scale"`` a batch norm, and any other dict a module of such entries, as
+PointNet's ``feat``, ``feat.stn`` and ``feat.fstn``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,14 @@ import numpy as np
 import torch
 
 
-def _conv_rank(stage: str) -> int:
-    return 2 if stage.startswith("sa") else 1
+_STACKS = ("mlp_convs", "mlp_bns", "conv_blocks", "bn_blocks")
+
+
+def _conv_rank(path: str) -> int:
+    """Trailing 1-dims of the weight at ``path`` (a dotted module path)."""
+    if path.startswith("sa"):
+        return 2
+    return 0 if path.rsplit(".", 1)[-1].startswith("fc") else 1
 
 
 def _weight(w, rank: int) -> torch.Tensor:
@@ -50,22 +58,28 @@ def _stack(sd: Dict, convs: str, bns: str, layers, stats, rank: int) -> None:
 
 def state_dict_from_variables(variables: Dict) -> Dict[str, torch.Tensor]:
     """``tumseg`` variables (numpy or array-like leaves) -> port state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-    for name, p in params.items():
-        if isinstance(p, (list, tuple)) and isinstance(p[0], (list, tuple)):
-            for s, scale in enumerate(p):  # MSG: one stack per scale
-                _stack(sd, f"{name}.conv_blocks.{s}", f"{name}.bn_blocks.{s}",
-                       scale, stats[name][s], _conv_rank(name))
-        elif isinstance(p, (list, tuple)):
-            _stack(sd, f"{name}.mlp_convs", f"{name}.mlp_bns", p, stats[name],
-                   _conv_rank(name))
-        elif "w" in p:
-            sd[f"{name}.weight"] = _weight(p["w"], 1)
-            sd[f"{name}.bias"] = _tensor(p["b"])
-        else:
-            _bn(sd, name, p, stats[name])
+    _emit(sd, "", variables["params"], variables["batch_stats"])
     return sd
+
+
+def _emit(sd: Dict, prefix: str, params: Dict, stats: Dict) -> None:
+    for name, p in params.items():
+        path, s = prefix + name, stats.get(name)
+        if isinstance(p, (list, tuple)) and isinstance(p[0], (list, tuple)):
+            for i, scale in enumerate(p):  # MSG: one stack per scale
+                _stack(sd, f"{path}.conv_blocks.{i}", f"{path}.bn_blocks.{i}",
+                       scale, s[i], _conv_rank(path))
+        elif isinstance(p, (list, tuple)):
+            _stack(sd, f"{path}.mlp_convs", f"{path}.mlp_bns", p, s,
+                   _conv_rank(path))
+        elif "w" in p:
+            sd[f"{path}.weight"] = _weight(p["w"], _conv_rank(path))
+            sd[f"{path}.bias"] = _tensor(p["b"])
+        elif "scale" in p:
+            _bn(sd, path, p, s)
+        else:
+            _emit(sd, path + ".", p, s)
 
 
 def variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
@@ -91,10 +105,12 @@ def variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
                  "b": m["bias"].copy()}
             s = None
         parts = prefix.split(".")
-        if len(parts) == 1:  # head conv or batch norm
-            params[prefix] = p
+        if len(parts) < 3 or parts[1] not in _STACKS:
+            # a conv, Linear or batch norm, at the top or in a module
+            *path, name = parts
+            _node(params, path)[name] = p
             if s is not None:
-                stats[prefix] = s
+                _node(stats, path)[name] = s
             continue
         # <stage>.mlp_convs.j (a stack) or <stage>.conv_blocks.s.j (MSG)
         stage, kind, *pos = parts[0], parts[1], *map(int, parts[2:])
@@ -117,3 +133,10 @@ def _slot(seq: List, i: int, make):
     while len(seq) <= i:
         seq.append(make())
     return seq[i]
+
+
+def _node(tree: Dict, path: List[str]) -> Dict:
+    """The dict at ``path`` in ``tree``, made where missing."""
+    for key in path:
+        tree = tree.setdefault(key, {})
+    return tree

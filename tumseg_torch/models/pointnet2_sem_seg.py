@@ -100,10 +100,12 @@ class PointNet2SemSeg(nn.Module):
                 l_points[4])
 
     @staticmethod
-    def loss(log_probs: torch.Tensor, target: torch.Tensor,
+    def loss(log_probs: torch.Tensor, target: torch.Tensor, aux,
              weight: torch.Tensor) -> torch.Tensor:
         """Weighted NLL over all points, sum(w[t] * -logp[t]) / sum(w[t])
-        (``tumseg/nn/layers.py:weighted_nll_loss``)."""
+        (``tumseg/nn/layers.py:weighted_nll_loss``). ``aux``, the forward's
+        second output, is taken as ``tumseg``'s ``loss`` takes it, and
+        unused."""
         C = log_probs.shape[-1]
         return F.nll_loss(log_probs.reshape(-1, C),
                           target.reshape(-1).long(), weight=weight)

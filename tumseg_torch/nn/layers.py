@@ -1,10 +1,11 @@
-"""PointNet++ layers as ``nn.Module``s, channels-last
-(``tumseg/nn/layers.py:37-276``).
+"""PointNet++ and PointNet layers as ``nn.Module``s, channels-last
+(``tumseg/nn/layers.py:37-417``).
 
 Weights keep the reference's conv shapes — ``[out, in, 1, 1]`` in the set
 abstractions, ``[out, in, 1]`` in feature propagation and the head — so
 ``tools/export_torch_checkpoint.py:export_state_dict`` output and reference
-``.pth`` state dicts load with ``strict=True``. The forward is a matmul over
+``.pth`` state dicts load with ``strict=True``; PointNet's STN has Linear
+``fc`` layers, ``[out, in]``. The forward is a matmul over
 the last axis of a 2-D view of that weight, never a cuDNN convolution, whose
 default TF32 would cost the 2e-3 log-prob parity with ``tumseg``.
 
@@ -40,19 +41,24 @@ from tumseg_torch import ops
 class Dense(nn.Module):
     """Pointwise linear over the last axis (the reference's 1x1 conv).
 
-    Initialised as ``tumseg`` initialises the matching layer: the set
-    abstractions' convs (``conv_rank=2``, the reference's Conv2d) get a
-    Xavier-normal weight, std sqrt(2/(in+out)), and a zero bias
-    (``tumseg/nn/layers.py:dense_init``); the FP and head convs
-    (``conv_rank=1``, Conv1d) keep torch's default, U(+-1/sqrt(fan_in)) for
-    weight and bias (``dense_init_torch_default``)."""
+    Initialised as ``tumseg`` initialises the matching layer: ``init=
+    "xavier"`` is a Xavier-normal weight, std sqrt(2/(in+out)), and a zero
+    bias (``tumseg/nn/layers.py:dense_init``), the reference's Conv2d and
+    Linear layers; ``"torch_default"`` is U(+-1/sqrt(fan_in)) for weight
+    and bias (``dense_init_torch_default``), its Conv1d layers. The default,
+    None, is "xavier" for the set abstractions' convs (``conv_rank=2``) and
+    "torch_default" for the FP and head convs (``conv_rank=1``).
+    ``conv_rank=0`` is a Linear's ``[out, in]`` weight."""
 
-    def __init__(self, in_dim: int, out_dim: int, conv_rank: int):
+    def __init__(self, in_dim: int, out_dim: int, conv_rank: int,
+                 init: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_dim, in_dim, *([1] * conv_rank)))
         self.bias = nn.Parameter(torch.empty(out_dim))
-        if conv_rank == 2:
+        if init is None:
+            init = "xavier" if conv_rank == 2 else "torch_default"
+        if init == "xavier":
             std = math.sqrt(2.0 / (in_dim + out_dim))
             nn.init.normal_(self.weight, std=std)
             nn.init.zeros_(self.bias)
@@ -128,8 +134,8 @@ class BatchNorm(nn.Module):
     stats become ``(1 - momentum) * running + momentum * batch`` with the
     unbiased batch var; the training engine sets ``momentum`` each step.
     ``F.batch_norm`` computes the variance another way, so it is not used.
-    In eval mode the running stats are used. It computes in f32 and returns
-    its input's dtype."""
+    In eval mode the running stats are used. It computes in f32 (f64 for an
+    f64 input) and returns its input's dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -143,7 +149,8 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype, x = x.dtype, x.float()
+        dtype = x.dtype
+        x = x.to(torch.promote_types(dtype, torch.float32))
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return ((x - self.running_mean) * inv + self.bias).to(dtype)
@@ -166,8 +173,14 @@ def calibrate_batch_norm(model: nn.Module, x: torch.Tensor) -> None:
     """Set every BatchNorm's running mean and (biased) variance to those of
     its own input during one eval forward of ``x``. Seeded random weights
     then give an output that depends on the input, instead of the near
-    constant one that vanishing activations give."""
+    constant one that vanishing activations give. A BatchNorm over [B, C]
+    (the STN's after its max over the points) keeps its statistics: there
+    a channel's B values, one a block, lie close together against their
+    mean, and dividing by their spread would make the output hang on the
+    last bits of its input."""
     def hook(bn, args):
+        if args[0].dim() == 2:
+            return
         h = args[0].reshape(-1, args[0].shape[-1])
         bn.running_mean.copy_(h.mean(dim=0))
         bn.running_var.copy_(h.var(dim=0, unbiased=False))
@@ -316,3 +329,101 @@ class FeaturePropagation(MLPStack):
         if points1 is not None:
             interpolated = torch.cat([points1, interpolated], dim=-1)
         return self.mlp(interpolated, compute_dtype)
+
+
+def dense_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """An activation whose only consumer is a :class:`Dense`, stored in the
+    compute dtype, which that ``Dense`` rounds to anyway."""
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
+class STN(nn.Module):
+    """The reference's STN3d (``k=3``) and STNkd (``k=64``)
+    (``tumseg/nn/layers.py:283-334``): x [B, N, channel] -> a transform
+    [B, k, k]. conv1-3 (Conv1d, torch's default init) with bn1-3 and ReLU,
+    the max over N, fc1-2 (Linear, Xavier-normal) with bn4-5 and ReLU,
+    then fc3 plus the identity. With a ``compute_dtype`` each ``Dense``
+    rounds its operands and returns f32, as in ``tumseg``; the conv
+    activations that only a ``Dense`` reads are stored in it, and the one
+    the max reads stays f32."""
+
+    def __init__(self, channel: int, k: int):
+        super().__init__()
+        self.k = k
+        self.conv1 = Dense(channel, 64, conv_rank=1)
+        self.conv2 = Dense(64, 128, conv_rank=1)
+        self.conv3 = Dense(128, 1024, conv_rank=1)
+        self.fc1 = Dense(1024, 512, conv_rank=0, init="xavier")
+        self.fc2 = Dense(512, 256, conv_rank=0, init="xavier")
+        self.fc3 = Dense(256, k * k, conv_rank=0, init="xavier")
+        for i, dim in enumerate([64, 128, 1024, 512, 256], start=1):
+            setattr(self, f"bn{i}", BatchNorm(dim))
+
+    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        h = dense_input(F.relu(self.bn1(self.conv1(x, compute_dtype))),
+                        compute_dtype)
+        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype))),
+                        compute_dtype)
+        h = F.relu(self.bn3(self.conv3(h, compute_dtype))).amax(dim=1)
+        h = F.relu(self.bn4(self.fc1(h, compute_dtype)))
+        h = F.relu(self.bn5(self.fc2(h, compute_dtype)))
+        h = self.fc3(h, compute_dtype)
+        iden = torch.eye(self.k, dtype=h.dtype, device=h.device)
+        return (h + iden.reshape(1, -1)).view(-1, self.k, self.k)
+
+
+class PointNetEncoder(nn.Module):
+    """The PointNet encoder (``tumseg/nn/layers.py:337-407``): x [B, N, C]
+    (3 coordinates, then C - 3 more channels) -> (features, trans [B, 3,
+    3], trans_feat [B, 64, 64] or None). The coordinates go through the
+    STN's 3 x 3 transform (an f32 ``bmm``), conv1/bn1/ReLU gives the 64
+    point features, which go through the 64 x 64 feature transform when
+    ``feature_transform``; conv2/bn2/ReLU and conv3/bn3, with no ReLU, then
+    the max over N. ``features`` is [B, 1024] when ``global_feat``, else
+    [B, N, 1088]: the global 1024 at every point, then the point features.
+
+    Both transforms and the point features stay f32 under a
+    ``compute_dtype``, as in ``tumseg``, where only a ``Dense`` rounds."""
+
+    def __init__(self, channel: int, global_feat: bool = True,
+                 feature_transform: bool = False):
+        super().__init__()
+        self.global_feat = global_feat
+        self.feature_transform = feature_transform
+        self.stn = STN(channel, 3)
+        self.conv1 = Dense(channel, 64, conv_rank=1)
+        self.conv2 = Dense(64, 128, conv_rank=1)
+        self.conv3 = Dense(128, 1024, conv_rank=1)
+        self.bn1 = BatchNorm(64)
+        self.bn2 = BatchNorm(128)
+        self.bn3 = BatchNorm(1024)
+        if feature_transform:
+            self.fstn = STN(64, 64)
+
+    def forward(self, x: torch.Tensor, compute_dtype=None):
+        B, N, D = x.shape
+        trans = self.stn(x, compute_dtype)
+        h = torch.bmm(x[..., :3], trans)
+        if D > 3:
+            h = torch.cat([h, x[..., 3:]], dim=-1)
+        h = F.relu(self.bn1(self.conv1(h, compute_dtype)))
+        trans_feat = None
+        if self.feature_transform:
+            trans_feat = self.fstn(h, compute_dtype)
+            h = torch.bmm(h, trans_feat)
+        pointfeat = h
+        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype))),
+                        compute_dtype)
+        g = self.bn3(self.conv3(h, compute_dtype)).amax(dim=1)
+        if self.global_feat:
+            return g, trans, trans_feat
+        return (torch.cat([g[:, None, :].expand(B, N, -1), pointfeat],
+                          dim=-1), trans, trans_feat)
+
+
+def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
+    """mean over the batch of ||A A^T - I||_F, A = trans [B, d, d]
+    (``tumseg/nn/layers.py:410-417``), in f32."""
+    eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
+    gram = torch.bmm(trans, trans.transpose(1, 2))
+    return (gram - eye).square().sum(dim=(1, 2)).sqrt().mean()

@@ -117,7 +117,7 @@ class TrainEngine:
                 torch.as_tensor(target).to(self.device, torch.long))
 
     def train_batch(self, points, target, lr: float, momentum: float):
-        """One step: rotate, forward, weighted NLL, backward, optimizer.
+        """One step: rotate, forward, the model's loss, backward, optimizer.
         Returns (loss, correct) as device tensors."""
         points, target = self._put(points, target)
         self.model.train()
@@ -131,10 +131,10 @@ class TrainEngine:
                                 device=self.device) * (2 * math.pi)
             points = torch.cat([rotate_z(points[..., :3], angles),
                                 points[..., 3:]], dim=-1)
-        logp, _ = self.model(points, generator=self.generator,
-                             fast_gather=not self.exact_gathers,
-                             compute_dtype=self.compute_dtype)
-        loss = self.model.loss(logp, target, self.weights)
+        logp, aux = self.model(points, generator=self.generator,
+                               fast_gather=not self.exact_gathers,
+                               compute_dtype=self.compute_dtype)
+        loss = self.model.loss(logp, target, aux, self.weights)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -148,8 +148,8 @@ class TrainEngine:
         single-pass bf16 under a compute dtype."""
         points, target = self._put(points, target)
         self.model.eval()
-        logp, _ = self.model(points, compute_dtype=self.compute_dtype)
-        loss = self.model.loss(logp, target, self.weights)
+        logp, aux = self.model(points, compute_dtype=self.compute_dtype)
+        loss = self.model.loss(logp, target, aux, self.weights)
         return loss, M.confusion_tallies(logp.argmax(-1), target,
                                          self.num_classes)
 
