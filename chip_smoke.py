@@ -54,7 +54,10 @@ f. takes one training step (train-mode BN, weighted NLL, backward) of the
    (forward + backward + Adam) with the kernels in both modes and plain;
 g. trains through ``tumseg_torch.cli.train.main`` on a synthetic ~600K-point
    facade tile (2 epochs, B=16 x 4096, >= 10 steps; fast gathers, the
-   engine's default), checks that the logged losses are finite, that
+   engine's default; the device pipeline, which ``--data_pipeline auto``
+   picks on the card: the blocks sampled on the card from room ids, the
+   6 steps of an epoch under ``--superstep 8`` going through the per-step
+   calls as the epoch's tail), checks that the logged losses are finite, that
    ``best_model.pth`` serves through ``tumseg_torch.cli.test``, that the
    backward kernels were launched at least steps x 3 (group: sa2-sa4) and
    steps x 4 (interpolation: fp1-fp4) times in that run, and that the group
@@ -78,7 +81,8 @@ j. serves the tile of d with the MSG model through
 k. takes one MSG training step at B=16 x 4096 with the kernels and plain
    (fast gathers both; loss within rtol 1e-5, every gradient within 1e-4 of
    its layer's largest, both timed), then trains through
-   ``tumseg_torch.cli.train --model pointnet2_sem_seg_msg`` (1 epoch, >= 6
+   ``tumseg_torch.cli.train --model pointnet2_sem_seg_msg`` (the device
+   pipeline, as in g; 1 epoch, >= 6
    steps, multi-radius ball query >= steps x 4 and group backward >= steps x
    6 launches, the group kernel's bf16 output >= steps x 8) and serves its
    ``best_model.pth``;
@@ -161,8 +165,8 @@ s. (after r) bf16 compute (``compute_dtype=torch.bfloat16``, ``--bf16``):
    scene-points/s and the agreement of the two label dumps; one bf16
    training step at B=16 x 4096 (fast gathers) with the kernels against
    plain as in f, timed beside the f32 step; and trains SSG as in g and
-   MSG as in k through ``tumseg_torch.cli.train --bf16``, serving each
-   ``best_model.pth`` with ``--bf16``.
+   MSG as in k through ``tumseg_torch.cli.train --bf16`` (the device
+   pipeline), serving each ``best_model.pth`` with ``--bf16``.
 t. (after n) ``pointnet_sem_seg``, which reaches no point kernel: its
    B=32 x 4096 forward from seeded weights, BN statistics calibrated on the
    facade blocks (all but the STN's fc batch norms, which normalise over
@@ -181,15 +185,37 @@ v. one PointNet training step at B=16 x 4096 on the card and on the CPU,
    CPU, no further from it than three times the CPU's f32 step (at least
    1e-4; see ``phase_pointnet_train``); the step timed in f32 and bf16 in
    turns; trains through ``tumseg_torch.cli.train --model
-   pointnet_sem_seg`` (1 epoch, >= 6 steps, no kernel launched: training
-   points/s) and serves its ``best_model.pth``;
+   pointnet_sem_seg`` (the device pipeline; 1 epoch, >= 6 steps, no kernel
+   launched: training points/s) and serves its ``best_model.pth``;
 w. the frozen variants: ``pointnet2_sem_seg_trial`` serves d's tile with
    c's weights through the CLI, with the SSG's launches per forward;
    ``pointnet2_sem_seg_original`` (9 channels, 3 of them uniform in
    [0, 1)) runs a forward with the kernels against plain as c does;
    ``pointnet_sem_seg_original`` a finite forward at 9 channels with no
    kernel launched; each variant raises ``ValueError`` on another count of
-   extra channels.
+   extra channels;
+x. (after g) the device training pipeline: the ``DeviceBlockSampler``
+   built from g's training tile on the card and on the CPU (tables
+   bitwise equal); one trial centre's acceptance rate over 4096 trial
+   centres, and the chance that a row is left pending after a round of
+   ``trials``; a B=16 batch from the same explicit draws on both (half its
+   rows chosen to draw with replacement): centres, counts, sel, points and
+   labels bitwise equal; 64 generator-drawn batches, 8 a call: every point
+   inside its centre's block, every count > 1024, sel distinct where the
+   count is >= 4096, the share of rows that needed a second round; the
+   sampler's time a B=16 batch alone and in a call of 8 (CUDA events,
+   median of 3) and its peak memory over the tables, and its time alone
+   at 1, 2, 4 and 8 trial centres a round;
+   ``train_batch_rooms_multi`` over 4 batches against 4
+   ``train_batch_rooms`` (SSG, fast gathers, the weights of c): losses,
+   corrects and parameters bitwise equal, or within 1e-4 of each layer's
+   largest with the distance printed; the device's idle share over 4
+   steps as one call and as 4 calls (``torch.profiler``, in turns); then
+   the training CLI on g's tile
+   with ``--data_pipeline host``, ``device --superstep 1`` and ``device
+   --superstep 4`` in turns (two each, 2 epochs of 6 steps, so a 4-step
+   superstep fills once an epoch and the tail drains), each run's
+   training points/s, and each best checkpoint served.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -249,6 +275,11 @@ MSG_CHANNELS = [9, 99, 259, 515]  # grouped channels of MSG sa1..sa4
 # fast gathers alone gives 0.75, 0.76), so this guards against breakage
 # only (chance is ~1/8)
 BF16_AGREE_MIN = 0.5
+# x: generator-drawn batches whose blocks are checked, trial centres a row
+# of the explicit draws, and trial centres counted for the acceptance rate
+X_BATCHES = 64
+X_TRIALS = 16
+X_TRIAL_CENTRES = 4096
 # H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1224,23 +1255,30 @@ def phase_train_step(torch, state_dict, model_name, tag, compute_dtype=None):
 
 
 def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
-                    bf16=False):
+                    bf16=False, pipeline=(), turn=0):
     """Trains through the CLI on ``work/train_data`` (counts of zero before
     the run, read after it), then serves the best checkpoint; with
-    ``bf16``, both with ``--bf16``."""
+    ``bf16``, both with ``--bf16``. The CLI's ``--data_pipeline auto``
+    resolves to the device pipeline on the card (``--superstep 8``), unless
+    ``pipeline`` gives other flags. A run of another ``turn`` logs apart
+    (a run in the same log directory would resume). Returns (launches, the
+    epochs' logged training points/s)."""
     from tumseg_torch.cli import test as test_cli
     from tumseg_torch.cli import train as train_cli
     from tumseg_torch.ops import kernels
 
     data = work / "train_data"
     log = work / "train_log"
-    log_dir = model_name + ("_bf16" if bf16 else "")
+    log_dir = "_".join([model_name] + (["bf16"] if bf16 else [])
+                       + [a.strip("-") for a in pipeline]
+                       + ([str(turn)] if turn else []))
     bf16_flag = ["--bf16"] if bf16 else []
     args = train_cli.parse_args([
         "--model", model_name, "--rootdir", str(data), "--test_area",
         "held_out.las", "--exp_dir", str(log), "--log_dir", log_dir,
         "--epoch", str(epochs), "--batch_size", str(TRAIN_B), "--npoint",
-        str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)] + bf16_flag)
+        str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)] + bf16_flag
+        + list(pipeline))
     blocks = int(TRAIN_POINTS / N)
     steps = epochs * (int(0.7 * blocks) // TRAIN_B)
     if steps < min_steps:
@@ -1278,15 +1316,209 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
         "--seed", str(SEED)] + bf16_flag))
     if not 0.0 <= out["miou"] <= 1.0:
         raise AssertionError(f"served mIoU {out['miou']}")
+    flags = " ".join(bf16_flag + list(pipeline))
     for epoch, rate in enumerate(rates):
         print(f"[{tag}] epoch {epoch + 1} Training points/sec: {rate}")
     print(f"[{tag}] {model_name} trained {steps} steps of B={TRAIN_B}x{N} "
-          f"over {epochs} epochs{' with --bf16' if bf16 else ''}: mean "
+          f"over {epochs} epochs{' with ' + flags if flags else ''}: mean "
           f"losses {losses}, eval losses "
           f"{list(eval_loss)}, best mIoU {max(iou):.4f}; best_model.pth "
           f"served with mIoU {out['miou']:.4f}; launches {launches}, of "
           f"them fast (bf16 gathers) {fast}")
-    return launches
+    return launches, [float(rate) for rate in rates]
+
+
+def phase_device_pipeline(torch, work, state_dict):
+    """The device training pipeline (after g): the block sampler on the
+    card against the CPU's on the same explicit draws, block invariants
+    over generator-drawn batches, a k-step call against k single steps,
+    and the CLI on each pipeline in turns."""
+    import copy
+
+    from tumseg_torch import models
+    from tumseg_torch.data.dataset import TrainBlockDataset
+    from tumseg_torch.data.device_sampler import DeviceBlockSampler
+    from tumseg_torch.train.loop import TrainEngine
+
+    files = sorted(str(p) for p in (work / "train_data").glob("*.las")
+                   if p.name != "held_out.las")
+    ds = TrainBlockDataset(files, [], num_classes=8, num_point=N,
+                           color=False, class8=True, seed=SEED)
+    card = DeviceBlockSampler.from_dataset(ds, device=DEVICE)
+    cpu = DeviceBlockSampler.from_dataset(ds, device="cpu")
+    tables = ("_packed", "_px", "_py", "_room_start", "_room_count",
+              "_room_cmin", "_room_cmax", "_room_nbx", "_room_nby",
+              "_room_bin_off", "_bin_start", "_bin_count")
+    for name in tables:
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"sampler table {name}: card != CPU")
+    limit = card.min_block_points
+
+    # the acceptance rate of one trial centre, from explicit uniforms
+    rng = np.random.default_rng(SEED + 7)
+    room = int(ds.room_idxs[0])
+    u = rng.random(X_TRIAL_CENTRES, dtype=np.float32)
+    counts = card.trial_blocks(
+        torch.full((X_TRIAL_CENTRES,), room, device=DEVICE),
+        torch.as_tensor(u, device=DEVICE))[1].cpu().numpy()
+    accept = float(np.mean(counts > limit))
+    print(f"[x] sampler on {len(files)} room(s), {len(ds)} samples: cap "
+          f"{card.cap} ({9 * card.cap} candidates a block), tables "
+          f"{card.table_bytes()} bytes on the card; one trial centre of "
+          f"{X_TRIAL_CENTRES} accepted at {accept:.4f} (counts min "
+          f"{counts.min()}, median {int(np.median(counts))}, max "
+          f"{counts.max()}); {card.trials} trials a round leave a row "
+          f"pending with probability {(1 - accept) ** card.trials:.3g}")
+
+    # the same explicit draws on the card and the CPU, the first trials
+    # chosen so that half the rows draw with replacement (cnt < N)
+    small = u[(counts > limit) & (counts < N)][:TRAIN_B // 2]
+    big = u[counts >= N][:TRAIN_B - len(small)]
+    trial_u = rng.random((TRAIN_B, X_TRIALS), dtype=np.float32)
+    trial_u[:len(small) + len(big), 0] = np.concatenate([small, big])
+    sel_u = rng.random((TRAIN_B, 9 * card.cap), dtype=np.float32)
+    rep_u = rng.random((TRAIN_B, N), dtype=np.float32)
+    ids = np.full(TRAIN_B, room, np.int32)
+    got = card.sample_from_draws(ids, trial_u, sel_u, rep_u)
+    want = cpu.sample_from_draws(ids, trial_u, sel_u, rep_u)
+    for name, g, w in zip(("points", "labels", "centres", "counts", "sel"),
+                          got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"sampler {name}: card != CPU on the same "
+                                 f"draws")
+    print(f"[x] B={TRAIN_B} blocks from the same explicit draws: centres, "
+          f"counts, sel, points and labels bitwise equal on the card and "
+          f"the CPU ({int((want[3] < N).sum())} rows drawn with "
+          f"replacement)")
+
+    # block invariants over generator-drawn batches, k = 8 at a time
+    card.stats = dict.fromkeys(card.stats, 0)
+    below = 0
+    for s in range(0, X_BATCHES, 8):
+        gens = [torch.Generator(device=DEVICE).manual_seed(SEED + s + i)
+                for i in range(8)]
+        ids_k = rng.choice(ds.room_idxs, (8, TRAIN_B)).astype(np.int32)
+        pts, lab, c, n, sel = card.sample_batches_aux(ids_k, gens)
+        xyz = card._xyz[sel]
+        lo = c[..., None, :2] - card._half
+        hi = c[..., None, :2] + card._half
+        if not ((xyz[..., :2] >= lo) & (xyz[..., :2] <= hi)).all():
+            raise AssertionError("a sampled point lies outside its block")
+        if not (n > limit).all():
+            raise AssertionError(f"a block of {int(n.min())} points")
+        srt = sel.sort(-1).values
+        distinct = (srt[..., 1:] != srt[..., :-1]).all(-1)
+        if not distinct[n >= N].all():
+            raise AssertionError("a block of >= N points drew a point twice")
+        if not (torch.isfinite(pts).all()
+                and torch.equal(lab, card._labels[sel])):
+            raise AssertionError("sampled points or labels")
+        below += int((n < N).sum())
+    st = card.stats
+    print(f"[x] {X_BATCHES} batches of B={TRAIN_B} drawn by generators, 8 "
+          f"at a time: every point in its block, every count > {limit}, "
+          f"sel distinct where count >= {N} ({below} of {st['rows']} rows "
+          f"below {N}); rows needing a second round "
+          f"{st['redrawn'] / st['rows']:.4f}, {st['rounds']} rounds in "
+          f"{X_BATCHES // 8} calls")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gens = [torch.Generator(device=DEVICE).manual_seed(SEED + i)
+            for i in range(8)]
+    ids_k = np.full((8, TRAIN_B), room, np.int32)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = time_ms(torch, lambda: card.sample_batch(ids, gen), 1)
+    one_peak = torch.cuda.max_memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    eight = time_ms(torch, lambda: card.sample_batches(ids_k, gens), 1)
+    eight_peak = torch.cuda.max_memory_allocated() - held
+    print(f"[x] sampler time a B={TRAIN_B}x{N} batch (CUDA events, median "
+          f"of 3): {one[0]:.3f} ms alone {[round(v, 3) for v in one[1]]}, "
+          f"{eight[0] / 8:.3f} ms in a call of 8 "
+          f"{[round(v / 8, 3) for v in eight[1]]}; peak memory over the "
+          f"tables {one_peak / 2**20:.1f} MiB (1 batch), "
+          f"{eight_peak / 2**20:.1f} MiB (8 batches)")
+    trials = card.trials
+    by_trials = {}
+    for card.trials in (1, 2, 4, 8):
+        by_trials[card.trials] = round(
+            time_ms(torch, lambda: card.sample_batch(ids, gen), 1)[0], 3)
+    card.trials = trials
+    print(f"[x] sampler ms a B={TRAIN_B} batch alone by trial centres a "
+          f"round: {by_trials}")
+
+    # a 4-step call against 4 single steps, SSG, fast gathers
+    base = models.get_module("pointnet2_sem_seg").get_model(8)
+    base.load_state_dict(state_dict)
+    weights = np.random.default_rng(SEED + 8).random(8) + 0.5
+    engines = [TrainEngine(copy.deepcopy(base), 8, weights, device=DEVICE,
+                           seed=SEED, sampler=card) for _ in range(2)]
+    ids_k = rng.choice(ds.room_idxs, (4, TRAIN_B)).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm, cm = engines[0].train_batch_rooms_multi(ids_k, 1e-3, 0.1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = [engines[1].train_batch_rooms(i, 1e-3, 0.1) for i in ids_k]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ls = torch.stack([l for l, _ in single])
+    cs = torch.stack([c for _, c in single])
+    pm = dict(engines[0].model.named_parameters())
+    ps = dict(engines[1].model.named_parameters())
+    bitwise = (torch.equal(lm, ls) and torch.equal(cm, cs)
+               and all(torch.equal(pm[k], ps[k]) for k in pm))
+    gap, gap_name = grad_gap({k: v.detach() for k, v in pm.items()},
+                             {k: v.detach() for k, v in ps.items()})
+    if not bitwise:
+        dl = (lm - ls).abs().max().item()
+        print(f"[x] 4-step call against 4 single steps not bitwise: max "
+              f"|dloss| {dl:.3g}, corrects {cm.tolist()} vs {cs.tolist()}, "
+              f"parameters {gap:.3g} x their layer's max ({gap_name})")
+        if not (torch.isfinite(lm).all() and dl <= 1e-4 * ls.abs().max()
+                and gap <= 1e-4):
+            raise AssertionError("superstep against single steps")
+    state = ("all bitwise equal" if bitwise else
+             f"parameters within {gap:.3g} x their layer's max")
+    print(f"[x] pointnet2_sem_seg train_batch_rooms_multi over 4 batches "
+          f"against 4 train_batch_rooms: losses {lm.tolist()}, corrects "
+          f"{cm.tolist()}, {state}; wall {1e3 * (t1 - t0):.1f} ms (one "
+          f"call) vs {1e3 * (t2 - t1):.1f} ms (4 calls)")
+
+    # the device's idle share over 4 steps, one call and 4 calls in turns
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    idle = {"one call": [], "4 calls": []}
+    for label in ("one call", "4 calls", "4 calls", "one call"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if label == "one call":
+                engines[0].train_batch_rooms_multi(ids_k, 1e-3, 0.1)
+            else:
+                for i in ids_k:
+                    engines[1].train_batch_rooms(i, 1e-3, 0.1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = cuda_busy_seconds(torch, prof)
+        idle[label].append((round(1e3 * wall, 1), round(1e3 * busy, 1),
+                            round(1 - busy / wall, 3)))
+    print(f"[x] 4 device-pipeline steps, (wall ms, CUDA-busy ms, idle "
+          f"share) under torch.profiler, two turns: {idle}")
+
+    # the CLI on each pipeline, in turns
+    turns = (("--data_pipeline", "host"),
+             ("--data_pipeline", "device", "--superstep", "1"),
+             ("--data_pipeline", "device", "--superstep", "4"))
+    rates = {flags: [] for flags in turns}
+    for turn, flags in enumerate(turns + turns[::-1]):
+        rates[flags].append(phase_train_cli(
+            torch, work, "pointnet2_sem_seg", TRAIN_EPOCHS, 10, "x",
+            pipeline=flags, turn=turn)[1])
+    for flags, runs in rates.items():
+        print(f"[x] CLI {' '.join(flags)}: Training points/sec by epoch, "
+              f"two turns: {runs}")
 
 
 def phase_window(torch, report):
@@ -2289,7 +2521,7 @@ def phase_pointnet_train(torch, work, state):
           f"Adam, median of 3, two turns each): f32 "
           f"{[round(v, 3) for v in runs[None]]} ms, bf16 compute "
           f"{[round(v, 3) for v in runs[bf16]]} ms")
-    launches = phase_train_cli(torch, work, POINTNET, 1, 6, "v")
+    launches = phase_train_cli(torch, work, POINTNET, 1, 6, "v")[0]
     if any(launches.values()):
         raise AssertionError(f"PointNet training launched {launches}")
 
@@ -2372,8 +2604,9 @@ def main() -> int:
     phase_fast(torch, report)
     phase_train_step(torch, state_dict, ssg, "f")
     launches.update({name: n for name, n in phase_train_cli(
-        torch, work, ssg, TRAIN_EPOCHS, 10, "g").items()
+        torch, work, ssg, TRAIN_EPOCHS, 10, "g")[0].items()
         if name in ("group_backward", "interpolate_backward")})
+    phase_device_pipeline(torch, work, state_dict)
 
     phase_multi(torch, report)
     msg_state = phase_forward(torch, msg, "i")

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``tumseg_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``tumseg``, and
-importing the port's entry points loads neither. The entry points run on the
+"""The port stands alone: no module of ``tumseg_torch``, not
+``chip_smoke.py`` and not the drop-in scripts ``sem_seg_*_torch.py`` import
+JAX or anything of the JAX package ``tumseg``, and importing the port's
+entry points loads neither. The entry points run on the
 card unless the caller asks for the CPU: without a CUDA device they raise
 unless given ``--gpu cpu``."""
 
@@ -30,7 +31,8 @@ def _imported_modules(path: Path):
 
 def test_port_sources_import_no_jax_and_no_tumseg():
     files = sorted((ROOT / "tumseg_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "sem_seg_training_torch.py",
+        ROOT / "sem_seg_testing_torch.py"]
     assert len(files) > 30
     bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
            for path in files for line, name in _imported_modules(path)
@@ -43,6 +45,9 @@ def test_entry_points_load_no_jax_and_no_tumseg():
         "import sys\n"
         "import chip_smoke, tumseg_torch.cli.test, tumseg_torch.cli.train\n"
         "import tumseg_torch.infer.voting, tumseg_torch.train.loop\n"
+        "import sem_seg_training_torch, sem_seg_testing_torch\n"
+        "for m in (sem_seg_training_torch, sem_seg_testing_torch):\n"
+        "    assert callable(m.main) and callable(m.parse_args)\n"
         "bad = sorted(k for k in sys.modules\n"
         f"             if k.split('.')[0] in {BANNED})\n"
         "assert not bad, bad\n"

@@ -410,8 +410,7 @@ def test_train_cli_end_to_end(workspace, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--num_devices", "2"],
-                                  ["--process_id", "0"],
-                                  ["--data_pipeline", "device"]])
+                                  ["--process_id", "0"]])
 def test_train_cli_unported_flags_raise(workspace, flag):
     from tumseg_torch.cli import train as train_cli
 

@@ -3,7 +3,7 @@
 Same flags as ``tumseg/cli/train.py`` (the parser is repeated because that
 module imports JAX; a test keeps the two equal) and the same flow: LAS tiles
 of ``--rootdir`` except ``--test_area`` become a ``TrainBlockDataset``
-split 70/30 into train and eval, the host ``BatchLoader`` feeds
+split 70/30 into train and eval, a loader feeds
 ``tumseg_torch.train.fit``, and checkpoints are ``tumseg-ckpt-v2`` files
 that ``tumseg`` and the port both read. A checkpoint at
 ``<exp_dir>/sem_seg/<log_dir>/checkpoints<output_model>`` is resumed.
@@ -12,8 +12,15 @@ It trains on ``cuda:<gpu>``, and on the CPU only with ``--gpu cpu`` (without
 a CUDA device any other ``--gpu`` raises), with f32 weights and TF32 off,
 the train step on the single-pass bf16 gathers of the engine's default.
 ``--bf16`` computes in bf16 (``TrainEngine(compute_dtype=torch.bfloat16)``)
-in the train step and in eval; the checkpoints stay f32. The multi-device,
-multi-process and device-pipeline options are not ported yet and raise.
+in the train step and in eval; the checkpoints stay f32.
+
+``--data_pipeline device`` uploads the rooms once into a
+``DeviceBlockSampler`` and feeds room ids (``DeviceSampleLoader``): blocks
+are sampled and featurized on the device, ``--superstep k`` steps at a
+time. ``host`` is the NumPy ``BatchLoader``; ``auto`` picks device on a
+CUDA device and host on the CPU. ``--visualizeModel`` logs the parameter
+counts by module. The multi-device and multi-process options are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 
 from tumseg_torch.cli.common import make_experiment_dirs, make_logger
 from tumseg_torch.data.dataset import TrainBlockDataset
+from tumseg_torch.data.device_sampler import (DeviceBlockSampler,
+                                              DeviceSampleLoader)
 from tumseg_torch.data.features import GEO_FEATURE_NAMES, attach_geofeatures
 from tumseg_torch.data.loader import BatchLoader
 from tumseg_torch.utils.labels import CLASSES_18, CLASSES_8
@@ -36,6 +45,7 @@ from tumseg_torch import models
 from tumseg_torch.cli.test import resolve_device
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train.loop import TrainEngine, fit
+from tumseg_torch.utils.debug import summarize_model
 
 saveTrain = "traindataset.pkl"
 saveEval = "evaldataset.pkl"
@@ -101,12 +111,16 @@ def parse_args(argv=None):
                         help="deterministic data/model seed")
     parser.add_argument("--data_pipeline", choices=["auto", "host", "device"],
                         default="auto",
-                        help="block sampling/featurization location: 'host' "
-                             "is the NumPy BatchLoader; 'device' is not "
-                             "ported yet; 'auto' picks host")
+                        help="block sampling/featurization location: "
+                             "'device' uploads rooms once and samples "
+                             "blocks on the card (per-step upload: [B] room "
+                             "ids), 'host' is the NumPy BatchLoader; 'auto' "
+                             "picks device on a CUDA device, host on the CPU")
     parser.add_argument("--superstep", type=int, default=8,
-                        help="device-pipeline steps fused per dispatch "
-                             "(unused on the host pipeline)")
+                        help="device-pipeline steps grouped per call (one "
+                             "readback a rejection round for all of them; "
+                             "the same run); 1 restores per-step calls; "
+                             "unused on the host pipeline")
     parser.add_argument("--coordinator_address", type=str, default=None,
                         help="host:port of process 0 for multi-host pods")
     parser.add_argument("--num_processes", type=int, default=None,
@@ -124,9 +138,12 @@ def _refuse_unported(args) -> None:
             or args.process_id is not None):
         raise NotImplementedError("multi-process training is not ported to "
                                   "tumseg_torch yet (ROADMAP Queue 1, item 5)")
-    if args.data_pipeline == "device":
-        raise NotImplementedError("--data_pipeline device is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 4)")
+
+
+def uses_device_pipeline(choice: str, device: torch.device) -> bool:
+    """``--data_pipeline``: 'device' and 'host' as given; 'auto' is device
+    on a CUDA device and host on the CPU."""
+    return choice == "device" or (choice == "auto" and device.type == "cuda")
 
 
 def main(args):
@@ -210,13 +227,29 @@ def main(args):
         TRAIN_DATASET.save_data(saveDir + saveTrain)
         EVAL_DATASET.save_data(saveDir + saveEval)
 
-    trainDataLoader = BatchLoader(TRAIN_DATASET, batch_size=BATCH_SIZE,
-                                  shuffle=True, num_workers=8,
-                                  drop_last=True, seed=args.seed)
-    evalDataLoader = BatchLoader(
-        EVAL_DATASET, batch_size=BATCH_SIZE, shuffle=False, num_workers=8,
-        drop_last=True,
-        seed=None if args.seed is None else args.seed + 1)
+    device_pipeline = uses_device_pipeline(args.data_pipeline, device)
+    sampler = None
+    if device_pipeline:
+        # the sampler is built from the train split and serves the eval
+        # split's room ids too: split copies share the room arrays
+        sampler = DeviceBlockSampler.from_dataset(TRAIN_DATASET,
+                                                  device=device)
+        trainDataLoader = DeviceSampleLoader(
+            TRAIN_DATASET, batch_size=BATCH_SIZE, shuffle=True,
+            drop_last=True, seed=args.seed)
+        evalDataLoader = DeviceSampleLoader(
+            EVAL_DATASET, batch_size=BATCH_SIZE, shuffle=False,
+            drop_last=True)
+        print("Device data pipeline: rooms uploaded once (%d bytes), "
+              "per-step upload is [B] room ids" % sampler.table_bytes())
+    else:
+        trainDataLoader = BatchLoader(TRAIN_DATASET, batch_size=BATCH_SIZE,
+                                      shuffle=True, num_workers=8,
+                                      drop_last=True, seed=args.seed)
+        evalDataLoader = BatchLoader(
+            EVAL_DATASET, batch_size=BATCH_SIZE, shuffle=False,
+            num_workers=8, drop_last=True,
+            seed=None if args.seed is None else args.seed + 1)
 
     log_string("The number of training data is: %d" % len(TRAIN_DATASET))
     train_labelweights = TRAIN_DATASET.calculate_labelweights()
@@ -232,7 +265,8 @@ def main(args):
                          optimizer=args.optimizer,
                          weight_decay=args.decay_rate, seed=args.seed or 0,
                          device=device,
-                         compute_dtype=torch.bfloat16 if args.bf16 else None)
+                         compute_dtype=torch.bfloat16 if args.bf16 else None,
+                         sampler=sampler)
 
     model_name = args.output_model
     resume_path = str(experiment_dir) + "/checkpoints" + model_name
@@ -250,8 +284,7 @@ def main(args):
 
     if args.visualizeModel:
         log_string("Model parameter summary:")
-        for name, p in model.named_parameters():
-            log_string("%s %s" % (name, tuple(p.shape)))
+        summarize_model(engine.variables(), log=log_string)
 
     print("Identified Weights")
     print(train_labelweights)
@@ -265,7 +298,8 @@ def main(args):
                step_size=args.step_size, batch_size=BATCH_SIZE,
                num_point=NUM_POINT, checkpoints_dir=checkpoints_dir,
                model_name=model_name, seg_label_to_cat=seg_label_to_cat,
-               log_string=log_string)
+               log_string=log_string,
+               superstep=args.superstep if device_pipeline else 1)
 
 
 if __name__ == "__main__":

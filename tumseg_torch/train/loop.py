@@ -23,7 +23,18 @@ Same behaviour as ``tumseg``'s host-pipeline path:
 
 The step runs eagerly on the model's device. Per-step losses and correct
 counts stay on the device and are read back once an epoch, as ``tumseg``
-does. No mesh, no superstep and no device sampler yet (ROADMAP).
+does.
+
+With a ``DeviceBlockSampler`` (``sampler=``) the engine also takes batches
+that are only room ids (``train_batch_rooms``, ``eval_batch_rooms`` and
+their ``_multi`` forms over ``[k, B]`` ids): the blocks are sampled and
+featurized on the device. The random streams keep ``tumseg``'s structure
+(``tumseg/train/loop.py:159-169, 407-415``): train step ``s`` draws its
+blocks, then its rotation, FPS starts and dropout, from one generator
+seeded from ``(seed, s)``, and eval call ``e`` from one seeded from
+``(seed, 2^31 + e)``. So ``k`` single steps equal one ``k``-step call, eval
+never moves the training stream, and the host path's ``generator`` is left
+alone. No mesh yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.data.augment import rotate_z
+from tumseg_torch.data.device_sampler import RoomBatch
 from tumseg_torch.models.convert import (state_dict_from_variables,
                                          variables_from_state_dict)
 from tumseg_torch.nn.layers import BatchNorm
@@ -69,17 +81,31 @@ def make_optimizer(params, name: str = "Adam",
     return torch.optim.SGD(params, lr=1e-3, momentum=0.9)
 
 
+def _add_tallies(total, t):
+    return t if total is None else {k: total[k] + t[k] for k in t}
+
+
+def stream_seed(seed: int, count: int) -> int:
+    """The seed of the room-id step or eval call ``count``'s generator,
+    the counterpart of ``fold_in(PRNGKey(seed), count)``."""
+    words = np.random.SeedSequence([int(seed) % 2 ** 64, int(count)]
+                                   ).generate_state(2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
 class TrainEngine:
     """Holds the model, its optimizer and the random stream of training.
     ``exact_gathers`` (default False, as in ``tumseg``) makes the train step
     gather exactly too; ``compute_dtype`` (None: f32) is the model's compute
-    dtype in the train step and in eval."""
+    dtype in the train step and in eval; ``sampler`` (a
+    ``DeviceBlockSampler`` on the engine's device) enables the room-id
+    steps."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
                  seed: int = 0, device="cuda", exact_gathers: bool = False,
-                 compute_dtype=None):
+                 compute_dtype=None, sampler=None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.num_classes = num_classes
@@ -92,6 +118,10 @@ class TrainEngine:
                                         weight_decay)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.seed = seed
+        self.sampler = sampler
+        self._step_count = 0
+        self._eval_count = 0
 
     def load_state(self, state: Dict) -> int:
         """Model weights and (if saved) optimizer state from a loaded
@@ -120,6 +150,9 @@ class TrainEngine:
         """One step: rotate, forward, the model's loss, backward, optimizer.
         Returns (loss, correct) as device tensors."""
         points, target = self._put(points, target)
+        return self._train_step(points, target, lr, momentum, self.generator)
+
+    def _train_step(self, points, target, lr, momentum, generator):
         self.model.train()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -127,11 +160,11 @@ class TrainEngine:
             if isinstance(m, BatchNorm):
                 m.momentum = momentum
         if self.augment_rotate:
-            angles = torch.rand(points.shape[0], generator=self.generator,
+            angles = torch.rand(points.shape[0], generator=generator,
                                 device=self.device) * (2 * math.pi)
             points = torch.cat([rotate_z(points[..., :3], angles),
                                 points[..., 3:]], dim=-1)
-        logp, aux = self.model(points, generator=self.generator,
+        logp, aux = self.model(points, generator=generator,
                                fast_gather=not self.exact_gathers,
                                compute_dtype=self.compute_dtype)
         loss = self.model.loss(logp, target, aux, self.weights)
@@ -153,13 +186,99 @@ class TrainEngine:
         return loss, M.confusion_tallies(logp.argmax(-1), target,
                                          self.num_classes)
 
+    # -- room-id steps: blocks sampled on the device ---------------------------
+
+    def _streams(self, first: int, k: int):
+        out = []
+        for count in range(first, first + k):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(stream_seed(self.seed, count))
+            out.append(g)
+        return out
+
+    def train_batch_rooms(self, room_ids, lr: float, momentum: float):
+        """One train step from ``[B]`` room ids: the blocks are sampled on
+        the device. Returns (loss, correct) as device tensors."""
+        losses, corrects = self.train_batch_rooms_multi(
+            np.asarray(room_ids)[None], lr, momentum)
+        return losses[0], corrects[0]
+
+    def train_batch_rooms_multi(self, room_ids_k, lr: float, momentum: float):
+        """k train steps from ``[k, B]`` room ids, the same run as k calls
+        of :meth:`train_batch_rooms`: the k batches are sampled first (one
+        readback a rejection round for all of them), then trained in turn.
+        Returns ([k] losses, [k] corrects) on the device."""
+        room_ids_k = np.asarray(room_ids_k)
+        gens = self._streams(self._step_count, room_ids_k.shape[0])
+        self._step_count += len(gens)
+        points, target = self.sampler.sample_batches(room_ids_k, gens)
+        out = [self._train_step(points[i], target[i], lr, momentum, g)
+               for i, g in enumerate(gens)]
+        return (torch.stack([l for l, _ in out]),
+                torch.stack([c for _, c in out]))
+
+    def eval_batch_rooms(self, room_ids):
+        """One eval call from ``[B]`` room ids -> (loss, tallies)."""
+        losses, tallies = self.eval_batch_rooms_multi(
+            np.asarray(room_ids)[None])
+        return losses[0], tallies
+
+    def eval_batch_rooms_multi(self, room_ids_k):
+        """k eval calls from ``[k, B]`` room ids -> ([k] losses, summed
+        tallies); eval call e draws from the stream ``2^31 + e``, disjoint
+        from the training steps'."""
+        room_ids_k = np.asarray(room_ids_k)
+        gens = self._streams((1 << 31) + self._eval_count + 1,
+                             room_ids_k.shape[0])
+        self._eval_count += len(gens)
+        points, target = self.sampler.sample_batches(room_ids_k, gens)
+        losses, tallies = [], None
+        for i in range(len(gens)):
+            loss, t = self.eval_batch(points[i], target[i])
+            losses.append(loss)
+            tallies = _add_tallies(tallies, t)
+        return torch.stack(losses), tallies
+
+
+class _SuperstepBuffer:
+    """Groups same-shape room-id batches into k-step calls. A batch of
+    another shape (a ``drop_last=False`` tail) first drains the pending
+    group through the per-step call, so ``fit(superstep>1)`` accepts any
+    loader. ``add`` and ``drain`` return the calls' raw (loss, aux)
+    results."""
+
+    def __init__(self, k, multi_fn, step_fn):
+        self.k, self.multi_fn, self.step_fn = k, multi_fn, step_fn
+        self.buf = []
+
+    def add(self, room_ids, *args):
+        ids = np.asarray(room_ids)
+        out = self.drain(*args) if (self.buf and
+                                    ids.shape != self.buf[0].shape) else []
+        self.buf.append(ids)
+        if len(self.buf) == self.k:
+            out.append(self.multi_fn(np.stack(self.buf), *args))
+            self.buf = []
+        return out
+
+    def drain(self, *args):
+        out = [self.step_fn(ids, *args) for ids in self.buf]
+        self.buf = []
+        return out
+
 
 def fit(engine: TrainEngine, train_loader, eval_loader, *, start_epoch: int,
         end_epoch: int, learning_rate: float, lr_decay: float, step_size: int,
         batch_size: int, num_point: int, checkpoints_dir, model_name: str,
-        seg_label_to_cat: Dict, log_string=print):
-    """The epoch loop of ``tumseg/train/loop.py:fit`` on the host pipeline.
-    Returns (accuracyChart, MLChart, IoUChart)."""
+        seg_label_to_cat: Dict, log_string=print, superstep: int = 1):
+    """The epoch loop of ``tumseg/train/loop.py:fit``. Returns
+    (accuracyChart, MLChart, IoUChart).
+
+    A loader may yield ``(points, target)`` batches (the host pipeline) or
+    :class:`RoomBatch` (the device pipeline, the engine's room-id steps).
+    ``superstep`` > 1 groups that many room-id batches into one
+    ``*_multi`` call: the same run, one readback a rejection round for all
+    of them; the epoch's tail goes through the per-step calls."""
     num_classes = engine.num_classes
     accuracy_chart, ml_chart, iou_chart = [], [], []
     best_iou = 0.0
@@ -176,16 +295,27 @@ def fit(engine: TrainEngine, train_loader, eval_loader, *, start_epoch: int,
         num_batches = len(train_loader)
         total_seen = 0
         losses, corrects = [], []
+        room_buf = _SuperstepBuffer(superstep, engine.train_batch_rooms_multi,
+                                    engine.train_batch_rooms)
         t0 = time.time()
-        for points, target in progress(train_loader, total=num_batches,
-                                       desc="train"):
-            loss, correct = engine.train_batch(points, target, lr, momentum)
-            losses.append(loss)
-            corrects.append(correct)
+        for batch in progress(train_loader, total=num_batches, desc="train"):
+            if not isinstance(batch, RoomBatch):
+                results = [engine.train_batch(*batch, lr, momentum)]
+            elif superstep > 1:
+                results = room_buf.add(batch.room_ids, lr, momentum)
+            else:
+                results = [engine.train_batch_rooms(batch.room_ids, lr,
+                                                    momentum)]
+            for loss, correct in results:
+                losses.append(loss.reshape(-1))
+                corrects.append(correct.reshape(-1))
             total_seen += batch_size * num_point
+        for loss, correct in room_buf.drain(lr, momentum):
+            losses.append(loss.reshape(-1))
+            corrects.append(correct.reshape(-1))
         # one readback an epoch, which also waits for the last step
-        loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
-        total_correct = int(torch.stack(corrects).sum()) if corrects else 0
+        loss_sum = float(torch.cat(losses).sum()) if losses else 0.0
+        total_correct = int(torch.cat(corrects).sum()) if corrects else 0
         train_time = time.time() - t0
         if num_batches:
             log_string("Training mean loss: %f" % (loss_sum / num_batches))
@@ -204,18 +334,27 @@ def fit(engine: TrainEngine, train_loader, eval_loader, *, start_epoch: int,
         device_tallies = None
         eval_losses = []
         eval_seen = 0
-        for points, target in progress(eval_loader, total=eval_batches,
-                                       desc="eval"):
-            loss, t = engine.eval_batch(points, target)
-            eval_losses.append(loss)
-            device_tallies = t if device_tallies is None else {
-                k: device_tallies[k] + t[k] for k in t}
+        eval_buf = _SuperstepBuffer(superstep, engine.eval_batch_rooms_multi,
+                                    engine.eval_batch_rooms)
+        for batch in progress(eval_loader, total=eval_batches, desc="eval"):
+            if not isinstance(batch, RoomBatch):
+                results = [engine.eval_batch(*batch)]
+            elif superstep > 1:
+                results = eval_buf.add(batch.room_ids)
+            else:
+                results = [engine.eval_batch_rooms(batch.room_ids)]
+            for loss, t in results:
+                eval_losses.append(loss.reshape(-1))
+                device_tallies = _add_tallies(device_tallies, t)
             eval_seen += batch_size * num_point
+        for loss, t in eval_buf.drain():
+            eval_losses.append(loss.reshape(-1))
+            device_tallies = _add_tallies(device_tallies, t)
 
         if eval_batches:
             tallies = M.accumulate_host(M.zero_tallies(num_classes),
                                         device_tallies)
-            eval_loss_sum = float(torch.stack(eval_losses).sum())
+            eval_loss_sum = float(torch.cat(eval_losses).sum())
             iou = M.iou_from_tallies(tallies)
             miou = float(np.mean(iou))
             eval_acc = float(tallies["correct"].sum() / float(eval_seen))
