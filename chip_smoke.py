@@ -216,6 +216,21 @@ x. (after g) the device training pipeline: the ``DeviceBlockSampler``
    --superstep 4`` in turns (two each, 2 epochs of 6 steps, so a 4-step
    superstep fills once an epoch and the tail drains), each run's
    training points/s, and each best checkpoint served.
+y. (after x) the ``data`` mesh (``tumseg_torch.parallel``): in a one-rank
+   NCCL group ``dryrun_multichip(1)`` and one SSG step at B=16 x 4096 (SGD,
+   deterministic draws, exact gathers) held against the same step with no
+   mesh (loss within 1e-5 relative, parameters within 5e-4); then two gloo
+   ranks spawned on cuda:0: ``dryrun_multichip(2, device="cuda:0",
+   backend="gloo")``, the same step 8 blocks a rank against the one-process
+   step (the same bounds; gradient and BN-statistics distances printed),
+   both ranks' parameters bitwise equal after 3 steps, 4
+   ``train_batch_rooms`` bitwise one ``train_batch_rooms_multi`` of 4 on
+   the device pipeline with the ranks' sampled blocks different, and d's
+   tile served through the test CLI's path at B=32 (16 a rank) by device
+   re-blocking: at most 0.1% of labels differ from one process's,
+   scene-points/s beside one process's (two ranks share one card, so this
+   is a finding, not a limit), and each of d's kernels launched on each
+   rank at least as often as d's forwards need.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -2563,6 +2578,236 @@ def phase_frozen(torch, work, ssg_state):
           f"rejects another extra-channel count")
 
 
+# the kernels of d's list: each is launched on each rank of y's serving
+MESH_KERNELS = ("fps", "ball_query", "group", "three_nn_interpolate")
+
+
+def mesh_step_batch(torch):
+    """The B=16 x 4096 batch, labels and weights of y's train steps."""
+    rng = np.random.default_rng(SEED + 11)
+    x = facade_batch(rng, TRAIN_B, N)
+    target = (x[..., 5] * 7.999).astype(np.int64)
+    return x, target, rng.random(8).astype(np.float32) + 0.5
+
+
+def mesh_serve_args(work, state_dict, log_dir):
+    """The test CLI's arguments for d's tile at B=32, 2 votes, with the
+    checkpoint of ``state_dict`` under ``log_dir``."""
+    from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.models.convert import variables_from_state_dict
+    from tumseg_torch.train.checkpoint import save_checkpoint
+
+    ckpt_dir = work / "log" / "sem_seg" / log_dir / "checkpoints"
+    if not ckpt_dir.exists():
+        ckpt_dir.mkdir(parents=True)
+        save_checkpoint(str(ckpt_dir / "best_model.pth"), epoch=0,
+                        variables=variables_from_state_dict(state_dict))
+    return test_cli.parse_args([
+        "--rootdir", str(work / "data"), "--test_area", "facade.las",
+        "--exp_dir", str(work / "log") + "/sem_seg/", "--log_dir", log_dir,
+        "--num_votes", "2", "--batch_size", str(B), "--num_point", str(N),
+        "--class8", "--RGB_OFF", "--seed", str(SEED)])
+
+
+def _mesh_rank(rank, work, state_dict, batch):
+    """One of y's two gloo ranks on cuda:0: the dry run, the SSG step, the
+    device pipeline and the serving run on the mesh. -> rank 0's numbers
+    (every rank raises on a failed check)."""
+    import copy
+
+    import torch
+
+    from tumseg_torch import models
+    from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.data.dataset import TrainBlockDataset
+    from tumseg_torch.data.device_sampler import DeviceBlockSampler
+    from tumseg_torch.ops import build, kernels
+    from tumseg_torch.parallel import dryrun
+    from tumseg_torch.parallel import mesh as pmesh
+    from tumseg_torch.train.loop import TrainEngine
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    mesh = pmesh.make_mesh(2, devices=DEVICE, backend="gloo")
+    out = {"dryrun": dryrun.dryrun_multichip(2, device=DEVICE,
+                                             backend="gloo")}
+
+    def agree(flag):
+        """Whether ``flag`` holds on every rank."""
+        t = torch.tensor([float(flag)], device=DEVICE)
+        return mesh.all_reduce_(t).item() == mesh.size
+
+    def same_as_rank0(t):
+        return agree(torch.equal(mesh.broadcast_(t.clone()), t))
+
+    # the SSG step, 8 blocks a rank, deterministic draws, exact gathers
+    ssg = models.get_module("pointnet2_sem_seg")
+    steps = {}
+    for name, k in (("mesh", 1), ("mesh3", 3)):
+        model = ssg.get_model(8)
+        model.load_state_dict(state_dict)
+        steps[name] = dryrun.exact_step(model, *batch, mesh=mesh, steps=k,
+                                        optimizer="SGD", device=DEVICE)
+    out["step"] = {k: {n: v.cpu() for n, v in steps["mesh"][k].items()}
+                   for k in ("grads", "params", "stats")}
+    out["step"]["losses"] = steps["mesh"]["losses"]
+    out["ranks_equal"] = same_as_rank0(torch.cat(
+        [p.reshape(-1) for p in steps["mesh3"]["params"].values()]))
+    if not out["ranks_equal"]:
+        raise AssertionError("the ranks' parameters differ after 3 steps")
+
+    # the device pipeline: 4 single room-id steps against one call of 4
+    files = sorted(str(p) for p in (work / "train_data").glob("*.las")
+                   if p.name != "held_out.las")
+    ds = TrainBlockDataset(files, [], num_classes=8, num_point=N,
+                           color=False, class8=True, seed=SEED)
+    sampler = DeviceBlockSampler.from_dataset(ds, device=DEVICE)
+    base = ssg.get_model(8)
+    base.load_state_dict(state_dict)
+    weights = np.random.default_rng(SEED + 8).random(8) + 0.5
+    engines = [TrainEngine(copy.deepcopy(base), 8, weights, device=DEVICE,
+                           seed=SEED, sampler=sampler, mesh=mesh)
+               for _ in range(2)]
+    ids_k = np.random.default_rng(SEED + 9).choice(
+        ds.room_idxs, (4, TRAIN_B)).astype(np.int32)
+    lm, cm = engines[0].train_batch_rooms_multi(ids_k, 1e-3, 0.1)
+    single = [engines[1].train_batch_rooms(i, 1e-3, 0.1) for i in ids_k]
+    ls = torch.stack([l for l, _ in single])
+    cs = torch.stack([c for _, c in single])
+    bitwise = agree(torch.equal(lm, ls) and torch.equal(cm, cs) and all(
+        torch.equal(a, b) for a, b in zip(engines[0].model.state_dict()
+                                          .values(),
+                                          engines[1].model.state_dict()
+                                          .values())))
+    if not bitwise:
+        raise AssertionError(f"4 single room-id steps {ls.tolist()} against "
+                             f"one call of 4 {lm.tolist()} on the mesh")
+    local = np.full(TRAIN_B // 2, ids_k[0, 0], np.int32)
+    pts = sampler.sample_batch(local, engines[0]._streams(0, 1)[0])[0]
+    differ = not agree(torch.equal(mesh.broadcast_(pts.clone()), pts))
+    if not differ:
+        raise AssertionError("both ranks sampled the same blocks")
+    out["pipeline"] = dict(losses=lm.tolist(), corrects=cm.tolist())
+
+    # serving d's tile at B=32, 16 blocks a rank a forward
+    args = mesh_serve_args(work, state_dict, "y_mesh")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = test_cli._run(args, mesh)
+    torch.cuda.synchronize()
+    counts = torch.zeros(mesh.size, len(MESH_KERNELS), dtype=torch.int64,
+                         device=DEVICE)
+    counts[rank] = torch.tensor([kernels.launches[k] for k in MESH_KERNELS])
+    mesh.all_reduce_(counts)
+    out["serve"] = dict(seconds=res["infer_seconds"], miou=res["miou"],
+                        launches=[dict(zip(MESH_KERNELS, row))
+                                  for row in counts.tolist()])
+    return out
+
+
+def phase_mesh(torch, work, state_dict):
+    """y. (after x) The ``data`` mesh: a one-rank NCCL group, then two gloo
+    ranks sharing cuda:0."""
+    from tumseg_torch import models
+    from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.data.dataset import TestGridDataset
+    from tumseg_torch.ops import kernels
+    from tumseg_torch.parallel import dryrun
+    from tumseg_torch.parallel import mesh as pmesh
+    from tumseg_torch.viz.writers import read_labels_txt
+
+    ssg = models.get_module("pointnet2_sem_seg")
+    batch = mesh_step_batch(torch)
+
+    def step(mesh, k=1):
+        model = ssg.get_model(8)
+        model.load_state_dict(state_dict)
+        return dryrun.exact_step(model, *batch, mesh=mesh, steps=k,
+                                 optimizer="SGD", device=DEVICE)
+
+    def held(tag, got, want):
+        """Holds ``got``'s step against ``want``'s: loss within 1e-5
+        relative, parameters within 5e-4; prints both and the gradient
+        and BN-statistics distances."""
+        got = {k: ({n: t.to(DEVICE) for n, t in v.items()}
+                   if isinstance(v, dict) else v) for k, v in got.items()}
+        dl = abs(got["losses"][0] - want["losses"][0])
+        dp = dryrun.max_distance(got["params"], want["params"])
+        gap, gap_name = grad_gap(got["grads"], want["grads"])
+        ds = dryrun.max_distance(got["stats"], want["stats"])
+        print(f"[y] {tag}: SSG step B={TRAIN_B}x{N} (SGD, deterministic "
+              f"draws, exact gathers) loss {got['losses'][0]:.7f} against "
+              f"{want['losses'][0]:.7f} in one process (|d| {dl:.3g}); "
+              f"parameters max|d| {dp:.3g}; gradients {gap:.3g} x their "
+              f"layer's max|g| ({gap_name}); BN running statistics max|d| "
+              f"{ds:.3g}")
+        if not (dl <= 1e-5 * abs(want["losses"][0]) and dp < 5e-4):
+            raise AssertionError(f"{tag}: mesh step against one process")
+
+    one = step(None)
+    # a one-rank NCCL group
+    summary = dryrun.dryrun_multichip(1)
+    print(f"[y] dryrun_multichip(1), NCCL on {DEVICE}: {summary}")
+    mesh = pmesh.make_mesh(1, backend="nccl")
+    try:
+        held("one-rank NCCL mesh", step(mesh), one)
+    finally:
+        pmesh.close_mesh()
+
+    # single-process serving of d's tile, the figure beside the mesh's
+    args = mesh_serve_args(work, state_dict, "y_one")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = test_cli._run(args, None)
+    torch.cuda.synchronize()
+    one_launches = {k: kernels.launches[k] for k in MESH_KERNELS}
+
+    mesh_serve_args(work, state_dict, "y_mesh")  # its checkpoint, once
+    t0 = time.perf_counter()
+    out = pmesh.spawn(_mesh_rank, 2, (work, {k: v.cpu() for k, v in
+                                             state_dict.items()}, batch),
+                      backend="gloo")
+    print(f"[y] two gloo ranks on {DEVICE}: spawned, checked and joined in "
+          f"{time.perf_counter() - t0:.1f} s; dryrun_multichip(2) "
+          f"{out['dryrun']}")
+    held(f"two gloo ranks ({TRAIN_B // 2} blocks a rank)", out["step"], one)
+    print(f"[y] after 3 mesh steps both ranks' parameters bitwise equal; "
+          f"device pipeline on the mesh: 4 train_batch_rooms bitwise one "
+          f"train_batch_rooms_multi of 4 (losses {out['pipeline']['losses']}"
+          f", corrects {out['pipeline']['corrects']}), the ranks' sampled "
+          f"blocks differ")
+
+    n, votes = SCENE_POINTS, 2
+    cells = TestGridDataset(las_file_list=[str(work / "data" / "facade.las")],
+                            num_classes=8, block_points=N, color=False,
+                            class8=True).grid_structure(0)
+    forwards = votes * math.ceil(sum(math.ceil(c[0].size / N)
+                                     for c in cells) / B)
+    for rank, launches in enumerate(out["serve"]["launches"]):
+        for name, per in PER_FORWARD["pointnet2_sem_seg"].items():
+            if name in MESH_KERNELS and launches[name] < forwards * per:
+                raise AssertionError(f"rank {rank}: {name} launched "
+                                     f"{launches[name]} times, expected >= "
+                                     f"{forwards * per}")
+    labels = {k: read_labels_txt(str(work / "log" / "sem_seg" / k / "visual"
+                                     / "facade.txt"))
+              for k in ("y_one", "y_mesh")}
+    differ = int(np.sum(labels["y_one"] != labels["y_mesh"]))
+    print(f"[y] d's tile, {n} points x {votes} votes at B={B} ({B // 2} a "
+          f"rank), device re-blocking: two ranks on one card "
+          f"{n * votes / out['serve']['seconds']:.0f} scene-points/s "
+          f"(infer {out['serve']['seconds']:.3f} s) against one process "
+          f"{n * votes / res['infer_seconds']:.0f} (infer "
+          f"{res['infer_seconds']:.3f} s); labels differ on {differ} of {n} "
+          f"points; launches by rank {out['serve']['launches']}, one "
+          f"process {one_launches} ({forwards} forwards)")
+    if differ > n // 1000:
+        raise AssertionError(f"mesh serving differs from one process on "
+                             f"{differ} of {n} points")
+
+
 def main() -> int:
     import torch
 
@@ -2626,6 +2871,7 @@ def main() -> int:
     phase_pointnet_serve(torch, work, pointnet_state)
     phase_pointnet_train(torch, work, pointnet_state)
     phase_frozen(torch, work, state_dict)
+    phase_mesh(torch, work, state_dict)
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

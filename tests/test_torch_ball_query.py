@@ -38,6 +38,16 @@ STATIC_SMEM = (4 * (4 * kernels.BALL_QUERY_MAX_SLABS + 1)
 CASES = {case[0]: case[1:] for case in adversarial_cases()}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _plain(xyz, new_xyz, radii, ks):
     return [w.numpy() for w in core.query_ball_point_multi(
         radii, ks, torch.from_numpy(xyz), torch.from_numpy(new_xyz))]

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tumseg.data import dataset as jds
 from tumseg.data import features as jfeat
@@ -27,7 +28,20 @@ from tumseg_torch.utils import labels as tlabels
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = ["utils/labels.py", "utils/timing.py", "utils/progress.py",
           "data/las.py", "data/dataset.py", "data/features.py",
-          "data/loader.py", "viz/writers.py", "cli/common.py"]
+          "data/loader.py", "viz/writers.py", "cli/common.py",
+          "viz/pc_utils.py", "viz/show3d.py", "data/s3dis.py"]
+# the viewer's native renderer and its build script, copied beside show3d
+NATIVE_COPIES = ["viz/render_balls.cpp", "viz/build.sh"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _code(path: Path, rename: bool) -> str:
@@ -53,6 +67,32 @@ def test_copy_is_the_original_with_port_imports(rel):
     differ."""
     assert _code(ROOT / "tumseg_torch" / rel, False) == \
         _code(ROOT / "tumseg" / rel, True)
+
+
+@pytest.mark.parametrize("rel", NATIVE_COPIES)
+def test_native_copy_is_the_original(rel):
+    """The same source but for its ``//`` comments."""
+    def code(path):
+        return [line.split("//")[0].rstrip()
+                for line in path.read_text().splitlines()]
+
+    assert code(ROOT / "tumseg_torch" / rel) == code(ROOT / "tumseg" / rel)
+
+
+def test_viewer_copy_renders_what_the_original_renders():
+    """The copy builds its own renderer beside it and draws the original's
+    frame."""
+    from tumseg.viz import show3d as jshow
+    from tumseg_torch.viz import show3d as tshow
+
+    r = np.random.default_rng(5)
+    xyz = r.standard_normal((300, 3)).astype(np.float32)
+    colors = r.integers(0, 256, (300, 3)).astype(np.uint8)
+    got = tshow.render_frame(xyz, colors, size=120, ballradius=3)
+    assert tshow.BASE_DIR == str(ROOT / "tumseg_torch" / "viz")
+    np.testing.assert_array_equal(
+        got, jshow.render_frame(xyz, colors, size=120, ballradius=3))
+    assert got.any()
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,16 @@ TABLES = ("_packed", "_px", "_py", "_room_start", "_room_count",
           "_room_bin_off", "_bin_start", "_bin_count")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _dense_rooms(seed=0, n0=6000, n1=4000):
     """Two rooms dense enough that 1 m blocks hold > MIN_PTS points, with a
     colour and a plain extra column."""
@@ -401,33 +411,44 @@ def _state(eng):
              for v in s.values()])
 
 
-def test_superstep_equals_single_steps(engine_sampler):
-    ids = np.array([[0, 1], [1, 1]], np.int32)
-    multi, single = _engine(engine_sampler), _engine(engine_sampler)
-    losses, corrects = multi.train_batch_rooms_multi(ids, 1e-3, 0.1)
+IDS = np.array([[0, 1], [1, 1]], np.int32)
+
+
+@pytest.fixture(scope="module")
+def single_steps(engine_sampler):
+    """One engine's two single room-id steps on IDS, the state after them
+    and its next step's loss, which both tests below read."""
+    eng = _engine(engine_sampler)
+    out = [eng.train_batch_rooms(i, 1e-3, 0.1) for i in IDS]
+    state = _state(eng)
+    nxt = eng.train_batch_rooms(IDS[0], 1e-3, 0.1)[0]
+    return dict(losses=[l for l, _ in out], corrects=[c for _, c in out],
+                state=state, nxt=nxt)
+
+
+def test_superstep_equals_single_steps(engine_sampler, single_steps):
+    multi = _engine(engine_sampler)
+    losses, corrects = multi.train_batch_rooms_multi(IDS, 1e-3, 0.1)
     assert losses.shape == corrects.shape == (2,)
     for i in range(2):
-        loss, correct = single.train_batch_rooms(ids[i], 1e-3, 0.1)
-        assert torch.equal(loss, losses[i])
-        assert torch.equal(correct, corrects[i])
-    for a, b in zip(*map(_state, (multi, single))):
+        assert torch.equal(single_steps["losses"][i], losses[i])
+        assert torch.equal(single_steps["corrects"][i], corrects[i])
+    for a, b in zip(_state(multi), single_steps["state"]):
         assert len(a) == len(b) and all(map(torch.equal, a, b))
     # and the next call after it
-    nxt = [e.train_batch_rooms(ids[0], 1e-3, 0.1)[0] for e in (multi, single)]
-    assert torch.equal(*nxt) and math.isfinite(float(nxt[0]))
+    nxt = multi.train_batch_rooms(IDS[0], 1e-3, 0.1)[0]
+    assert torch.equal(nxt, single_steps["nxt"]) and math.isfinite(float(nxt))
 
 
-def test_eval_does_not_move_training(engine_sampler):
-    ids = np.array([[1, 0], [0, 1]], np.int32)
-    plain, mixed = _engine(engine_sampler), _engine(engine_sampler)
-    want = [plain.train_batch_rooms(i, 1e-3, 0.1)[0] for i in ids]
-    got = [mixed.train_batch_rooms(ids[0], 1e-3, 0.1)[0]]
-    losses, tallies = mixed.eval_batch_rooms_multi(ids)
+def test_eval_does_not_move_training(engine_sampler, single_steps):
+    mixed = _engine(engine_sampler)
+    got = [mixed.train_batch_rooms(IDS[0], 1e-3, 0.1)[0]]
+    losses, tallies = mixed.eval_batch_rooms_multi(IDS)
     # the k-call eval is k single eval calls from the same counters
     mixed._eval_count -= 2
-    singles = [mixed.eval_batch_rooms(i) for i in ids]
-    got.append(mixed.train_batch_rooms(ids[1], 1e-3, 0.1)[0])
-    assert all(map(torch.equal, got, want))
+    singles = [mixed.eval_batch_rooms(i) for i in IDS]
+    got.append(mixed.train_batch_rooms(IDS[1], 1e-3, 0.1)[0])
+    assert all(map(torch.equal, got, single_steps["losses"]))
     assert torch.equal(losses, torch.stack([l for l, _ in singles]))
     for name, t in tallies.items():
         assert torch.equal(t, singles[0][1][name] + singles[1][1][name])

@@ -36,6 +36,16 @@ from tumseg_torch import ops as tops
 from tumseg_torch.ops import core
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_mode():
     """Pallas TPU kernels run under the interpreter on CPU, as in

@@ -33,6 +33,16 @@ SLOT_BYTES = 2 * 32 * 8
 MAX_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 512, 16: 1024}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def layout(threads, points):
     """[threads, points]: the point that thread t of csrc/fps.cu holds in
     its register j, j * threads + t (N and above are padding)."""

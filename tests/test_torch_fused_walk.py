@@ -38,6 +38,16 @@ BALL_CASES = {name: case for name, *case in adversarial_cases()
               if len(case[2]) == 1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_mode():
     """Pallas TPU kernels run under the interpreter on CPU, as in

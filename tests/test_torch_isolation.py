@@ -20,6 +20,16 @@ ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "tumseg")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):

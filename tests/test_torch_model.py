@@ -30,6 +30,16 @@ from tumseg_torch.train import checkpoint as tckpt
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _export_tool():
     spec = importlib.util.spec_from_file_location(
         "export_torch_checkpoint", ROOT / "tools" / "export_torch_checkpoint.py")

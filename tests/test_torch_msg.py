@@ -44,6 +44,16 @@ ROOT = Path(__file__).resolve().parents[1]
 B, N, C = 2, 256, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tool(name):
     spec = importlib.util.spec_from_file_location(
         name, ROOT / "tools" / f"{name}.py")

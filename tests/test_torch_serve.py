@@ -23,6 +23,16 @@ from tumseg_torch.infer.voting import InferenceRunner, _scatter_votes
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def scene(tmp_path):
     r = np.random.default_rng(0)
@@ -104,17 +114,26 @@ def test_runner_predict_blocks_pads_and_trims(scene):
 
 @pytest.mark.parametrize("option", ["mesh", "device_features",
                                     "device_reblock"])
-def test_runner_unported_options_raise(option):
-    """The mesh is not ported and raises; the device featurization and
-    re-blocking paths are, and construct on the CPU when asked for
+def test_runner_options_construct(option):
+    """Each option constructs on the CPU when asked for: the mesh (here a
+    one-rank gloo group; tests/test_torch_parallel.py votes on two ranks),
+    and the device featurization and re-blocking paths
     (tests/test_torch_vote_device.py drives them; tests/test_torch_bf16.py
-    the bf16 compute)."""
+    the bf16 compute). A batch that does not tile the mesh raises."""
     from tumseg_torch.models.pointnet2_sem_seg import get_model
+    from tumseg_torch.parallel import mesh as pmesh
 
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceRunner(get_model(8), num_classes=8, device="cpu",
-                            **{option: True})
+        mesh = pmesh.make_mesh(1, devices="cpu", backend="gloo")
+        try:
+            runner = InferenceRunner(get_model(8), num_classes=8, mesh=mesh)
+            assert runner.mesh is mesh
+            assert runner.device == torch.device("cpu")
+            with pytest.raises(ValueError, match="multiple of the mesh"):
+                InferenceRunner(get_model(8), num_classes=8, batch_size=3,
+                                mesh=pmesh.Mesh(2, 0, torch.device("cpu")))
+        finally:
+            pmesh.close_mesh()
     else:
         runner = InferenceRunner(get_model(8), num_classes=8, device="cpu",
                                  **{option: True})
@@ -186,13 +205,40 @@ def test_cli_end_to_end(workspace, monkeypatch):
     assert (run / "eval.txt").exists()
 
 
-@pytest.mark.parametrize("flag", [["--num_devices", "2"],
-                                  ["--num_processes", "2"]])
-def test_cli_unported_flags_raise(workspace, flag):
+@pytest.mark.parametrize("flag", ["num_devices", "coordinator"])
+def test_cli_mesh_flags(workspace, monkeypatch, flag):
+    """``--num_devices 2`` (two spawned ranks) and the coordinator flags (a
+    one-rank process group joined here) serve the checkpoint on a mesh:
+    the labels of the one-process CLI, the log and the dump written
+    once."""
     from tumseg_torch.cli import test as test_cli
+    from tumseg_torch.models.convert import variables_from_state_dict
+    from tumseg_torch.models.pointnet2_sem_seg import get_model
+    from tumseg_torch.parallel import mesh as pmesh
+    from tumseg_torch.train.checkpoint import save_checkpoint
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_cli.main(_cli_args(workspace, *flag))
+    monkeypatch.chdir(workspace)
+    run = workspace / "log" / "sem_seg" / "run1"
+    (run / "checkpoints").mkdir(parents=True)
+    torch.manual_seed(0)
+    save_checkpoint(str(run / "checkpoints" / "best_model.pth"), epoch=1,
+                    variables=variables_from_state_dict(
+                        get_model(8, 3).state_dict()))
+    test_cli.main(_cli_args(workspace))
+    want = read_labels_txt(str(run / "visual" / "test_tile.txt"))
+    (run / "eval.txt").unlink()
+    extra = (["--num_devices", "2"] if flag == "num_devices" else
+             ["--coordinator_address", f"localhost:{pmesh.free_port()}",
+              "--num_processes", "1", "--process_id", "0"])
+    try:
+        out = test_cli.main(_cli_args(workspace, *extra))
+    finally:
+        pmesh.close_mesh()
+    assert 0.0 <= out["miou"] <= 1.0 and len(out["iou"]) == 8
+    got = read_labels_txt(str(run / "visual" / "test_tile.txt"))
+    assert got.shape == want.shape == (6000,)
+    assert int(np.sum(got != want)) <= 6
+    assert (run / "eval.txt").read_text().count("PARAMETER ...") == 1
 
 
 def test_parser_matches_tumseg(monkeypatch):

@@ -45,6 +45,16 @@ KERNEL_SMEM = (16 * kernels.THREE_NN_TILE + 24 * kernels.THREE_NN_MAX_QUERIES
 FP = [(4096, 1024, 128), (1024, 256, 256), (256, 64, 256), (64, 16, 512)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_mode():
     """Pallas TPU kernels run under the interpreter on CPU, as in

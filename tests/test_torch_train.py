@@ -55,6 +55,16 @@ B, N, C = 2, 256, 8
 LR, WD, STEPS = 1e-3, 1e-4, 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the suite runs several test
+    processes at once, and more threads than cores slow them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _grads_as_params(model):
     """The port's parameter gradients as a tumseg params tree."""
     sd = dict(model.state_dict())
@@ -409,10 +419,38 @@ def test_train_cli_end_to_end(workspace, monkeypatch):
     assert 0.0 <= out["miou"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--num_devices", "2"],
-                                  ["--process_id", "0"]])
-def test_train_cli_unported_flags_raise(workspace, flag):
+@pytest.mark.parametrize("flag", ["num_devices", "coordinator"])
+def test_train_cli_mesh_flags(workspace, monkeypatch, flag):
+    """``--num_devices 2`` starts two ranks of ``_run`` on the CPU (the run
+    itself is tests/test_torch_parallel.py's); the coordinator flags join a
+    process group here, a mesh of one rank, and train on it: rank 0 writes
+    the log and the checkpoints."""
     from tumseg_torch.cli import train as train_cli
+    from tumseg_torch.parallel import mesh as pmesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(_train_args(workspace, *flag))
+    monkeypatch.chdir(workspace)
+    if flag == "num_devices":
+        calls = []
+        monkeypatch.setattr(pmesh, "spawn",
+                            lambda *a, **kw: calls.append((a, kw)) or "done")
+        assert train_cli.main(_train_args(workspace, "--num_devices",
+                                          "2")) == "done"
+        (fn, nprocs, (run, args, devices)), kw = calls[0]
+        assert (fn, nprocs, run) == (pmesh._cli_rank, 2, train_cli._run)
+        assert args.num_devices == 2
+        assert devices == [torch.device("cpu")] * 2
+        assert kw == {"backend": "gloo", "threads": 1}
+        return
+    try:
+        acc, loss, iou = train_cli.main(_train_args(
+            workspace, "--coordinator_address",
+            f"localhost:{pmesh.free_port()}", "--num_processes", "1",
+            "--process_id", "0"))
+    finally:
+        pmesh.close_mesh()
+    assert len(acc) == 1 and math.isfinite(loss[0])
+    run = workspace / "log" / "sem_seg" / "run1"
+    text = (run / "logs" / "pointnet2_sem_seg.txt").read_text()
+    assert text.count("Saving at") == 2
+    state = jckpt.load_checkpoint(str(run / "checkpoints" / "model.pth"))
+    assert state["epoch"] == 0

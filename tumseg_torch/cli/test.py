@@ -14,11 +14,17 @@ pooling on the device), on the CPU through host re-blocking. ``--bf16``
 serves in bf16 compute (``compute_dtype=torch.bfloat16``), with the
 single-pass bf16 gathers, as ``tumseg``'s ``--bf16`` does; the f32
 checkpoint serves either way.
+
+``--num_devices`` and the coordinator flags serve on a ``data`` mesh as the
+training CLI trains on one (``tumseg_torch.parallel``): every rank votes its
+share of each vote's blocks (``--batch_size`` a multiple of the mesh size),
+and only rank 0 writes the log and the label dumps.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import os
 import time
@@ -34,12 +40,11 @@ from tumseg_torch.utils.timing import current_time, time_print
 from tumseg_torch import models
 from tumseg_torch.infer.voting import InferenceRunner, run_testing
 from tumseg_torch.models.convert import state_dict_from_variables
+from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 
 saveTest = "testdataset.pkl"
 saveDir = os.environ.get("TUMSEG_SAVE_DIR", "./data/saved_data/")
-
-_NOT_PORTED = "is not ported to tumseg_torch yet (ROADMAP Queue 1, item 5)"
 
 
 def parse_args(argv=None):
@@ -109,13 +114,26 @@ def resolve_device(gpu: str) -> torch.device:
     return torch.device(f"cuda:{gpu}")
 
 
+def rank_logger(log_file: str, writer: bool):
+    """``make_logger``'s ``log_string`` on the rank that writes; a no-op on
+    the other ranks of a mesh, so each log is written once."""
+    if not writer:
+        return lambda s: None
+    return make_logger(log_file)[1]
+
+
 def main(args):
-    if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 " + _NOT_PORTED)
-    if (args.coordinator_address is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError("multi-process serving " + _NOT_PORTED)
-    device = resolve_device(args.gpu)
+    """Serves on ``--gpu``, or on the mesh of ``--num_devices`` and the
+    coordinator flags (rank 0's result is returned)."""
+    return pmesh.run_cli(_run, args, resolve_device(args.gpu))
+
+
+def _run(args, mesh):
+    device = resolve_device(args.gpu) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        args = copy.copy(args)
+        args.seed = mesh.broadcast_int(args.seed)
     print(args.class8)
     classes, NUM_CLASSES, label2color = class_tables(bool(args.class8))
     dataColor = bool(args.RGB_OFF)
@@ -140,7 +158,7 @@ def main(args):
     visual_dir = Path(experiment_dir + "/visual/")
     visual_dir.mkdir(exist_ok=True, parents=True)
 
-    logger, log_string = make_logger("%s/eval.txt" % experiment_dir)
+    log_string = rank_logger("%s/eval.txt" % experiment_dir, writer)
     log_string("PARAMETER ...")
     log_string(args)
 
@@ -164,7 +182,7 @@ def main(args):
     time_print(testdatatime)
     current_time()
 
-    if args.save is True:
+    if args.save is True and writer:
         print("Save Test dataset")
         os.makedirs(saveDir, exist_ok=True)
         dataset.save_data(saveDir + saveTest)
@@ -179,7 +197,7 @@ def main(args):
 
     runner = InferenceRunner(
         model, NUM_CLASSES, batch_size=args.batch_size, device=device,
-        compute_dtype=torch.bfloat16 if args.bf16 else None)
+        mesh=mesh, compute_dtype=torch.bfloat16 if args.bf16 else None)
     print("Begin testing")
     out = run_testing(
         dataset, runner, num_votes=args.num_votes,

@@ -19,13 +19,22 @@ in the train step and in eval; the checkpoints stay f32.
 are sampled and featurized on the device, ``--superstep k`` steps at a
 time. ``host`` is the NumPy ``BatchLoader``; ``auto`` picks device on a
 CUDA device and host on the CPU. ``--visualizeModel`` logs the parameter
-counts by module. The multi-device and multi-process options are not
-ported yet and raise.
+counts by module.
+
+``--num_devices D`` trains on a ``D``-device ``data`` mesh
+(``tumseg_torch.parallel``): ``D`` ranks on this host, one a device (all on
+the CPU with ``--gpu cpu``), each taking ``B / D`` rows of every batch.
+``--coordinator_address`` with ``--num_processes`` and ``--process_id``
+joins a multi-process mesh instead, this process one rank on ``--gpu``.
+Every rank reads the data and the checkpoint; only rank 0 writes the log,
+the checkpoints and the saved datasets. Without ``--seed`` rank 0 draws one
+for every rank, so the ranks draw the same batches.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import os
 import time
@@ -33,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from tumseg_torch.cli.common import make_experiment_dirs, make_logger
+from tumseg_torch.cli.common import make_experiment_dirs
 from tumseg_torch.data.dataset import TrainBlockDataset
 from tumseg_torch.data.device_sampler import (DeviceBlockSampler,
                                               DeviceSampleLoader)
@@ -42,7 +51,8 @@ from tumseg_torch.data.loader import BatchLoader
 from tumseg_torch.utils.labels import CLASSES_18, CLASSES_8
 from tumseg_torch.utils.timing import current_time, time_print
 from tumseg_torch import models
-from tumseg_torch.cli.test import resolve_device
+from tumseg_torch.cli.test import resolve_device, rank_logger
+from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train.loop import TrainEngine, fit
 from tumseg_torch.utils.debug import summarize_model
@@ -130,16 +140,6 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 5)")
-    if (args.coordinator_address is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError("multi-process training is not ported to "
-                                  "tumseg_torch yet (ROADMAP Queue 1, item 5)")
-
-
 def uses_device_pipeline(choice: str, device: torch.device) -> bool:
     """``--data_pipeline``: 'device' and 'host' as given; 'auto' is device
     on a CUDA device and host on the CPU."""
@@ -147,9 +147,18 @@ def uses_device_pipeline(choice: str, device: torch.device) -> bool:
 
 
 def main(args):
+    """Trains on ``--gpu``, or on the mesh of ``--num_devices`` and the
+    coordinator flags (rank 0's charts are returned)."""
+    return pmesh.run_cli(_run, args, resolve_device(args.gpu))
+
+
+def _run(args, mesh):
     start = time.time()
-    _refuse_unported(args)
-    device = resolve_device(args.gpu)
+    device = resolve_device(args.gpu) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        args = copy.copy(args)
+        args.seed = mesh.broadcast_int(args.seed)
     # f32 throughout: cuBLAS and cuDNN would otherwise round to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -180,7 +189,7 @@ def main(args):
 
     experiment_dir, checkpoints_dir, logs_dir = make_experiment_dirs(
         args.exp_dir, args.log_dir)
-    logger, log_string = make_logger("%s/%s.txt" % (logs_dir, args.model))
+    log_string = rank_logger("%s/%s.txt" % (logs_dir, args.model), writer)
     log_string("PARAMETER ...")
     log_string(args)
 
@@ -221,7 +230,7 @@ def main(args):
     time_print(loadtime)
     current_time()
 
-    if args.save is True:
+    if args.save is True and writer:
         print("Save Dataset")
         os.makedirs(saveDir, exist_ok=True)
         TRAIN_DATASET.save_data(saveDir + saveTrain)
@@ -266,7 +275,7 @@ def main(args):
                          weight_decay=args.decay_rate, seed=args.seed or 0,
                          device=device,
                          compute_dtype=torch.bfloat16 if args.bf16 else None,
-                         sampler=sampler)
+                         sampler=sampler, mesh=mesh)
 
     model_name = args.output_model
     resume_path = str(experiment_dir) + "/checkpoints" + model_name

@@ -32,6 +32,12 @@ sample_from_draws`, which a test feeds ``tumseg``'s own) or from one
 ``torch.Generator`` a batch (:meth:`DeviceBlockSampler.sample_batches`),
 which draws, per round, ``[pending, trials]`` centre uniforms, then
 ``[B, 9 * cap]`` selection and ``[B, num_point]`` replacement uniforms.
+
+On a ``data`` mesh (``tumseg_torch.parallel``) every rank builds all the
+tables, replicated as ``tumseg`` replicates them (``P()``), and samples only
+its ``B / size`` rows of each batch's room ids, from generators of its own
+(the engine seeds them from ``(seed, step, rank)``); a round's readback is
+the rank's own, with no collective.
 """
 
 from __future__ import annotations

@@ -20,8 +20,19 @@ scene's ground truth. Three paths, chosen as ``tumseg`` chooses them:
 compute dtype and, as ``tumseg``'s runner passes only the compute dtype,
 with the single-pass bf16 gathers (``tumseg/infer/voting.py:250-252``).
 
-Not ported: the device mesh (ROADMAP Queue 1) raises
-``NotImplementedError``. The TPU's scene-shape buckets and block granules
+With a ``mesh`` (``tumseg_torch.parallel``, one process a device;
+``tumseg/infer/voting.py:255-270, 561-583``), every rank forwards its
+contiguous share of a vote's blocks (padded to a multiple of
+``batch_size``), ``batch_size / size`` blocks a forward, into a zero local
+pool increment, and one all-reduce adds the increment to the pool on every
+rank; the carried pool itself is never reduced. Vote counts are small
+integers in f32, so the order of the sums cannot change the pool. On the
+host-drawn paths (host re-blocking, device featurization) rank 0 draws the
+vote's blocks and broadcasts them, so the ranks vote on one re-blocking; on
+device re-blocking every rank draws the same ``(seed, scene, vote)``
+stream.
+
+The TPU's scene-shape buckets and block granules
 (``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
 exist to spare XLA recompiles, and PyTorch does not recompile. So is the
 ``TUMSEG_VOTE_SCATTER`` A/B of the vote accumulation (``voting.py:541-559``),
@@ -42,11 +53,10 @@ import torch
 
 from tumseg_torch import ops
 from tumseg_torch.data.dataset import _COLOR_FEATURES
+from tumseg_torch.parallel.mesh import pad_to_multiple
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
-
-_NOT_PORTED = ("is not ported to tumseg_torch yet (ROADMAP Queue 1)")
 
 
 def _scatter_votes(pool: torch.Tensor, point_idx: torch.Tensor,
@@ -182,6 +192,37 @@ def featurize(scene_xyz: torch.Tensor, scene_extra: torch.Tensor,
     return torch.cat([f.to(torch.float32) for f in feats], dim=-1)
 
 
+class _HostDraws:
+    """The host draws of a scene's votes, ``draw(scene_idx)`` each, the
+    next one drawn on a worker thread while a vote runs. On a ``mesh`` only
+    rank 0 draws, and :meth:`next` broadcasts its arrays to every rank."""
+
+    def __init__(self, draw, scene_idx: int, num_votes: int, mesh=None):
+        self.draw, self.scene_idx, self.left = draw, scene_idx, num_votes
+        self.mesh = mesh
+        self.executor = self.fut = None
+        if mesh is None or mesh.rank == 0:
+            self.executor = ThreadPoolExecutor(max_workers=1)
+            self.fut = self.executor.submit(draw, scene_idx)
+
+    def next(self, dtypes):
+        """The next vote's arrays, as ``dtypes`` on a mesh."""
+        self.left -= 1
+        arrays = [None] * len(dtypes)
+        if self.fut is not None:
+            arrays = self.fut.result()
+            if self.left > 0:
+                self.fut = self.executor.submit(self.draw, self.scene_idx)
+        if self.mesh is None:
+            return arrays
+        return tuple(self.mesh.broadcast_array(a, d)
+                     for a, d in zip(arrays, dtypes))
+
+    def close(self) -> None:
+        if self.executor is not None:
+            self.executor.shutdown(wait=False)
+
+
 class InferenceRunner:
     """Batched forward of an ``nn.Module`` on ``device`` + device vote
     pooling. The model is moved to ``device`` and put in eval mode.
@@ -193,14 +234,21 @@ class InferenceRunner:
     ``(seed, scene, vote)``. ``window_ops`` ("auto" is off, as ``tumseg``
     measured it) takes the z-window 3-NN at fp1 inside the vote loop. True
     works on the CPU as well, with the plain ops. ``compute_dtype`` (None:
-    f32) is the model's compute dtype, ``tumseg``'s ``--bf16``."""
+    f32) is the model's compute dtype, ``tumseg``'s ``--bf16``. With a
+    ``mesh`` the runner runs on ``mesh.device`` (``device`` is not read)
+    and ``batch_size`` must be a multiple of the mesh size."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  batch_size: int = 32, device="cuda", mesh=None,
                  compute_dtype=None, device_features="auto",
                  device_reblock="auto", window_ops="auto", seed: int = 0):
-        if mesh:
-            raise NotImplementedError("InferenceRunner mesh " + _NOT_PORTED)
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} must be a multiple of the "
+                    f"mesh size {mesh.size} for sharded inference")
+            device = mesh.device
+        self.mesh = mesh
         # full f32 everywhere: TF32 would cost the parity with tumseg
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -230,15 +278,36 @@ class InferenceRunner:
 
     def predict_blocks(self, scene_data: np.ndarray) -> np.ndarray:
         """scene_data [num_blocks, N, C] -> predicted labels [num_blocks, N].
-        Pads the block axis up to a batch multiple; padded rows are dropped."""
-        preds = [p[:real].cpu().numpy()
-                 for p, real in self._predict_chunks(scene_data)]
-        return np.concatenate(preds, axis=0)
+        Pads the block axis up to a batch multiple; padded rows are dropped.
+        On a mesh each rank predicts its share and one all-reduce of the
+        zero-filled labels gives every rank all of them."""
+        if self.mesh is None:
+            preds = [p[:real].cpu().numpy()
+                     for p, real in self._predict_chunks(scene_data)]
+            return np.concatenate(preds, axis=0)
+        nb = scene_data.shape[0]
+        (padded,), rows, bs = self._share(scene_data)
+        labels = torch.zeros(padded.shape[:2], dtype=torch.int64,
+                             device=self.device)
+        local = labels[rows]
+        for ci, (pred, real) in enumerate(
+                self._predict_chunks(padded[rows], bs)):
+            local[ci * bs:ci * bs + real] = pred[:real]
+        labels[rows] = local
+        return self.mesh.all_reduce_(labels)[:nb].cpu().numpy()
 
-    def _predict_chunks(self, scene_data: np.ndarray):
-        """Yield (device predictions [bs, N] int64, real_rows) per chunk;
-        a short last chunk is padded by repeating its last block."""
-        bs = self.batch_size
+    def _share(self, *blocks: np.ndarray):
+        """The block arrays padded (last block repeated) to a multiple of
+        ``batch_size``, this rank's rows of them, and its forward size."""
+        padded = [pad_to_multiple(b, self.batch_size)[0] for b in blocks]
+        return (padded, self.mesh.rows(padded[0].shape[0]),
+                self.batch_size // self.mesh.size)
+
+    def _predict_chunks(self, scene_data: np.ndarray, bs=None):
+        """Yield (device predictions [bs, N] int64, real_rows) per chunk of
+        ``bs`` blocks (default ``batch_size``); a short last chunk is padded
+        by repeating its last block."""
+        bs = bs or self.batch_size
         for s in range(0, scene_data.shape[0], bs):
             chunk = scene_data[s:s + bs]
             real = chunk.shape[0]
@@ -372,10 +441,24 @@ class InferenceRunner:
         argmax are added at ``idx * C + pred`` into ``pool_flat``
         [(n + 1) * C], in place. A short last chunk is padded to B with the
         dump row ``n``, so every forward has the kernels' B-block shapes.
-        Counts are small integers in f32: atomics cannot change the pool."""
+        Counts are small integers in f32: atomics cannot change the pool.
+        On a mesh the blocks are padded with dump rows to a multiple of B,
+        this rank votes its share, B / size blocks a forward, into a zero
+        increment, and the all-reduced increment is added to the pool."""
         scene_xyz, scene_extra, coord_max, color_mask = scene
         n = scene_xyz.shape[0]
         bs, C = self.batch_size, self.num_classes
+        target = pool_flat
+        if self.mesh is not None:
+            pad = (-idx_blocks.shape[0]) % bs
+            idx_blocks = torch.cat(
+                [idx_blocks, idx_blocks.new_full((pad, idx_blocks.shape[1]),
+                                                 n)])
+            offsets = torch.cat([offsets, offsets.new_zeros(pad, 2)])
+            rows = self.mesh.rows(idx_blocks.shape[0])
+            idx_blocks, offsets = idx_blocks[rows], offsets[rows]
+            target = torch.zeros_like(pool_flat)
+            bs //= self.mesh.size
         for s in range(0, idx_blocks.shape[0], bs):
             idx = idx_blocks[s:s + bs]
             offs = offsets[s:s + bs]
@@ -387,8 +470,10 @@ class InferenceRunner:
                                idx.clamp(max=n - 1), offs, block_size)
             pred = self._labels(points)
             flat = idx.reshape(-1).long() * C + pred.reshape(-1)
-            pool_flat.index_add_(0, flat,
-                                 torch.ones_like(flat, dtype=pool_flat.dtype))
+            target.index_add_(0, flat,
+                              torch.ones_like(flat, dtype=target.dtype))
+        if self.mesh is not None:
+            pool_flat += self.mesh.all_reduce_(target)
 
     def _finish(self, dataset, scene_idx: int, pool_flat: torch.Tensor,
                 gt_weight_gate: bool) -> np.ndarray:
@@ -435,13 +520,11 @@ class InferenceRunner:
         n = scene[0].shape[0]
         pool_flat = torch.zeros((n + 1) * self.num_classes,
                                 dtype=torch.float32, device=self.device)
-        executor = ThreadPoolExecutor(max_workers=1)
+        draws = _HostDraws(dataset.grid_indices, scene_idx, num_votes,
+                           self.mesh)
         try:
-            fut = executor.submit(dataset.grid_indices, scene_idx)
             for vote in progress(range(num_votes), desc="votes"):
-                idx_blocks, offsets = fut.result()
-                if vote + 1 < num_votes:
-                    fut = executor.submit(dataset.grid_indices, scene_idx)
+                idx_blocks, offsets = draws.next((np.int32, np.float64))
                 with ops.window_enabled(self.window_ops):
                     self._vote(
                         scene,
@@ -450,7 +533,7 @@ class InferenceRunner:
                         torch.as_tensor(offsets, device=self.device),
                         pool_flat, float(dataset.block_size))
         finally:
-            executor.shutdown(wait=False)
+            draws.close()
         return self._finish(dataset, scene_idx, pool_flat, gt_weight_gate)
 
     def _infer_scene_host(self, dataset, scene_idx, num_votes,
@@ -458,31 +541,45 @@ class InferenceRunner:
         n_scene = dataset.semantic_labels_list[scene_idx].shape[0]
         pool = torch.zeros((n_scene, self.num_classes), dtype=torch.float32,
                            device=self.device)
-        executor = ThreadPoolExecutor(max_workers=1)
+
+        def draw(i):
+            scene_data, _, scene_smpw, scene_index = dataset.__getitem__(i)
+            if gt_weight_gate:
+                keep = (scene_smpw != 0) & ~np.isinf(scene_smpw)
+            else:
+                keep = np.ones_like(scene_smpw, dtype=bool)
+            return scene_data, keep, scene_index
+
+        draws = _HostDraws(draw, scene_idx, num_votes, self.mesh)
         try:
-            fut = executor.submit(dataset.__getitem__, scene_idx)
-            bs = self.batch_size
             for vote in progress(range(num_votes), desc="votes"):
-                scene_data, _, scene_smpw, scene_index = fut.result()
-                if vote + 1 < num_votes:
-                    fut = executor.submit(dataset.__getitem__, scene_idx)
-                if gt_weight_gate:
-                    keep = (scene_smpw != 0) & ~np.isinf(scene_smpw)
-                else:
-                    keep = np.ones_like(scene_smpw, dtype=bool)
+                scene_data, keep, scene_index = draws.next(
+                    (np.float32, np.bool_, np.int64))
+                target, bs = pool, self.batch_size
+                if self.mesh is not None:
+                    # padded blocks cast no vote
+                    keep = np.concatenate([keep, np.zeros(
+                        ((-keep.shape[0]) % bs,) + keep.shape[1:], bool)])
+                    (scene_data, scene_index), rows, bs = self._share(
+                        scene_data, scene_index)
+                    scene_data, keep = scene_data[rows], keep[rows]
+                    scene_index = scene_index[rows]
+                    target = torch.zeros_like(pool)
                 # padded rows of a short last chunk cast no vote
                 for ci, (pred, real) in enumerate(
-                        self._predict_chunks(scene_data)):
+                        self._predict_chunks(scene_data, bs)):
                     s = ci * bs
                     _scatter_votes(
-                        pool,
+                        target,
                         torch.as_tensor(scene_index[s:s + real],
                                         device=self.device),
                         pred[:real],
                         torch.as_tensor(keep[s:s + real],
                                         device=self.device))
+                if self.mesh is not None:
+                    pool += self.mesh.all_reduce_(target)
         finally:
-            executor.shutdown(wait=False)
+            draws.close()
         return pool.argmax(dim=1).cpu().numpy()
 
     def infer_scene(self, dataset, scene_idx: int, num_votes: int = 5,
@@ -514,7 +611,8 @@ def run_testing(dataset, runner: InferenceRunner, *, num_votes: int,
     one-worker pool stages the next one (``runner.prefetch_scene``); its
     result is read before that scene votes, so a failed prefetch raises
     there. The result also carries ``infer_seconds``, the wall time spent
-    in ``infer_scene``."""
+    in ``infer_scene``. On a mesh every rank votes and only rank 0 writes
+    the label dumps and .obj files."""
     num_classes = runner.num_classes
     scene_ids = [os.path.basename(str(f))[:-4] for f in dataset.file_list]
     totals = M.zero_tallies(num_classes)
@@ -557,7 +655,8 @@ def run_testing(dataset, runner: InferenceRunner, *, num_votes: int,
                                                   tmp_iou))
             print("----------------------------")
 
-            if visual_dir is not None:
+            if visual_dir is not None and (runner.mesh is None
+                                           or runner.mesh.rank == 0):
                 write_labels_txt(os.path.join(str(visual_dir),
                                               scene_ids[batch_idx] + ".txt"),
                                  pred_label)

@@ -13,7 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from tumseg_torch.nn.layers import (BatchNorm, Dense, FeaturePropagation,
-                                    SetAbstraction)
+                                    SetAbstraction, weighted_nll_loss)
 
 SA_CFGS = [
     dict(npoint=1024, radius=0.1, nsample=32, mlp=[32, 32, 64]),
@@ -54,7 +54,8 @@ class PointNet2SemSeg(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                fast_gather: Optional[bool] = None, compute_dtype=None):
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None):
         """x [B, N, 6 + extra] f32 (cols 0-2 block-relative xyz, 3-5
         room-normalized xyz, then extra features) ->
         (log_probs [B, N, num_classes], l4_points [B, 16, sa4's width]).
@@ -69,7 +70,8 @@ class PointNet2SemSeg(nn.Module):
         None`` in each layer. ``compute_dtype`` (e.g. ``torch.bfloat16``)
         is ``apply``'s: every ``Dense``, the head's two included, rounds its
         operands to it and returns f32; BN, ReLU, dropout and log_softmax
-        run in f32."""
+        run in f32. ``mesh`` (training on a sharded batch) goes to every
+        BatchNorm, as ``apply``'s ``axis_name``."""
         draw = generator is not None and self.training
         B = x.shape[0]
         l_xyz = [x[..., :3].contiguous()]
@@ -82,15 +84,17 @@ class PointNet2SemSeg(nn.Module):
                                       dtype=torch.int32)
             new_xyz, new_points = getattr(self, f"sa{i}")(
                 l_xyz[-1], l_points[-1], fps_start=start,
-                fast_gather=fast_gather, compute_dtype=compute_dtype)
+                fast_gather=fast_gather, compute_dtype=compute_dtype,
+                mesh=mesh)
             l_xyz.append(new_xyz)
             l_points.append(new_points)
         feat = l_points[4]
         for i, lvl in zip([4, 3, 2, 1], [3, 2, 1, 0]):
             skip = l_points[lvl] if lvl > 0 else None
             feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
-                                           feat, fast_gather, compute_dtype)
-        h = F.relu(self.bn1(self.conv1(feat, compute_dtype)))
+                                           feat, fast_gather, compute_dtype,
+                                           mesh)
+        h = F.relu(self.bn1(self.conv1(feat, compute_dtype), mesh))
         if draw:
             keep = 1.0 - DROPOUT_RATE
             mask = torch.rand(h.shape, generator=generator,
@@ -101,14 +105,14 @@ class PointNet2SemSeg(nn.Module):
 
     @staticmethod
     def loss(log_probs: torch.Tensor, target: torch.Tensor, aux,
-             weight: torch.Tensor) -> torch.Tensor:
+             weight: torch.Tensor, mesh=None) -> torch.Tensor:
         """Weighted NLL over all points, sum(w[t] * -logp[t]) / sum(w[t])
-        (``tumseg/nn/layers.py:weighted_nll_loss``). ``aux``, the forward's
-        second output, is taken as ``tumseg``'s ``loss`` takes it, and
-        unused."""
+        (``tumseg/nn/layers.py:weighted_nll_loss``), over every rank's
+        points with a ``mesh``. ``aux``, the forward's second output, is
+        taken as ``tumseg``'s ``loss`` takes it, and unused."""
         C = log_probs.shape[-1]
-        return F.nll_loss(log_probs.reshape(-1, C),
-                          target.reshape(-1).long(), weight=weight)
+        return weighted_nll_loss(log_probs.reshape(-1, C),
+                                 target.reshape(-1), weight, mesh)
 
 
 def get_model(num_classes: int, num_extra_features: int = 0

@@ -36,6 +36,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from tumseg_torch import ops
+from tumseg_torch.parallel.mesh import pmean, psum
 
 
 class Dense(nn.Module):
@@ -148,7 +149,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """With a ``mesh`` (training on a sharded batch), the batch moments
+        E[x] and E[x^2] are ``pmean``'d over the ranks and the unbiased
+        variance counts ``n * size`` values, as ``tumseg``'s ``axis_name``
+        does."""
         dtype = x.dtype
         x = x.to(torch.promote_types(dtype, torch.float32))
         if not self.training:
@@ -156,8 +161,12 @@ class BatchNorm(nn.Module):
             return ((x - self.running_mean) * inv + self.bias).to(dtype)
         dims = tuple(range(x.dim() - 1))
         mean = x.mean(dim=dims)
-        var = (x * x).mean(dim=dims) - mean * mean
+        sqmean = (x * x).mean(dim=dims)
         n = x.numel() // x.shape[-1]
+        if mesh is not None:
+            mean, sqmean = pmean(mean, mesh), pmean(sqmean, mesh)
+            n *= mesh.size
+        var = sqmean - mean * mean
         with torch.no_grad():
             m = self.momentum
             unbiased = var * (n / max(n - 1, 1))
@@ -206,13 +215,14 @@ def _mlp_layers(in_dim: int, dims: Sequence[int], conv_rank: int):
 
 
 def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList, x: torch.Tensor,
-             compute_dtype=None) -> torch.Tensor:
+             compute_dtype=None, mesh=None) -> torch.Tensor:
     """[Dense -> BatchNorm -> ReLU] * L; with a ``compute_dtype`` the
     activations between layers are stored in it (the next ``Dense`` would
-    round them anyway) and the last layer's output stays f32."""
+    round them anyway) and the last layer's output stays f32. ``mesh``
+    goes to every BatchNorm."""
     last = len(convs) - 1
     for i, (conv, bn) in enumerate(zip(convs, bns)):
-        x = F.relu(bn(conv(x, compute_dtype)))
+        x = F.relu(bn(conv(x, compute_dtype), mesh))
         if compute_dtype is not None and i < last:
             x = x.to(compute_dtype)
     return x
@@ -226,8 +236,9 @@ class MLPStack(nn.Module):
         super().__init__()
         self.mlp_convs, self.mlp_bns = _mlp_layers(in_dim, dims, conv_rank)
 
-    def mlp(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        return _run_mlp(self.mlp_convs, self.mlp_bns, x, compute_dtype)
+    def mlp(self, x: torch.Tensor, compute_dtype=None,
+            mesh=None) -> torch.Tensor:
+        return _run_mlp(self.mlp_convs, self.mlp_bns, x, compute_dtype, mesh)
 
 
 def _mlp_input(grouped: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -239,26 +250,36 @@ def _mlp_input(grouped: torch.Tensor, compute_dtype) -> torch.Tensor:
 class SetAbstraction(MLPStack):
     """SSG set abstraction: xyz [B, N, 3], points [B, N, D] ->
     (new_xyz [B, npoint, 3], new_points [B, npoint, mlp[-1]]); the shared
-    MLP runs on the [B, npoint, nsample, 3 + D] groups, then max over K."""
+    MLP runs on the [B, npoint, nsample, 3 + D] groups, then max over K.
+    ``group_all`` (``tumseg/nn/layers.py:186-187``) groups every point
+    under one centroid at the origin instead (``ops.sample_and_group_all``:
+    npoint 1, nsample N); no model sets it."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
-                 in_channel: int, mlp: Sequence[int]):
+                 in_channel: int, mlp: Sequence[int],
+                 group_all: bool = False):
         super().__init__(in_channel, mlp, conv_rank=2)
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.group_all = group_all
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
-                fast_gather: Optional[bool] = None, compute_dtype=None):
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None):
         """``fps_start`` [B] int32 seeds FPS (default index 0). The max over
         K is ``amax``, which splits the gradient evenly among tied entries,
         as ``jnp.max`` does: a short ball repeats its first hit, so ties
-        are the rule."""
-        if fast_gather is None:
-            fast_gather = compute_dtype is not None
-        new_xyz, grouped = ops.sample_and_group(
-            self.npoint, self.radius, self.nsample, xyz, points,
-            fps_start=fps_start, fast_gather=fast_gather)
-        feat = self.mlp(_mlp_input(grouped, compute_dtype), compute_dtype)
+        are the rule. ``mesh`` goes to the BatchNorms."""
+        if self.group_all:
+            new_xyz, grouped = ops.sample_and_group_all(xyz, points)
+        else:
+            if fast_gather is None:
+                fast_gather = compute_dtype is not None
+            new_xyz, grouped = ops.sample_and_group(
+                self.npoint, self.radius, self.nsample, xyz, points,
+                fps_start=fps_start, fast_gather=fast_gather)
+        feat = self.mlp(_mlp_input(grouped, compute_dtype), compute_dtype,
+                        mesh)
         return new_xyz, feat.amax(dim=2)
 
 
@@ -287,8 +308,10 @@ class SetAbstractionMsg(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
                 fps_start: Optional[torch.Tensor] = None,
-                fast_gather: Optional[bool] = None, compute_dtype=None):
-        """``fps_start`` [B] int32 seeds FPS (default index 0)."""
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None):
+        """``fps_start`` [B] int32 seeds FPS (default index 0); ``mesh``
+        goes to the BatchNorms."""
         if fast_gather is None:
             fast_gather = compute_dtype is not None
         new_xyz = ops.gather_rows(xyz, ops.farthest_point_sample(
@@ -304,7 +327,7 @@ class SetAbstractionMsg(nn.Module):
                                     dim=-1)
             outs.append(_run_mlp(convs, bns,
                                  _mlp_input(grouped, compute_dtype),
-                                 compute_dtype).amax(dim=2))
+                                 compute_dtype, mesh).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -318,7 +341,7 @@ class FeaturePropagation(MLPStack):
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 points1: Optional[torch.Tensor], points2: torch.Tensor,
                 fast_gather: Optional[bool] = None,
-                compute_dtype=None) -> torch.Tensor:
+                compute_dtype=None, mesh=None) -> torch.Tensor:
         if fast_gather is None:
             fast_gather = compute_dtype is not None
         if xyz2.shape[1] == 1:
@@ -328,7 +351,7 @@ class FeaturePropagation(MLPStack):
                                                  fast_gather)
         if points1 is not None:
             interpolated = torch.cat([points1, interpolated], dim=-1)
-        return self.mlp(interpolated, compute_dtype)
+        return self.mlp(interpolated, compute_dtype, mesh)
 
 
 def dense_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -359,14 +382,15 @@ class STN(nn.Module):
         for i, dim in enumerate([64, 128, 1024, 512, 256], start=1):
             setattr(self, f"bn{i}", BatchNorm(dim))
 
-    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        h = dense_input(F.relu(self.bn1(self.conv1(x, compute_dtype))),
+    def forward(self, x: torch.Tensor, compute_dtype=None,
+                mesh=None) -> torch.Tensor:
+        h = dense_input(F.relu(self.bn1(self.conv1(x, compute_dtype), mesh)),
                         compute_dtype)
-        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype))),
+        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype), mesh)),
                         compute_dtype)
-        h = F.relu(self.bn3(self.conv3(h, compute_dtype))).amax(dim=1)
-        h = F.relu(self.bn4(self.fc1(h, compute_dtype)))
-        h = F.relu(self.bn5(self.fc2(h, compute_dtype)))
+        h = F.relu(self.bn3(self.conv3(h, compute_dtype), mesh)).amax(dim=1)
+        h = F.relu(self.bn4(self.fc1(h, compute_dtype), mesh))
+        h = F.relu(self.bn5(self.fc2(h, compute_dtype), mesh))
         h = self.fc3(h, compute_dtype)
         iden = torch.eye(self.k, dtype=h.dtype, device=h.device)
         return (h + iden.reshape(1, -1)).view(-1, self.k, self.k)
@@ -400,21 +424,21 @@ class PointNetEncoder(nn.Module):
         if feature_transform:
             self.fstn = STN(64, 64)
 
-    def forward(self, x: torch.Tensor, compute_dtype=None):
+    def forward(self, x: torch.Tensor, compute_dtype=None, mesh=None):
         B, N, D = x.shape
-        trans = self.stn(x, compute_dtype)
+        trans = self.stn(x, compute_dtype, mesh)
         h = torch.bmm(x[..., :3], trans)
         if D > 3:
             h = torch.cat([h, x[..., 3:]], dim=-1)
-        h = F.relu(self.bn1(self.conv1(h, compute_dtype)))
+        h = F.relu(self.bn1(self.conv1(h, compute_dtype), mesh))
         trans_feat = None
         if self.feature_transform:
-            trans_feat = self.fstn(h, compute_dtype)
+            trans_feat = self.fstn(h, compute_dtype, mesh)
             h = torch.bmm(h, trans_feat)
         pointfeat = h
-        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype))),
+        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype), mesh)),
                         compute_dtype)
-        g = self.bn3(self.conv3(h, compute_dtype)).amax(dim=1)
+        g = self.bn3(self.conv3(h, compute_dtype), mesh).amax(dim=1)
         if self.global_feat:
             return g, trans, trans_feat
         return (torch.cat([g[:, None, :].expand(B, N, -1), pointfeat],
@@ -427,3 +451,17 @@ def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
     gram = torch.bmm(trans, trans.transpose(1, 2))
     return (gram - eye).square().sum(dim=(1, 2)).sqrt().mean()
+
+
+def weighted_nll_loss(log_probs: torch.Tensor, target: torch.Tensor,
+                      weight: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``F.nll_loss(weight=...)``: sum(w[t] * -logp[t]) / sum(w[t]) over
+    log_probs [M, C], target [M] (``tumseg/nn/layers.py:423-439``). With a
+    ``mesh`` the numerator and the denominator are ``psum``'d, so a sharded
+    batch gives the global loss on every rank."""
+    if mesh is None:
+        return F.nll_loss(log_probs, target.long(), weight=weight)
+    target = target.long()
+    w = weight[target]
+    picked = log_probs.gather(1, target[:, None])[:, 0]
+    return -psum((w * picked).sum(), mesh) / psum(w.sum(), mesh)

@@ -40,6 +40,9 @@ import torch
 from tumseg_torch.ops import core, kernels
 from tumseg_torch.ops.autograd import (FusedBallGroup, GroupPoints,
                                        ThreeNNInterpolate)
+# no kernel: plain PyTorch on every device, as no Pallas kernel answers them
+from tumseg_torch.ops.core import (  # noqa: F401
+    pc_normalize, sample_and_group_all, square_distance)
 
 _state = threading.local()
 _window_default = False

@@ -446,3 +446,32 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     src = torch.cat([xyz, points], dim=-1) if points is not None else xyz
     return new_xyz, group_points(idx, src, new_xyz)
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances in ``tumseg``'s expansion form
+    (``tumseg/ops/core.py:30-45``): src [B, N, C], dst [B, M, C] ->
+    [B, N, M] = ``-2 src.dst + |src|^2 + |dst|^2``, the product in full f32
+    (TF32 off, as ``Precision.HIGHEST``). No kernel calls it."""
+    dist = -2.0 * torch.einsum("bnc,bmc->bnm", src, dst)
+    dist = dist + (src * src).sum(dim=-1)[:, :, None]
+    return dist + (dst * dst).sum(dim=-1)[:, None, :]
+
+
+def pc_normalize(pc: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Centred on the centroid along ``axis`` and scaled by the largest
+    norm into the unit sphere (``tumseg/ops/core.py:198-204``)."""
+    pc = pc - pc.mean(dim=axis, keepdim=True)
+    return pc / (pc * pc).sum(dim=-1).sqrt().max()
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One group of every point (``tumseg/ops/core.py:148-160``): xyz
+    [B, N, 3], points [B, N, D] -> (new_xyz [B, 1, 3] zeros, grouped
+    [B, 1, N, 3 (+D)]), the coordinates uncentred."""
+    new_xyz = xyz.new_zeros(xyz.shape[0], 1, xyz.shape[2])
+    grouped = xyz[:, None]
+    if points is not None:
+        grouped = torch.cat([grouped, points[:, None]], dim=-1)
+    return new_xyz, grouped

@@ -133,10 +133,21 @@ def load_optimizer_leaves(optimizer: torch.optim.Optimizer,
 
 def save_checkpoint(path: str, *, epoch: int, variables: Dict,
                     opt_leaves: Optional[List[np.ndarray]] = None,
-                    class_avg_iou: Optional[float] = None) -> None:
+                    class_avg_iou: Optional[float] = None,
+                    mesh=None) -> None:
     """Write ``variables`` (a ``tumseg`` pytree of arrays, e.g. from
     ``convert.variables_from_state_dict``) and the optimizer leaves of
-    :func:`optimizer_leaves`, if any, as a ``tumseg-ckpt-v2`` file."""
+    :func:`optimizer_leaves`, if any, as a ``tumseg-ckpt-v2`` file. On a
+    ``mesh``, whose ranks hold the same replicated state, rank 0 writes the
+    file once and every rank returns after it has, so any rank may read it
+    next."""
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_checkpoint(path, epoch=epoch, variables=variables,
+                            opt_leaves=opt_leaves,
+                            class_avg_iou=class_avg_iou)
+        mesh.barrier()
+        return
     model_flat = list(_flatten(variables))
     opt_leaves = [] if opt_leaves is None else list(opt_leaves)
     manifest = {

@@ -34,7 +34,19 @@ blocks, then its rotation, FPS starts and dropout, from one generator
 seeded from ``(seed, s)``, and eval call ``e`` from one seeded from
 ``(seed, 2^31 + e)``. So ``k`` single steps equal one ``k``-step call, eval
 never moves the training stream, and the host path's ``generator`` is left
-alone. No mesh yet (ROADMAP).
+alone.
+
+With a ``mesh`` (``tumseg_torch.parallel``, one process a device) the engine
+trains as ``tumseg``'s sharded engine does (``tumseg/train/loop.py:83-270,
+289-430``): every rank takes its contiguous ``B / size`` rows of the global
+batch, parameters, BN statistics and optimizer state are replicated (rank
+0's broadcast at construction and after :meth:`TrainEngine.load_state`),
+BatchNorm ``pmean``'s its batch moments, the loss ``psum``'s its numerator
+and denominator, the gradients are averaged over the ranks, and the correct
+counts and eval tallies are ``psum``'d, so every rank reads the global
+numbers. Each rank draws from its own streams, the counterpart of
+``fold_axis``: room-id step ``s`` from ``(seed, s, rank)``, so a ``k``-step
+call still equals ``k`` single steps on the mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from tumseg_torch.data.device_sampler import RoomBatch
 from tumseg_torch.models.convert import (state_dict_from_variables,
                                          variables_from_state_dict)
 from tumseg_torch.nn.layers import BatchNorm
+from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train import metrics as M
 
@@ -85,11 +98,19 @@ def _add_tallies(total, t):
     return t if total is None else {k: total[k] + t[k] for k in t}
 
 
-def stream_seed(seed: int, count: int) -> int:
+# the count of a rank's host-path stream on a mesh: above every train step
+# (< 2^31) and eval call (2^31 + e) count
+HOST_STREAM = 1 << 32
+
+
+def stream_seed(seed: int, count: int, rank=None) -> int:
     """The seed of the room-id step or eval call ``count``'s generator,
-    the counterpart of ``fold_in(PRNGKey(seed), count)``."""
-    words = np.random.SeedSequence([int(seed) % 2 ** 64, int(count)]
-                                   ).generate_state(2, np.uint32)
+    the counterpart of ``fold_in(PRNGKey(seed), count)``; on a mesh also
+    of the rank, as ``fold_axis`` folds the device's index."""
+    entropy = [int(seed) % 2 ** 64, int(count)]
+    if rank is not None:
+        entropy.append(int(rank))
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return (int(words[0]) << 31) ^ int(words[1])
 
 
@@ -99,13 +120,20 @@ class TrainEngine:
     gather exactly too; ``compute_dtype`` (None: f32) is the model's compute
     dtype in the train step and in eval; ``sampler`` (a
     ``DeviceBlockSampler`` on the engine's device) enables the room-id
-    steps."""
+    steps. With a ``mesh`` the engine runs on ``mesh.device`` and
+    ``device`` is not read. Setting ``generator`` to None makes the host
+    path's steps draw nothing (FPS from index 0, no dropout; with
+    ``augment_rotate=False``), ``tumseg``'s ``rngs={}``."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
                  seed: int = 0, device="cuda", exact_gathers: bool = False,
-                 compute_dtype=None, sampler=None):
+                 compute_dtype=None, sampler=None, mesh=None):
+        self.mesh = mesh
+        self.rank = None if mesh is None else mesh.rank
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.num_classes = num_classes
@@ -117,11 +145,15 @@ class TrainEngine:
         self.optimizer = make_optimizer(self.model.parameters(), optimizer,
                                         weight_decay)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(
+            seed if mesh is None else stream_seed(seed, HOST_STREAM,
+                                                  self.rank))
         self.seed = seed
         self.sampler = sampler
         self._step_count = 0
         self._eval_count = 0
+        if mesh is not None:
+            pmesh.broadcast_state(self.model, mesh)
 
     def load_state(self, state: Dict) -> int:
         """Model weights and (if saved) optimizer state from a loaded
@@ -131,20 +163,37 @@ class TrainEngine:
         if state.get("optimizer_state_dict") is not None:
             ckpt.load_optimizer_leaves(self.optimizer, self.model,
                                        state["optimizer_state_dict"])
+        if self.mesh is not None:
+            pmesh.broadcast_state(self.model, self.mesh, self.optimizer)
         return state.get("epoch", 0)
 
     def variables(self) -> Dict:
         return variables_from_state_dict(self.model.state_dict())
 
     def save(self, path: str, epoch: int, class_avg_iou=None) -> None:
+        """On a mesh rank 0 writes, and every rank returns once it has."""
         ckpt.save_checkpoint(
             path, epoch=epoch, variables=self.variables(),
             opt_leaves=ckpt.optimizer_leaves(self.optimizer, self.model),
-            class_avg_iou=class_avg_iou)
+            class_avg_iou=class_avg_iou, mesh=self.mesh)
 
     def _put(self, points, target):
+        """This rank's rows of a global batch, on the device."""
+        if self.mesh is not None:
+            points, target = pmesh.shard_batch(self.mesh, (points, target))
         return (torch.as_tensor(points, dtype=torch.float32).to(self.device),
                 torch.as_tensor(target).to(self.device, torch.long))
+
+    def _check_mesh_divisible(self, b: int) -> None:
+        """A batch must tile the mesh axis (``tumseg/train/loop.py:
+        351-364``): a ragged ``drop_last=False`` tail raises here, with what
+        to do about it."""
+        if self.mesh is not None and b % self.mesh.size:
+            raise ValueError(
+                "room-id batch of %d rows cannot shard over the %d-device "
+                "'%s' mesh axis; use a drop_last=True loader (the CLI "
+                "default) or pad the tail to a multiple of %d"
+                % (b, self.mesh.size, pmesh.DATA_AXIS, self.mesh.size))
 
     def train_batch(self, points, target, lr: float, momentum: float):
         """One step: rotate, forward, the model's loss, backward, optimizer.
@@ -164,14 +213,19 @@ class TrainEngine:
                                 device=self.device) * (2 * math.pi)
             points = torch.cat([rotate_z(points[..., :3], angles),
                                 points[..., 3:]], dim=-1)
+        mesh = self.mesh
         logp, aux = self.model(points, generator=generator,
                                fast_gather=not self.exact_gathers,
-                               compute_dtype=self.compute_dtype)
-        loss = self.model.loss(logp, target, aux, self.weights)
+                               compute_dtype=self.compute_dtype, mesh=mesh)
+        loss = self.model.loss(logp, target, aux, self.weights, mesh=mesh)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            pmesh.all_reduce_gradients(self.model.parameters(), mesh)
         self.optimizer.step()
         correct = (logp.detach().argmax(-1) == target).sum()
+        if mesh is not None:
+            correct = pmesh.psum(correct, mesh)
         return loss.detach(), correct
 
     @torch.no_grad()
@@ -179,12 +233,18 @@ class TrainEngine:
         """-> (loss, {seen, predicted, correct}) as device tensors. The
         gathers resolve as in ``tumseg``'s eval step: exact in f32 compute,
         single-pass bf16 under a compute dtype."""
-        points, target = self._put(points, target)
+        return self._eval_step(*self._put(points, target))
+
+    def _eval_step(self, points, target):
         self.model.eval()
         logp, aux = self.model(points, compute_dtype=self.compute_dtype)
-        loss = self.model.loss(logp, target, aux, self.weights)
-        return loss, M.confusion_tallies(logp.argmax(-1), target,
-                                         self.num_classes)
+        loss = self.model.loss(logp, target, aux, self.weights,
+                               mesh=self.mesh)
+        tallies = M.confusion_tallies(logp.argmax(-1), target,
+                                      self.num_classes)
+        if self.mesh is not None:
+            tallies = {k: pmesh.psum(t, self.mesh) for k, t in tallies.items()}
+        return loss, tallies
 
     # -- room-id steps: blocks sampled on the device ---------------------------
 
@@ -192,9 +252,17 @@ class TrainEngine:
         out = []
         for count in range(first, first + k):
             g = torch.Generator(device=self.device)
-            g.manual_seed(stream_seed(self.seed, count))
+            g.manual_seed(stream_seed(self.seed, count, self.rank))
             out.append(g)
         return out
+
+    def _local_rooms(self, room_ids_k) -> np.ndarray:
+        """This rank's columns of ``[k, B]`` room ids."""
+        room_ids_k = np.asarray(room_ids_k)
+        if self.mesh is None:
+            return room_ids_k
+        self._check_mesh_divisible(room_ids_k.shape[1])
+        return room_ids_k[:, self.mesh.rows(room_ids_k.shape[1])]
 
     def train_batch_rooms(self, room_ids, lr: float, momentum: float):
         """One train step from ``[B]`` room ids: the blocks are sampled on
@@ -208,7 +276,7 @@ class TrainEngine:
         of :meth:`train_batch_rooms`: the k batches are sampled first (one
         readback a rejection round for all of them), then trained in turn.
         Returns ([k] losses, [k] corrects) on the device."""
-        room_ids_k = np.asarray(room_ids_k)
+        room_ids_k = self._local_rooms(room_ids_k)
         gens = self._streams(self._step_count, room_ids_k.shape[0])
         self._step_count += len(gens)
         points, target = self.sampler.sample_batches(room_ids_k, gens)
@@ -227,14 +295,15 @@ class TrainEngine:
         """k eval calls from ``[k, B]`` room ids -> ([k] losses, summed
         tallies); eval call e draws from the stream ``2^31 + e``, disjoint
         from the training steps'."""
-        room_ids_k = np.asarray(room_ids_k)
+        room_ids_k = self._local_rooms(room_ids_k)
         gens = self._streams((1 << 31) + self._eval_count + 1,
                              room_ids_k.shape[0])
         self._eval_count += len(gens)
         points, target = self.sampler.sample_batches(room_ids_k, gens)
         losses, tallies = [], None
         for i in range(len(gens)):
-            loss, t = self.eval_batch(points[i], target[i])
+            with torch.no_grad():
+                loss, t = self._eval_step(points[i], target[i])
             losses.append(loss)
             tallies = _add_tallies(tallies, t)
         return torch.stack(losses), tallies
