@@ -231,6 +231,19 @@ y. (after x) the ``data`` mesh (``tumseg_torch.parallel``): in a one-rank
    scene-points/s beside one process's (two ranks share one card, so this
    is a finding, not a limit), and each of d's kernels launched on each
    rank at least as often as d's forwards need.
+z. (last) the port's end-to-end tools: ``tumseg_torch.tools.soak`` at its
+   defaults (three 600K-point facade tiles, ``--class8 --bf16`` with
+   colour, 3 epochs at B=16 x 4096, a 3-vote B=32 test with ``--visual``),
+   its four phase lines and its gate (finite losses, mIoU > 0.3, the
+   checkpoint, one label a point in ``visual/test_tile.txt``); then
+   ``tumseg_torch.tools.miou_parity`` at PARITY.md's production
+   configuration (300K-point facade tiles with colour, B=16 x 4096, the
+   tool's default of 6 epochs, 2 votes) for seeds 0-2 in f32 and in ``--bf16``: each served
+   mIoU beside ``tumseg``'s and the original PyTorch pipeline's recorded
+   ones, the per-epoch eval mIoU, train and test seconds and every
+   kernel's launches (at least steps x launches a step in training); the
+   f32 and bf16 means and bf16 - f32 a seed. Every served mIoU must be
+   > 0.3 and the f32 mean >= 0.4122, the original pipeline's.
 
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
@@ -245,11 +258,12 @@ and ``library_device_ms``, the profiler's device time of the calls that
 ``ms`` and ``library_ms`` time with CUDA events (null where no PyTorch
 call computes the function; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
-time is the host's time a call). The
-line before the last is a JSON summary of
-the kernels; the last line is ``{"ok": true, "device": {...}}``. Any failed
-phase raises, and the script then exits non-zero without printing either
-line. Without a CUDA device it exits with code 2.
+time is the host's time a call). A JSON
+summary of the kernels is printed after phases a-y and before z; the last
+line is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
+script then exits non-zero without printing the last line (nor the kernels'
+line when a phase before z failed). Without a CUDA device it exits with
+code 2.
 """
 
 from __future__ import annotations
@@ -295,6 +309,19 @@ BF16_AGREE_MIN = 0.5
 X_BATCHES = 64
 X_TRIALS = 16
 X_TRIAL_CENTRES = 4096
+# z: PARITY.md's production configuration of tools/miou_parity.py (the
+# command it logs; its epochs are the tool's default of 6), the served mIoU
+# recorded there a seed for tumseg and for the original PyTorch pipeline,
+# and the gates: every served mIoU above the soak's 0.3 and the f32 mean at
+# least the original pipeline's
+PARITY_ARGS = ["--tile_style", "facade", "--tile_points", "300000",
+               "--color", "--npoint", "4096", "--batch", "16", "--votes",
+               "2"]
+PARITY_SEEDS = (0, 1, 2)
+PARITY_TUMSEG = {0: 0.4684, 1: 0.4863, 2: 0.4724}
+PARITY_REFERENCE = {0: 0.4135, 1: 0.4614, 2: 0.3618}
+PARITY_MEAN_MIN = 0.4122
+SERVED_MIOU_MIN = 0.3
 # H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1269,6 +1296,13 @@ def phase_train_step(torch, state_dict, model_name, tag, compute_dtype=None):
           f"{[round(v, 3) for v in runs['plain']]} ms")
 
 
+def training_steps(train_points, npoint, batch, epochs):
+    """Steps of a CLI training run: ``TrainBlockDataset`` draws one block
+    a ``npoint`` points of the training tiles, 70% of them train, in whole
+    batches."""
+    return epochs * (int(0.7 * int(train_points / npoint)) // batch)
+
+
 def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
                     bf16=False, pipeline=(), turn=0):
     """Trains through the CLI on ``work/train_data`` (counts of zero before
@@ -1294,8 +1328,7 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
         "--epoch", str(epochs), "--batch_size", str(TRAIN_B), "--npoint",
         str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)] + bf16_flag
         + list(pipeline))
-    blocks = int(TRAIN_POINTS / N)
-    steps = epochs * (int(0.7 * blocks) // TRAIN_B)
+    steps = training_steps(TRAIN_POINTS, N, TRAIN_B, epochs)
     if steps < min_steps:
         raise AssertionError(f"only {steps} training steps")
     kernels.reset_launches()
@@ -2808,6 +2841,96 @@ def phase_mesh(torch, work, state_dict):
                              f"{differ} of {n} points")
 
 
+def launched(launches):
+    """The kernels launched at least once, with their counts."""
+    return {name: n for name, n in launches.items() if n}
+
+
+def check_training_launches(launches, steps, what):
+    """Each SSG kernel launched at least steps x its launches a training
+    step (forward and backward), as g holds them."""
+    ssg = "pointnet2_sem_seg"
+    for name, per in PER_FORWARD[ssg].items():
+        want = steps * (per + PER_STEP[ssg].get(name, 0))
+        if launches[name] < want:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times in training, expected >= {want}")
+
+
+def phase_quality(torch, work):
+    """z: the port's two end-to-end tools on the card. The soak at its
+    defaults (``tumseg_torch/tools/soak.py``), its gate held; then
+    ``tumseg_torch/tools/miou_parity.py`` at PARITY.md's production
+    configuration, seeds 0-2 in f32 and in ``--bf16``: each served mIoU
+    beside tumseg's and the original pipeline's, the per-epoch eval mIoU,
+    seconds and launches; every served mIoU > 0.3 and the f32 mean >=
+    0.4122."""
+    from tumseg_torch.tools import miou_parity, soak
+
+    t0 = time.perf_counter()
+    sargs = soak.parse_args(["--workdir", str(work / "soak")])
+    res = soak.run(sargs)
+    steps = training_steps(2 * sargs.points, sargs.npoint, sargs.batch_size,
+                           sargs.epochs)
+    check_training_launches(res["train_launches"], steps, "soak")
+    print(f"[z] soak: train {res['train_seconds']:.3f} s ({steps} steps), "
+          f"test {res['test_seconds']:.3f} s, "
+          f"{sargs.points * sargs.votes / res['test_seconds']:.0f} "
+          f"scene-points/s; "
+          f"served mIoU {res['miou']!r}, eval mIoU by epoch "
+          f"{res['eval_mious']}; launches in training "
+          f"{launched(res['train_launches'])}, in testing "
+          f"{launched(res['test_launches'])}")
+    if not res["ok"]:
+        raise AssertionError(f"the soak's gate failed: {res}")
+
+    served = {}
+    for bf16 in (False, True):
+        mode = "bf16" if bf16 else "f32"
+        for seed in PARITY_SEEDS:
+            args = miou_parity.parse_args(
+                PARITY_ARGS + ["--seed", str(seed), "--workdir",
+                               str(work / f"parity_{mode}_{seed}")]
+                + (["--bf16"] if bf16 else []))
+            out, det = miou_parity.run(args)
+            steps = training_steps(2 * args.tile_points, args.npoint,
+                                   args.batch, args.epochs)
+            check_training_launches(det["train_launches"], steps,
+                                    f"parity {mode} seed {seed}")
+            served[mode, seed] = det["miou"]
+            print(json.dumps(out))
+            print(f"[z] parity {mode} seed {seed}: served mIoU "
+                  f"{det['miou']!r} (tumseg {PARITY_TUMSEG[seed]}, "
+                  f"reference {PARITY_REFERENCE[seed]}); eval mIoU by epoch "
+                  f"{[round(v, 4) for v in det['eval_mious']]}; train "
+                  f"{det['train_seconds']:.3f} s ({steps} steps), test "
+                  f"{det['test_seconds']:.3f} s; launches in training "
+                  f"{launched(det['train_launches'])}, in testing "
+                  f"{launched(det['test_launches'])}")
+    means = {mode: float(np.mean([served[mode, s] for s in PARITY_SEEDS]))
+             for mode in ("f32", "bf16")}
+    diffs = [round(served["bf16", s] - served["f32", s], 4)
+             for s in PARITY_SEEDS]
+    seconds = time.perf_counter() - t0
+    print(f"[z] parity means: f32 {means['f32']:.4f}, bf16 "
+          f"{means['bf16']:.4f} (tumseg "
+          f"{np.mean(list(PARITY_TUMSEG.values())):.4f}, reference "
+          f"{np.mean(list(PARITY_REFERENCE.values())):.4f}); bf16 - f32 by "
+          f"seed {diffs}; phase {seconds:.1f} s")
+    print(json.dumps({"z": {
+        "soak_miou": res["miou"], "soak_ok": res["ok"],
+        "served": {mode: [served[mode, s] for s in PARITY_SEEDS]
+                   for mode in ("f32", "bf16")},
+        "means": means, "seconds": seconds}}))
+    low = {k: v for k, v in served.items() if not v > SERVED_MIOU_MIN}
+    if low:
+        raise AssertionError(f"served mIoU at or under {SERVED_MIOU_MIN}: "
+                             f"{low}")
+    if means["f32"] < PARITY_MEAN_MIN:
+        raise AssertionError(f"f32 mean mIoU {means['f32']:.4f} under "
+                             f"{PARITY_MEAN_MIN}")
+
+
 def main() -> int:
     import torch
 
@@ -2877,7 +3000,10 @@ def main() -> int:
         k["launches"] = launches[name]
         if k["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")
-    print(json.dumps({"kernels": list(report.kernels.values())}))
+    print(json.dumps({"kernels": list(report.kernels.values())}), flush=True)
+    # the quality gates come after the kernel report, so that a miss there
+    # still leaves the kernels' line of this run
+    phase_quality(torch, work)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,15 +3,7 @@
 PyTorch port; forwards to tumseg_torch.cli.test (flag surface is
 identical)."""
 
-from tumseg_torch.cli.test import main, parse_args
+from tumseg_torch.cli.test import _console_main, main, parse_args  # noqa: F401
 
 if __name__ == "__main__":
-    import time
-
-    from tumseg_torch.utils.timing import current_time, time_print
-
-    args = parse_args()
-    start = time.time()
-    main(args)
-    time_print(start)
-    current_time()
+    _console_main()

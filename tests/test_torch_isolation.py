@@ -55,6 +55,7 @@ def test_entry_points_load_no_jax_and_no_tumseg():
         "import sys\n"
         "import chip_smoke, tumseg_torch.cli.test, tumseg_torch.cli.train\n"
         "import tumseg_torch.infer.voting, tumseg_torch.train.loop\n"
+        "import tumseg_torch.tools.soak, tumseg_torch.tools.miou_parity\n"
         "import sem_seg_training_torch, sem_seg_testing_torch\n"
         "for m in (sem_seg_training_torch, sem_seg_testing_torch):\n"
         "    assert callable(m.main) and callable(m.parse_args)\n"

@@ -208,8 +208,14 @@ def _run(args, mesh):
     return out
 
 
-if __name__ == "__main__":
+def _console_main():
+    """The ``tumseg-torch-test`` console script."""
+    args = parse_args()
     start = time.time()
-    main(parse_args())
+    main(args)
     time_print(start)
     current_time()
+
+
+if __name__ == "__main__":
+    _console_main()

@@ -311,7 +311,8 @@ def _run(args, mesh):
                superstep=args.superstep if device_pipeline else 1)
 
 
-if __name__ == "__main__":
+def _console_main():
+    """The ``tumseg-torch-train`` console script."""
     args = parse_args()
     start = time.time()
     accuracyChart, MLChart, IoUChart = main(args)
@@ -320,3 +321,7 @@ if __name__ == "__main__":
         print("best accuracy epoch = %d" % accuracyChart.index(max_value))
     time_print(start)
     current_time()
+
+
+if __name__ == "__main__":
+    _console_main()

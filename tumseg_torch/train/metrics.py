@@ -33,6 +33,14 @@ def iou_from_tallies(tallies) -> np.ndarray:
     return correct / (seen + predicted - correct + 1e-6)
 
 
+def miou_from_tallies(tallies) -> float:
+    return float(np.mean(iou_from_tallies(tallies)))
+
+
+def accuracy_from_tallies(tallies, total_seen: int) -> float:
+    return float(np.asarray(tallies["correct"]).sum() / float(total_seen))
+
+
 def class_avg_accuracy(tallies) -> float:
     seen = np.asarray(tallies["seen"], dtype=np.float64)
     correct = np.asarray(tallies["correct"], dtype=np.float64)
