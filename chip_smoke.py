@@ -231,6 +231,27 @@ y. (after x) the ``data`` mesh (``tumseg_torch.parallel``): in a one-rank
    scene-points/s beside one process's (two ranks share one card, so this
    is a finding, not a limit), and each of d's kernels launched on each
    rank at least as often as d's forwards need.
+cg. (after y) the training engine's steps as CUDA graphs
+   (``tumseg_torch/train/graphs.py``, the engine's default on the card)
+   against the same steps eager (``TrainEngine(cuda_graphs=False)``), on
+   a 1.2M-point facade strip sampled on the card: the SSG in f32 and in
+   bf16 compute (fast gathers) over room-id calls of k = 1, 1, 4, 4, 8,
+   8, 1 (each shape warmed up eagerly, then captured and replayed: 3
+   captures, 4 replays, 27 steps), MSG and PointNet over two single
+   steps (the second replayed), eval calls of k = 4, 4, 1, 1, three
+   host-pipeline train steps and two eval steps, a ``load_state`` between
+   two 4-step calls and Adam's ``load_state_dict`` between two more (the
+   graphs dropped and captured again): every call's losses, corrects and
+   tallies and, after each sequence, every parameter, BN buffer and Adam
+   tensor bitwise equal to eager; then, for k = 1, 4 and 8, graph and
+   eager in turns (graph, eager, eager, graph), the CUDA-event time a step
+   of a room-id call, back-to-back replays a step (the device's rate),
+   peak memory over what was held and the capturing call's time over the
+   warm-up's; and ``tumseg_torch.cli.train`` on the device pipeline at
+   ``--superstep`` 1 and 8, graph and eager in turns (3 epochs of 12
+   steps: an 8-step call and a tail of 4), Training points/sec by epoch
+   and the fit logs (mean loss, accuracy, eval loss and mIoU) equal
+   between graph and eager;
 z. (last) the port's end-to-end tools: ``tumseg_torch.tools.soak`` at its
    defaults (three 600K-point facade tiles, ``--class8 --bf16`` with
    colour, 3 epochs at B=16 x 4096, a 3-vote B=32 test with ``--visual``),
@@ -258,12 +279,14 @@ and ``library_device_ms``, the profiler's device time of the calls that
 ``ms`` and ``library_ms`` time with CUDA events (null where no PyTorch
 call computes the function; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
-time is the host's time a call). A JSON
-summary of the kernels is printed after phases a-y and before z; the last
-line is ``{"ok": true, "device": {...}}``. Any failed phase raises, and the
-script then exits non-zero without printing the last line (nor the kernels'
-line when a phase before z failed). Without a CUDA device it exits with
-code 2.
+time is the host's time a call). Training on the card runs the engine's
+steps as CUDA graphs: a kernel launch that a graph captured counts once
+each time the graph replays (``kernels.replayed``), so the launch counts
+of the training runs are the kernels' runs. A JSON summary of the kernels
+is printed after phases a-y and cg and before z; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
+then exits non-zero without printing the last line (nor the kernels' line
+when a phase before z failed). Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -1304,19 +1327,21 @@ def training_steps(train_points, npoint, batch, epochs):
 
 
 def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
-                    bf16=False, pipeline=(), turn=0):
+                    bf16=False, pipeline=(), turn=0, data="train_data",
+                    points=TRAIN_POINTS):
     """Trains through the CLI on ``work/train_data`` (counts of zero before
     the run, read after it), then serves the best checkpoint; with
     ``bf16``, both with ``--bf16``. The CLI's ``--data_pipeline auto``
     resolves to the device pipeline on the card (``--superstep 8``), unless
     ``pipeline`` gives other flags. A run of another ``turn`` logs apart
-    (a run in the same log directory would resume). Returns (launches, the
-    epochs' logged training points/s)."""
+    (a run in the same log directory would resume). ``data`` names the
+    directory of the tiles, ``points`` the training tile's points. Returns
+    (launches, the epochs' logged training points/s, the run's log)."""
     from tumseg_torch.cli import test as test_cli
     from tumseg_torch.cli import train as train_cli
     from tumseg_torch.ops import kernels
 
-    data = work / "train_data"
+    data = work / data
     log = work / "train_log"
     log_dir = "_".join([model_name] + (["bf16"] if bf16 else [])
                        + [a.strip("-") for a in pipeline]
@@ -1328,7 +1353,7 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
         "--epoch", str(epochs), "--batch_size", str(TRAIN_B), "--npoint",
         str(N), "--class8", "--RGB_OFF", "--seed", str(SEED)] + bf16_flag
         + list(pipeline))
-    steps = training_steps(TRAIN_POINTS, N, TRAIN_B, epochs)
+    steps = training_steps(points, N, TRAIN_B, epochs)
     if steps < min_steps:
         raise AssertionError(f"only {steps} training steps")
     kernels.reset_launches()
@@ -1373,7 +1398,7 @@ def phase_train_cli(torch, work, model_name, epochs, min_steps, tag,
           f"{list(eval_loss)}, best mIoU {max(iou):.4f}; best_model.pth "
           f"served with mIoU {out['miou']:.4f}; launches {launches}, of "
           f"them fast (bf16 gathers) {fast}")
-    return launches, [float(rate) for rate in rates]
+    return launches, [float(rate) for rate in rates], text
 
 
 def phase_device_pipeline(torch, work, state_dict):
@@ -2841,6 +2866,271 @@ def phase_mesh(torch, work, state_dict):
                              f"{differ} of {n} points")
 
 
+GRAPH_TRAIN_POINTS = 1_200_000   # 12 steps an epoch: an 8-step call + 4
+GRAPH_CALLS = (1, 1, 4, 4, 8, 8, 1)   # k of each call: warm, replay, ...
+GRAPH_LR, GRAPH_MOMENTUM = 1e-3, 0.1
+GRAPH_EPOCHS = 3   # an 8-step call warms up in epoch 1, is captured in 2
+
+
+def engine_state(engine):
+    """Every tensor that a step writes: parameters, buffers (BN running
+    statistics and counts) and optimizer state, by name."""
+    model = engine.model
+    out = {f"param {n}": p.detach() for n, p in model.named_parameters()}
+    out.update({f"buffer {n}": b for n, b in model.named_buffers()})
+    names = {p: n for n, p in model.named_parameters()}
+    for p, state in engine.optimizer.state.items():
+        out.update({f"{k} {names[p]}": v for k, v in state.items()
+                    if hasattr(v, "shape")})
+    return out
+
+
+def same_state(torch, what, graph, eager):
+    got, want = engine_state(graph), engine_state(eager)
+    if got.keys() != want.keys():
+        raise AssertionError(f"[cg] {what}: the engines hold different "
+                             f"tensors")
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"[cg] {what}: graph != eager in {len(bad)} of "
+                             f"{len(want)} tensors, e.g. {bad[:4]}")
+    return len(want)
+
+
+def same_outputs(torch, what, got, want):
+    """(losses, corrects) or (losses, tallies) of two calls, bitwise."""
+    for g, w in zip(got, want):
+        pairs = ([(g[k], w[k]) for k in w] if isinstance(w, dict)
+                 else [(g, w)])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"[cg] {what}: graph {got} != eager {want}")
+
+
+def graph_engines(torch, model_name, state_dict, sampler, compute_dtype=None,
+                  which=(True, False)):
+    """Engines from the same weights and seed, one a value of ``which``:
+    CUDA graphs (True) and eager (False)."""
+    import copy
+
+    from tumseg_torch import models
+    from tumseg_torch.train.loop import TrainEngine
+
+    base = models.get_module(model_name).get_model(8)
+    base.load_state_dict(state_dict)
+    weights = np.random.default_rng(SEED + 8).random(8) + 0.5
+    return [TrainEngine(copy.deepcopy(base), 8, weights, device=DEVICE,
+                        seed=SEED, sampler=sampler,
+                        compute_dtype=compute_dtype, cuda_graphs=graphs)
+            for graphs in which]
+
+
+def graph_train_calls(torch, what, engines, rng, rooms, calls):
+    """The room-id calls of ``calls`` (k each) on both engines, each call's
+    losses and corrects and then the whole state held bitwise."""
+    losses = []
+    for k in calls:
+        ids = rng.choice(rooms, (k, TRAIN_B)).astype(np.int32)
+        if k == 1:
+            out = [e.train_batch_rooms(ids[0], GRAPH_LR, GRAPH_MOMENTUM)
+                   for e in engines]
+        else:
+            out = [e.train_batch_rooms_multi(ids, GRAPH_LR, GRAPH_MOMENTUM)
+                   for e in engines]
+        same_outputs(torch, f"{what} {k}-step call", out[0], out[1])
+        losses += out[0][0].reshape(-1).tolist()
+    n = same_state(torch, f"{what} after {sum(calls)} steps", *engines)
+    return losses, n
+
+
+def phase_graphs(torch, work, states):
+    """[cg] the engine's steps as CUDA graphs against the same steps eager
+    (``cuda_graphs=False``), bitwise; then the time and memory of both at
+    k = 1, 4 and 8, and the training CLI with each."""
+    import functools
+
+    from tumseg_torch.cli import train as train_cli
+    from tumseg_torch.data.dataset import TrainBlockDataset
+    from tumseg_torch.data.device_sampler import DeviceBlockSampler
+    from tumseg_torch.train import checkpoint as ckpt
+    from tumseg_torch.train.loop import TrainEngine
+
+    ssg, msg = "pointnet2_sem_seg", "pointnet2_sem_seg_msg"
+    data = work / "graph_data"
+    data.mkdir(exist_ok=True)
+    rng = np.random.default_rng(SEED + 11)
+    write_facade_tile(rng, data / "facade.las", GRAPH_TRAIN_POINTS)
+    shutil.copy(work / "train_data" / "held_out.las", data / "held_out.las")
+    ds = TrainBlockDataset([str(data / "facade.las")], [], num_classes=8,
+                           num_point=N, color=False, class8=True, seed=SEED)
+    sampler = DeviceBlockSampler.from_dataset(ds, device=DEVICE)
+    rooms = ds.room_idxs
+    t0 = time.perf_counter()
+
+    # SSG, f32 and bf16: 1, 4 and 8-step calls, each warmed, then replayed
+    for dtype in (None, torch.bfloat16):
+        label = f"{ssg} {'bf16' if dtype else 'f32'}"
+        engines = graph_engines(torch, ssg, states[ssg], sampler, dtype)
+        losses, n = graph_train_calls(torch, label, engines, rng, rooms,
+                                      GRAPH_CALLS)
+        graphs = engines[0].graphs
+        if engines[1].graphs is not None or graphs.replays != 4 or \
+                graphs.captures != 3:
+            raise AssertionError(f"[cg] {label}: {graphs.captures} captures "
+                                 f"and {graphs.replays} replays, expected 3 "
+                                 f"and 4")
+        print(f"[cg] {label} fast gathers, calls of k = {GRAPH_CALLS} "
+              f"({sum(GRAPH_CALLS)} steps; 3 graphs captured, 4 replays): "
+              f"every loss and correct count and all {n} parameter, buffer "
+              f"and Adam tensors bitwise equal to the eager engine's; "
+              f"losses {[round(v, 4) for v in losses]}")
+        if dtype is None:
+            f32 = engines
+    # MSG and PointNet: a step warmed, then one replayed
+    for name in (msg, POINTNET):
+        engines = graph_engines(torch, name, states[name], sampler)
+        losses, n = graph_train_calls(torch, name, engines, rng, rooms,
+                                      (1, 1))
+        if engines[0].graphs.replays != 1:
+            raise AssertionError(f"[cg] {name}: no replay")
+        print(f"[cg] {name} two single steps (the second replayed): losses "
+              f"{[round(v, 4) for v in losses]}, all {n} tensors bitwise "
+              f"equal to eager")
+
+    # eval supersteps and single calls on the f32 SSG engines
+    for k in (4, 4, 1, 1):
+        ids = rng.choice(rooms, (k, TRAIN_B)).astype(np.int32)
+        out = [e.eval_batch_rooms_multi(ids) for e in f32]
+        same_outputs(torch, f"eval {k}-call", out[0], out[1])
+    # the host pipeline's train and eval steps
+    brng = np.random.default_rng(SEED + 12)
+    for _ in range(3):
+        x = facade_batch(brng, TRAIN_B, N)
+        t = (x[..., 5] * 7.999).astype(np.int64)
+        out = [e.train_batch(x, t, GRAPH_LR, GRAPH_MOMENTUM) for e in f32]
+        same_outputs(torch, "host-pipeline train step", out[0], out[1])
+    for _ in range(2):
+        out = [e.eval_batch(x, t) for e in f32]
+        same_outputs(torch, "host-pipeline eval step", out[0], out[1])
+    n = same_state(torch, "after the eval and host-pipeline steps", *f32)
+    replays = f32[0].graphs.replays
+    print(f"[cg] eval calls of k = 4, 4, 1, 1 (losses and tallies), 3 "
+          f"host-pipeline train steps and 2 eval steps: bitwise equal to "
+          f"eager ({replays - 4} more replays), all {n} tensors equal")
+
+    # a checkpoint loaded between two supersteps, then Adam's state
+    # replaced by load_state_dict: both rebind what the graphs captured
+    path = str(work / "graphs_ckpt.pth")
+    f32[0].save(path, 1)
+    captures = f32[0].graphs.captures
+    for e in f32:
+        e.load_state(ckpt.load_checkpoint(path))
+    graph_train_calls(torch, "after load_state", f32, rng, rooms, (4, 4))
+    for e in f32:
+        e.optimizer.load_state_dict(e.optimizer.state_dict())
+    graph_train_calls(torch, "after optimizer.load_state_dict", f32, rng,
+                      rooms, (4, 4))
+    captured = f32[0].graphs.captures - captures
+    if captured != 2:
+        raise AssertionError(f"[cg] {captured} graphs captured again after "
+                             f"the two rebindings, expected 2")
+    print(f"[cg] load_state between two 4-step calls, then "
+          f"optimizer.load_state_dict between two more: the graphs "
+          f"dropped and captured again ({captured}), the state bitwise "
+          f"equal to eager; checks {time.perf_counter() - t0:.1f} s")
+    del f32, engines
+
+    # time and peak memory at k = 1, 4, 8, graph and eager in turns
+    print(f"[cg] step time, SSG f32 B={TRAIN_B}x{N} fast gathers, room-id "
+          f"calls (CUDA events, median of 3 calls after 2 warm-up calls):")
+    for k in (1, 4, 8):
+        ids = rng.choice(rooms, (k, TRAIN_B)).astype(np.int32)
+        runs, firsts = {True: [], False: []}, []
+        for graphs in (True, False, False, True):
+            engine = graph_engines(torch, ssg, states[ssg], sampler,
+                                   which=(graphs,))[0]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call = functools.partial(engine.train_batch_rooms_multi, ids,
+                                     GRAPH_LR, GRAPH_MOMENTUM)
+            first = []
+            for _ in range(2):     # warm-up, then the capture and a replay
+                t1 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                first.append(time.perf_counter() - t1)
+            wall = time_ms(torch, call, 1)[0] / k
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            replay = None
+            if graphs:
+                g = next(g for key, g in engine.graphs.graphs.items()
+                         if key[:2] == ("train_rooms", k)).graph
+                replay = time_ms(torch, g.replay, 5)[0] / k
+            runs[graphs].append((wall, replay, peak))
+            if graphs:
+                firsts.append(round(first[1] - first[0], 3))
+            del engine, call
+        graph, eager = runs[True], runs[False]
+        busy = np.mean([r for _, r, _ in graph])
+        print(f"[cg]   k={k}: graph {[round(w, 3) for w, _, _ in graph]} ms "
+              f"a step, back-to-back replays "
+              f"{[round(r, 3) for _, r, _ in graph]} ms a step, peak "
+              f"{[round(p, 1) for _, _, p in graph]} MiB; eager "
+              f"{[round(w, 3) for w, _, _ in eager]} ms a step, peak "
+              f"{[round(p, 1) for _, _, p in eager]} MiB; idle share (1 - "
+              f"replay / step) graph "
+              f"{round(1 - busy / np.mean([w for w, _, _ in graph]), 3)}, "
+              f"eager {round(1 - busy / np.mean([w for w, _, _ in eager]), 3)}"
+              f"; the capturing call's s over the warm-up's {firsts}")
+
+    # the training CLI, device pipeline, --superstep 1 and 8, graph and
+    # eager in turns; the fit logs of the two equal
+    made = []
+
+    def engine_of(graphs):
+        def make(*args, **kwargs):
+            made.append(TrainEngine(*args, cuda_graphs=graphs, **kwargs))
+            return made[-1]
+        return make
+
+    logged = ("Training mean loss", "Training accuracy", "eval mean loss",
+              "eval point avg class IoU", "eval point accuracy",
+              "eval point avg class acc", "Best mIoU")
+    logs = {}
+    real = train_cli.TrainEngine
+    try:
+        for turn, (graphs, k) in enumerate(((True, 1), (False, 1),
+                                            (False, 8), (True, 8))):
+            train_cli.TrainEngine = engine_of(graphs)
+            pipeline = ("--data_pipeline", "device", "--superstep", str(k))
+            launches, rates, text = phase_train_cli(
+                torch, work, ssg, GRAPH_EPOCHS, 30, "cg", pipeline=pipeline,
+                turn=100 + turn, data="graph_data",
+                points=GRAPH_TRAIN_POINTS)
+            graphs_run = made[-1].graphs
+            if (graphs_run is not None) != graphs or (
+                    graphs and graphs_run.replays == 0):
+                raise AssertionError(f"[cg] CLI run graphs={graphs}: "
+                                     f"{graphs_run}")
+            messages = [line.split(" - ", 3)[-1]
+                        for line in text.splitlines()]
+            logs[graphs, k] = [m for m in messages if m.startswith(logged)]
+            print(f"[cg] CLI --superstep {k} {'graph' if graphs else 'eager'}"
+                  f": Training points/sec by epoch {rates}"
+                  + (f", {graphs_run.captures} graphs, {graphs_run.replays} "
+                     f"replays" if graphs else ""))
+    finally:
+        train_cli.TrainEngine = real
+    for k in (1, 8):
+        if logs[True, k] != logs[False, k] or not logs[True, k]:
+            raise AssertionError(f"[cg] --superstep {k}: the graph run "
+                                 f"logged {logs[True, k]}, the eager run "
+                                 f"{logs[False, k]}")
+    print(f"[cg] CLI fit logs of graph and eager equal at --superstep 1 and "
+          f"8 ({len(logs[True, 8])} lines each: mean loss, accuracy, eval "
+          f"mIoU); phase {time.perf_counter() - t0:.1f} s")
+
+
 def launched(launches):
     """The kernels launched at least once, with their counts."""
     return {name: n for name, n in launches.items() if n}
@@ -2995,6 +3285,8 @@ def main() -> int:
     phase_pointnet_train(torch, work, pointnet_state)
     phase_frozen(torch, work, state_dict)
     phase_mesh(torch, work, state_dict)
+    phase_graphs(torch, work, {ssg: state_dict, msg: msg_state,
+                               POINTNET: pointnet_state})
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

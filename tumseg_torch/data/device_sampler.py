@@ -32,6 +32,9 @@ sample_from_draws`, which a test feeds ``tumseg``'s own) or from one
 ``torch.Generator`` a batch (:meth:`DeviceBlockSampler.sample_batches`),
 which draws, per round, ``[pending, trials]`` centre uniforms, then
 ``[B, 9 * cap]`` selection and ``[B, num_point]`` replacement uniforms.
+The rounds (:meth:`DeviceBlockSampler.accept`) read back; the selection
+(:meth:`DeviceBlockSampler.draw_select`) does not, so the training engine
+captures it in its step's CUDA graph.
 
 On a ``data`` mesh (``tumseg_torch.parallel``) every rank builds all the
 tables, replicated as ``tumseg`` replicates them (``P()``), and samples only
@@ -367,13 +370,11 @@ class DeviceBlockSampler:
 
     # -- the generator path --------------------------------------------------
 
-    def sample_batches_aux(self, room_ids_k, generators):
-        """k batches at once, batch i drawn from ``generators[i]``: (points
-        [k, B, P, 6 + E], labels [k, B, P], centres [k, B, 3], counts [k,
-        B], sel [k, B, P]). Each generator sees the draws that it would see
-        sampling its batch alone, so this equals k calls of
-        :meth:`sample_batch_aux`; the k batches share one readback a
-        round."""
+    def accept(self, room_ids_k, generators):
+        """The rejection rounds of k batches, batch i drawing its centre
+        uniforms from ``generators[i]``: (rid [k * B] int64, centres [k * B,
+        3], counts [k * B]). Each round reads back one ``[rows]`` bool, so
+        this part stays outside a CUDA graph."""
         rid = torch.as_tensor(np.asarray(room_ids_k),
                               device=self.device).long()
         k, B = rid.shape
@@ -399,14 +400,35 @@ class DeviceBlockSampler:
             pending = pending[~ok]
         self.stats["rows"] += k * B
         self.stats["rounds"] += rounds
+        return rid, center, cnt
+
+    def draw_select(self, rid, center, cnt, generators):
+        """The accepted blocks of :meth:`accept` drawn and featurized:
+        (points [k, B, P, 6 + E], labels [k, B, P], sel [k, B, P]). Each
+        generator draws its batch's ``[B, 9 * cap]`` selection uniforms,
+        then each its ``[B, P]`` replacement uniforms; no readback, so a
+        CUDA graph can hold it."""
+        k, P = len(generators), self.num_point
+        B = rid.shape[0] // k
         sel_u = torch.cat([torch.rand(B, 9 * self.cap, generator=g,
                                       device=self.device) for g in generators])
-        rep_u = torch.cat([torch.rand(B, self.num_point, generator=g,
-                                      device=self.device) for g in generators])
+        rep_u = torch.cat([torch.rand(B, P, generator=g, device=self.device)
+                           for g in generators])
         points, labels, sel = self.select(rid, center, cnt, sel_u, rep_u)
-        P = self.num_point
         return (points.view(k, B, P, -1), labels.view(k, B, P),
-                center.view(k, B, 3), cnt.view(k, B), sel.view(k, B, P))
+                sel.view(k, B, P))
+
+    def sample_batches_aux(self, room_ids_k, generators):
+        """k batches at once, batch i drawn from ``generators[i]``: (points
+        [k, B, P, 6 + E], labels [k, B, P], centres [k, B, 3], counts [k,
+        B], sel [k, B, P]). Each generator sees the draws that it would see
+        sampling its batch alone, so this equals k calls of
+        :meth:`sample_batch_aux`; the k batches share one readback a
+        round."""
+        rid, center, cnt = self.accept(room_ids_k, generators)
+        k = len(generators)
+        points, labels, sel = self.draw_select(rid, center, cnt, generators)
+        return (points, labels, center.view(k, -1, 3), cnt.view(k, -1), sel)
 
     def sample_batches(self, room_ids_k, generators):
         """(points [k, B, P, 6 + E] f32, labels [k, B, P] int64)."""

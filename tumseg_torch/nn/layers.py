@@ -133,7 +133,10 @@ class BatchNorm(nn.Module):
     ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``. In train mode
     mean and var are the batch's, var = E[x^2] - E[x]^2, and the running
     stats become ``(1 - momentum) * running + momentum * batch`` with the
-    unbiased batch var; the training engine sets ``momentum`` each step.
+    unbiased batch var. ``momentum`` and ``1 - momentum`` are 0-d buffers,
+    ``tumseg``'s ``jnp.float32(momentum)``: :meth:`set_momentum` fills them
+    in place, so a step captured as a CUDA graph reads the value of the
+    step that replays it. They are not saved in the state_dict.
     ``F.batch_norm`` computes the variance another way, so it is not used.
     In eval mode the running stats are used. It computes in f32 (f64 for an
     f64 input) and returns its input's dtype."""
@@ -141,13 +144,24 @@ class BatchNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        # f64, so that an f64 update reads the doubles; an f32 one rounds
+        # them to f32, as it rounded the float scalars
+        for name in ("momentum", "momentum_keep"):
+            self.register_buffer(name, torch.tensor(0.0, dtype=torch.float64),
+                                 persistent=False)
+        self.set_momentum(momentum)
+
+    def set_momentum(self, momentum: float) -> None:
+        """Fills ``momentum`` and ``1 - momentum`` (computed in double) in
+        place."""
+        self.momentum.fill_(momentum)
+        self.momentum_keep.fill_(1.0 - momentum)
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         """With a ``mesh`` (training on a sharded batch), the batch moments
@@ -168,10 +182,10 @@ class BatchNorm(nn.Module):
             n *= mesh.size
         var = sqmean - mean * mean
         with torch.no_grad():
-            m = self.momentum
+            m, keep = self.momentum, self.momentum_keep
             unbiased = var * (n / max(n - 1, 1))
-            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            self.running_mean.copy_(keep * self.running_mean + m * mean)
+            self.running_var.copy_(keep * self.running_var + m * unbiased)
             self.num_batches_tracked += 1
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean) * inv + self.bias).to(dtype)

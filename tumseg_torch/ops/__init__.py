@@ -113,6 +113,12 @@ def _fused_on() -> bool:
     return _fused_default if fused is None else fused
 
 
+def switches() -> Tuple[bool, bool, bool]:
+    """(plain, window, fused) as this thread sees them: the choices that a
+    step captured as a CUDA graph freezes, so part of the graph's key."""
+    return getattr(_state, "plain", False), _window_on(), _fused_on()
+
+
 def three_nn_window(s: int) -> int:
     """Window width for ``s`` sources: 384 at S=1024
     (``tumseg/ops/__init__.py:188-189``)."""

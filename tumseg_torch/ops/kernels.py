@@ -9,12 +9,17 @@ element of its outputs); launches on the current stream of the input's
 device; raises if the launcher returns a CUDA error; and adds one to its
 entry of ``launches`` per launch, and a launch in
 the fast (single-pass bf16) mode to its entry of ``fast_launches`` as well.
-There is no fallback: a CUDA tensor either runs the kernel or raises. The
+A launch made while a CUDA graph is captured (inside :func:`capturing`)
+only records the kernel in the graph: it counts in the graph's own tally,
+which :func:`replayed` adds to ``launches`` each time the graph runs, so
+the counts are the kernels' runs on the card either way. There is no
+fallback: a CUDA tensor either runs the kernel or raises. The
 plain versions with the same contracts are in ``tumseg_torch.ops.core``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
@@ -31,6 +36,8 @@ launches = dict.fromkeys(KERNELS, 0)
 FAST_KERNELS = ("group", "three_nn_interpolate", "group_backward",
                 "interpolate_backward", "three_nn_window", "fused_ball_group")
 fast_launches = dict.fromkeys(FAST_KERNELS, 0)
+# (launches, fast_launches) of the CUDA graph being captured, else None
+_captured = None
 
 # csrc/fps.cu: one CTA a batch row of at most 1024 threads, each owning up
 # to 16 points; the CTA keeps the row's 12-byte coordinates in shared memory
@@ -91,6 +98,28 @@ def reset_launches() -> None:
         launches[name] = 0
     for name in FAST_KERNELS:
         fast_launches[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Counts the launches made inside this block, a CUDA graph's capture
+    (the autograd thread's backward launches included), apart from
+    ``launches``: yields the graph's (launches, fast_launches) tallies."""
+    global _captured
+    tally = (dict.fromkeys(KERNELS, 0), dict.fromkeys(FAST_KERNELS, 0))
+    prev, _captured = _captured, tally
+    try:
+        yield tally
+    finally:
+        _captured = prev
+
+
+def replayed(tally) -> None:
+    """Adds a captured graph's tallies to the counts: one replay runs every
+    launch that its capture recorded."""
+    for counts, graph in zip((launches, fast_launches), tally):
+        for name, n in graph.items():
+            counts[name] += n
 
 
 def group_geometry(rows: int, C: int) -> Tuple[int, int]:
@@ -302,9 +331,10 @@ def _launch(kernel: str, fn_name: str, device: torch.device, *args,
             err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    launches[kernel] += 1
+    counts, fast_counts = _captured or (launches, fast_launches)
+    counts[kernel] += 1
     if fast:
-        fast_launches[kernel] += 1
+        fast_counts[kernel] += 1
 
 
 def _ptr(t: torch.Tensor) -> int:

@@ -121,10 +121,13 @@ def load_optimizer_leaves(optimizer: torch.optim.Optimizer,
     params = dict(model.named_parameters())
     if adam:
         step = torch.tensor(float(np.asarray(leaves[0])), dtype=torch.float32)
+        # a capturable Adam keeps its step count on the parameter's device
+        capturable = optimizer.param_groups[0].get("capturable", False)
         mu, nu = torch_layout(leaves[1:1 + n]), torch_layout(leaves[1 + n:])
         for name, p in params.items():
-            optimizer.state[p] = {"step": step.clone(), "exp_avg": mu[name],
-                                  "exp_avg_sq": nu[name]}
+            optimizer.state[p] = {
+                "step": step.to(p.device) if capturable else step.clone(),
+                "exp_avg": mu[name], "exp_avg_sq": nu[name]}
     else:
         trace = torch_layout(leaves)
         for name, p in params.items():

@@ -21,9 +21,17 @@ Same behaviour as ``tumseg``'s host-pipeline path:
 - per-epoch eval with per-class IoU and mIoU, a checkpoint every 5 epochs
   and on the best mIoU, and the accuracy / loss / IoU charts.
 
-The step runs eagerly on the model's device. Per-step losses and correct
-counts stay on the device and are read back once an epoch, as ``tumseg``
-does.
+On a CUDA device every step runs as a captured CUDA graph
+(``tumseg_torch.train.graphs``), the counterpart of ``tumseg``'s ``jax.jit``
+steps: a room-id call of k steps is one replay, its batches' selection
+included, as ``tumseg``'s ``lax.scan`` superstep is one dispatch. The
+learning rate and the BN momentum are device scalars written in place
+(``tumseg``'s ``jnp.float32(lr)``, ``jnp.float32(momentum)``), so one graph
+serves every epoch. A replayed step equals the eager one bit for bit;
+``TrainEngine(cuda_graphs=False)``, the counterpart of ``jax.disable_jit``,
+runs the same steps eagerly. On the CPU the steps are eager. Per-step
+losses and correct counts stay on the device and are read back once an
+epoch, as ``tumseg`` does.
 
 With a ``DeviceBlockSampler`` (``sampler=``) the engine also takes batches
 that are only room ids (``train_batch_rooms``, ``eval_batch_rooms`` and
@@ -34,7 +42,8 @@ blocks, then its rotation, FPS starts and dropout, from one generator
 seeded from ``(seed, s)``, and eval call ``e`` from one seeded from
 ``(seed, 2^31 + e)``. So ``k`` single steps equal one ``k``-step call, eval
 never moves the training stream, and the host path's ``generator`` is left
-alone.
+alone. The engine keeps one generator a step of its largest call and
+re-seeds them for each call, so a graph registers them once.
 
 With a ``mesh`` (``tumseg_torch.parallel``, one process a device) the engine
 trains as ``tumseg``'s sharded engine does (``tumseg/train/loop.py:83-270,
@@ -46,7 +55,8 @@ and denominator, the gradients are averaged over the ranks, and the correct
 counts and eval tallies are ``psum``'d, so every rank reads the global
 numbers. Each rank draws from its own streams, the counterpart of
 ``fold_axis``: room-id step ``s`` from ``(seed, s, rank)``, so a ``k``-step
-call still equals ``k`` single steps on the mesh.
+call still equals ``k`` single steps on the mesh. The mesh's steps are
+eager: its gloo collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from tumseg_torch import ops
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.data.augment import rotate_z
 from tumseg_torch.data.device_sampler import RoomBatch
@@ -67,6 +78,7 @@ from tumseg_torch.nn.layers import BatchNorm
 from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train import metrics as M
+from tumseg_torch.train.graphs import StepGraphs
 
 LEARNING_RATE_CLIP = 1e-5
 MOMENTUM_ORIGINAL = 0.1
@@ -87,11 +99,33 @@ def bn_momentum_schedule(epoch: int, step_size: int) -> float:
 def make_optimizer(params, name: str = "Adam",
                    weight_decay: float = 1e-4) -> torch.optim.Optimizer:
     """``tumseg``'s optimizers; the engine sets the learning rate on every
-    step."""
+    step (:func:`set_learning_rate`). On a CUDA device the learning rate is
+    a device scalar, ``tumseg``'s ``jnp.float32(lr)``, and the update is one
+    that a CUDA graph can hold: Adam ``capturable`` (its step count and
+    bias correction f32 device tensors), SGD the fused kernel (the foreach
+    one reads a tensor learning rate back to the host). The CPU build
+    refuses ``capturable``: there the learning rate is a float and Adam's
+    bias correction is computed in double."""
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    card = device.type == "cuda"
+    lr = torch.tensor(1e-3, device=device) if card else 1e-3
     if name == "Adam":
-        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
-    return torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay, capturable=card)
+    return torch.optim.SGD(params, lr=lr, momentum=0.9, fused=card or None)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate: a device scalar is filled in place."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+TALLIES = ("seen", "predicted", "correct")
 
 
 def _add_tallies(total, t):
@@ -123,13 +157,25 @@ class TrainEngine:
     steps. With a ``mesh`` the engine runs on ``mesh.device`` and
     ``device`` is not read. Setting ``generator`` to None makes the host
     path's steps draw nothing (FPS from index 0, no dropout; with
-    ``augment_rotate=False``), ``tumseg``'s ``rngs={}``."""
+    ``augment_rotate=False``), ``tumseg``'s ``rngs={}``.
+
+    On a CUDA device with no ``mesh`` each step runs as a CUDA graph
+    (``self.graphs``, a :class:`StepGraphs`): the first call of a step's
+    shape warms it up eagerly, the second captures it, and every call from
+    then on is one replay. ``cuda_graphs=False`` is ``tumseg``'s
+    ``jax.disable_jit``: the same steps, eager, bit for bit what the graphs
+    compute. A step that finds a parameter, buffer or optimizer state
+    tensor replaced since the last call (:meth:`load_state` replaces the
+    optimizer state; the weights it copies in place) drops the graphs,
+    which are captured again. With a ``mesh`` the steps stay eager: gloo
+    cannot be captured."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
                  weight_decay: float = 1e-4, augment_rotate: bool = True,
                  seed: int = 0, device="cuda", exact_gathers: bool = False,
-                 compute_dtype=None, sampler=None, mesh=None):
+                 compute_dtype=None, sampler=None, mesh=None,
+                 cuda_graphs: bool = True):
         self.mesh = mesh
         self.rank = None if mesh is None else mesh.rank
         if mesh is not None:
@@ -152,6 +198,10 @@ class TrainEngine:
         self.sampler = sampler
         self._step_count = 0
         self._eval_count = 0
+        self._gens = []         # the room-id calls' generators, re-seeded
+        self._momentum = None   # the momentum in the BNs' scalars
+        self.graphs = (StepGraphs(self.device) if cuda_graphs and mesh is None
+                       and self.device.type == "cuda" else None)
         if mesh is not None:
             pmesh.broadcast_state(self.model, mesh)
 
@@ -195,19 +245,52 @@ class TrainEngine:
                 "default) or pad the tail to a multiple of %d"
                 % (b, self.mesh.size, pmesh.DATA_AXIS, self.mesh.size))
 
+    def _set_schedule(self, lr: float, momentum: float) -> None:
+        """Writes the step's learning rate, and its BN momentum when that
+        changed (the BNs' scalars are the engine's alone; the optimizer's
+        groups may be reloaded), into the scalars that the steps read."""
+        set_learning_rate(self.optimizer, lr)
+        if self._momentum != momentum:
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.set_momentum(momentum)
+            self._momentum = momentum
+
+    def _bindings(self) -> tuple:
+        """The addresses of the tensors that a captured step reads or
+        writes in place."""
+        tensors = [*self.model.parameters(), *self.model.buffers(),
+                   self.weights]
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                tensors.append(group["lr"])
+        for state in self.optimizer.state.values():
+            tensors += [v for v in state.values()
+                        if isinstance(v, torch.Tensor)]
+        return tuple(t.data_ptr() for t in tensors)
+
+    def _run(self, key: tuple, fn, inputs, generators):
+        """``fn(*inputs)``: eager, or the CUDA graph of ``key`` and of every
+        Python value that the step reads."""
+        if self.graphs is None:
+            return fn(*inputs)
+        key += (self.compute_dtype, self.exact_gathers, self.augment_rotate,
+                ops.switches())
+        return self.graphs.run(key, fn, inputs, generators, self._bindings)
+
     def train_batch(self, points, target, lr: float, momentum: float):
         """One step: rotate, forward, the model's loss, backward, optimizer.
         Returns (loss, correct) as device tensors."""
         points, target = self._put(points, target)
-        return self._train_step(points, target, lr, momentum, self.generator)
-
-    def _train_step(self, points, target, lr, momentum, generator):
+        self._set_schedule(lr, momentum)
         self.model.train()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        for m in self.model.modules():
-            if isinstance(m, BatchNorm):
-                m.momentum = momentum
+        gen = self.generator
+        return self._run(
+            ("train", tuple(points.shape), tuple(target.shape), gen),
+            lambda p, t: self._train_step(p, t, gen), (points, target),
+            [] if gen is None else [gen])
+
+    def _train_step(self, points, target, generator):
         if self.augment_rotate:
             angles = torch.rand(points.shape[0], generator=generator,
                                 device=self.device) * (2 * math.pi)
@@ -233,10 +316,18 @@ class TrainEngine:
         """-> (loss, {seen, predicted, correct}) as device tensors. The
         gathers resolve as in ``tumseg``'s eval step: exact in f32 compute,
         single-pass bf16 under a compute dtype."""
-        return self._eval_step(*self._put(points, target))
+        points, target = self._put(points, target)
+        self.model.eval()
+
+        def step(points, target):
+            loss, tallies = self._eval_step(points, target)
+            return (loss, *(tallies[k] for k in TALLIES))
+        loss, *tallies = self._run(
+            ("eval", tuple(points.shape), tuple(target.shape)), step,
+            (points, target), [])
+        return loss, dict(zip(TALLIES, tallies))
 
     def _eval_step(self, points, target):
-        self.model.eval()
         logp, aux = self.model(points, compute_dtype=self.compute_dtype)
         loss = self.model.loss(logp, target, aux, self.weights,
                                mesh=self.mesh)
@@ -249,12 +340,13 @@ class TrainEngine:
     # -- room-id steps: blocks sampled on the device ---------------------------
 
     def _streams(self, first: int, k: int):
-        out = []
-        for count in range(first, first + k):
-            g = torch.Generator(device=self.device)
+        """The k generators of a call, re-seeded for counts ``first`` ...
+        ``first + k - 1``: the draws of k fresh generators so seeded."""
+        while len(self._gens) < k:
+            self._gens.append(torch.Generator(device=self.device))
+        for count, g in enumerate(self._gens[:k], start=first):
             g.manual_seed(stream_seed(self.seed, count, self.rank))
-            out.append(g)
-        return out
+        return self._gens[:k]
 
     def _local_rooms(self, room_ids_k) -> np.ndarray:
         """This rank's columns of ``[k, B]`` room ids."""
@@ -273,17 +365,27 @@ class TrainEngine:
 
     def train_batch_rooms_multi(self, room_ids_k, lr: float, momentum: float):
         """k train steps from ``[k, B]`` room ids, the same run as k calls
-        of :meth:`train_batch_rooms`: the k batches are sampled first (one
-        readback a rejection round for all of them), then trained in turn.
-        Returns ([k] losses, [k] corrects) on the device."""
+        of :meth:`train_batch_rooms`: the k batches' rejection rounds first
+        (one readback a round for all of them), then their selection and
+        the k steps, one CUDA graph on the card. Returns ([k] losses, [k]
+        corrects) on the device."""
         room_ids_k = self._local_rooms(room_ids_k)
-        gens = self._streams(self._step_count, room_ids_k.shape[0])
-        self._step_count += len(gens)
-        points, target = self.sampler.sample_batches(room_ids_k, gens)
-        out = [self._train_step(points[i], target[i], lr, momentum, g)
-               for i, g in enumerate(gens)]
-        return (torch.stack([l for l, _ in out]),
-                torch.stack([c for _, c in out]))
+        k, B = room_ids_k.shape
+        gens = self._streams(self._step_count, k)
+        self._step_count += k
+        self._set_schedule(lr, momentum)
+        self.model.train()
+        accepted = self.sampler.accept(room_ids_k, gens)
+
+        def steps(rid, center, cnt):
+            points, target, _ = self.sampler.draw_select(rid, center, cnt,
+                                                          gens)
+            out = [self._train_step(points[i], target[i], g)
+                   for i, g in enumerate(gens)]
+            return (torch.stack([l for l, _ in out]),
+                    torch.stack([c for _, c in out]))
+        return self._run(("train_rooms", k, B, self.sampler), steps,
+                         accepted, gens)
 
     def eval_batch_rooms(self, room_ids):
         """One eval call from ``[B]`` room ids -> (loss, tallies)."""
@@ -296,17 +398,25 @@ class TrainEngine:
         tallies); eval call e draws from the stream ``2^31 + e``, disjoint
         from the training steps'."""
         room_ids_k = self._local_rooms(room_ids_k)
-        gens = self._streams((1 << 31) + self._eval_count + 1,
-                             room_ids_k.shape[0])
-        self._eval_count += len(gens)
-        points, target = self.sampler.sample_batches(room_ids_k, gens)
-        losses, tallies = [], None
-        for i in range(len(gens)):
+        k, B = room_ids_k.shape
+        gens = self._streams((1 << 31) + self._eval_count + 1, k)
+        self._eval_count += k
+        self.model.eval()
+        accepted = self.sampler.accept(room_ids_k, gens)
+
+        def steps(rid, center, cnt):
             with torch.no_grad():
-                loss, t = self._eval_step(points[i], target[i])
-            losses.append(loss)
-            tallies = _add_tallies(tallies, t)
-        return torch.stack(losses), tallies
+                points, target, _ = self.sampler.draw_select(rid, center,
+                                                              cnt, gens)
+                losses, tallies = [], None
+                for i in range(k):
+                    loss, t = self._eval_step(points[i], target[i])
+                    losses.append(loss)
+                    tallies = _add_tallies(tallies, t)
+            return (torch.stack(losses), *(tallies[n] for n in TALLIES))
+        losses, *tallies = self._run(("eval_rooms", k, B, self.sampler),
+                                     steps, accepted, gens)
+        return losses, dict(zip(TALLIES, tallies))
 
 
 class _SuperstepBuffer:

@@ -13,15 +13,25 @@ import torch
 
 def confusion_tallies(pred: torch.Tensor, target: torch.Tensor,
                       num_classes: int) -> Dict[str, torch.Tensor]:
-    """pred/target [...] int -> {seen, predicted, correct} [C] int64:
-    ground-truth count, prediction count and hits per class."""
+    """pred/target [...] int in [0, C) -> {seen, predicted, correct} [C]
+    int64: ground-truth count, prediction count and hits per class. Counted
+    by ``scatter_add_`` into fixed bins, a miss into an extra bin C that is
+    dropped, so nothing has a data-dependent shape or reads back to the
+    host (``torch.bincount`` does both on the card) and a CUDA graph can
+    hold it."""
     pred = pred.reshape(-1).long()
     target = target.reshape(-1).long()
+    ones = torch.ones_like(target)
+
+    def count(idx, bins):
+        return torch.zeros(bins, dtype=torch.int64,
+                           device=idx.device).scatter_add_(0, idx, ones)
+
+    hits = torch.where(pred == target, target, num_classes)
     return {
-        "seen": torch.bincount(target, minlength=num_classes),
-        "predicted": torch.bincount(pred, minlength=num_classes),
-        "correct": torch.bincount(target[pred == target],
-                                  minlength=num_classes),
+        "seen": count(target, num_classes),
+        "predicted": count(pred, num_classes),
+        "correct": count(hits, num_classes + 1)[:num_classes],
     }
 
 
