@@ -27,7 +27,8 @@ d. serves a synthetic ~300K-point facade tile through
    label dump, and checks that every kernel was launched at least
    (forwards x launches per forward) times in that run. The CLI's runner
    keeps its "auto" defaults, so on the card it serves through the device
-   re-blocking path, as ``tumseg``'s CLI does on its accelerator;
+   re-blocking path, as ``tumseg``'s CLI does on its accelerator, and its
+   programs as CUDA graphs (as do j, m and n; see sg);
 e. runs each backward kernel and its plain version on unit-normal
    cotangents at the shapes of a B=16 x 4096 training step (group at
    sa2-sa4, plus sentinel rows and repeated indices; interpolation at
@@ -230,9 +231,13 @@ y. (after x) the ``data`` mesh (``tumseg_torch.parallel``): in a one-rank
    re-blocking: at most 0.1% of labels differ from one process's,
    scene-points/s beside one process's (two ranks share one card, so this
    is a finding, not a limit), and each of d's kernels launched on each
-   rank at least as often as d's forwards need.
+   rank at least as often as d's forwards need; sg's checks on the mesh:
+   d's tile served (2 votes) with the serving programs as CUDA graphs and
+   with ``cuda_graphs=False``, labels and pools bitwise equal on the
+   one-rank NCCL mesh (and to one process's) and on each gloo rank (the
+   ranks' pools equal, labels within 0.1% of one process's).
 cg. (after y) the training engine's steps as CUDA graphs
-   (``tumseg_torch/train/graphs.py``, the engine's default on the card)
+   (``tumseg_torch/utils/graphs.py``, the engine's default on the card)
    against the same steps eager (``TrainEngine(cuda_graphs=False)``), on
    a 1.2M-point facade strip sampled on the card: the SSG in f32 and in
    bf16 compute (fast gathers) over room-id calls of k = 1, 1, 4, 4, 8,
@@ -252,6 +257,28 @@ cg. (after y) the training engine's steps as CUDA graphs
    steps: an 8-step call and a tail of 4), Training points/sec by epoch
    and the fit logs (mean loss, accuracy, eval loss and mIoU) equal
    between graph and eager;
+sg. (after cg) the serving runner's programs as CUDA graphs
+   (``InferenceRunner``'s default on the card: the B=32 forward, each
+   vote's chunk and its re-blocking) against ``cuda_graphs=False``,
+   bitwise: ``predict_blocks`` at B=32 x 4096 (warm-up, capture and
+   replay, replay) for the SSG in f32 and bf16, MSG, PointNet and
+   ``pointnet2_sem_seg_trial``; d's tile served (2 votes) by the device
+   re-blocking, device featurization and host paths (SSG f32), and by
+   device re-blocking in bf16, with MSG, PointNet and the trial variant,
+   with ``window_ops`` and under the fused switch: labels and pools
+   bitwise equal, one warm-up and one capture a program, the warm-ups and
+   replays one a program call (a chunk of B blocks, and on the device
+   re-blocking path a re-blocking a vote); two scenes through
+   ``run_testing``, the second gridded and uploaded by its prefetch while
+   the first votes, label dumps and the second scene's pool bitwise
+   equal, 2 captures a scene; then
+   the SSG forward in f32 and bf16, graph and eager in turns (graph,
+   eager, eager, graph): CUDA-event ms, the host's time to enqueue a call
+   (and the graph's ``replay()`` alone) and peak memory; and d's and n's
+   tiles served in turns: scene-points/s, the idle share (1 - busy /
+   CUDA-event wall; busy: a vote's chunks at the back-to-back replay
+   time of its first chunk, and its re-blocking's), the first call's
+   seconds, captures and capture seconds, peak memory;
 z. (last) the port's end-to-end tools: ``tumseg_torch.tools.soak`` at its
    defaults (three 600K-point facade tiles, ``--class8 --bf16`` with
    colour, 3 epochs at B=16 x 4096, a 3-vote B=32 test with ``--visual``),
@@ -279,11 +306,12 @@ and ``library_device_ms``, the profiler's device time of the calls that
 ``ms`` and ``library_ms`` time with CUDA events (null where no PyTorch
 call computes the function; where a call's device work is
 shorter than its host work, as at the K = 1 centroid gathers, the event
-time is the host's time a call). Training on the card runs the engine's
-steps as CUDA graphs: a kernel launch that a graph captured counts once
-each time the graph replays (``kernels.replayed``), so the launch counts
-of the training runs are the kernels' runs. A JSON summary of the kernels
-is printed after phases a-y and cg and before z; the last line is
+time is the host's time a call). Training and serving on the card run
+the engine's steps and the runner's programs as CUDA graphs: a kernel
+launch that a graph captured counts once each time the graph replays
+(``kernels.replayed``), so the launch counts of the training and serving
+runs are the kernels' runs. A JSON summary of the kernels is printed
+after phases a-y, cg and sg and before z; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
 then exits non-zero without printing the last line (nor the kernels' line
 when a phase before z failed). Without a CUDA device it exits with code 2.
@@ -292,6 +320,7 @@ when a phase before z failed). Without a CUDA device it exits with code 2.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -2667,6 +2696,30 @@ def mesh_serve_args(work, state_dict, log_dir):
         "--class8", "--RGB_OFF", "--seed", str(SEED)])
 
 
+def mesh_serving(torch, mesh, work, state_dict):
+    """d's tile served by device re-blocking (``SG_VOTES`` votes at B=32)
+    on ``mesh`` (None: one process) with graphs and eager: labels and pools
+    bitwise equal on this rank (a graph's program never holds the vote's
+    all-reduce). -> (labels, pool on the host, (warm-ups, captures,
+    replays))."""
+    from tumseg_torch.infer.voting import InferenceRunner
+
+    model = serving_model(torch, state_dict)
+    out = []
+    for graphs in (True, False):
+        runner = InferenceRunner(model, 8, batch_size=B, device=DEVICE,
+                                 mesh=mesh, cuda_graphs=graphs)
+        labels = runner.infer_scene(
+            scene_dataset(work / "data" / "facade.las"), 0, SG_VOTES)
+        out.append((labels, runner._buffers["pool"].cpu(), runner.graphs))
+    (labels, pool, g), (want, want_pool, _) = out
+    if not (np.array_equal(labels, want) and torch.equal(pool, want_pool)):
+        raise AssertionError(f"[y] serving graph against eager on the mesh "
+                             f"{mesh}: labels differ on "
+                             f"{int(np.sum(labels != want))} points")
+    return labels, pool, (g.warmups, g.captures, g.replays)
+
+
 def _mesh_rank(rank, work, state_dict, batch):
     """One of y's two gloo ranks on cuda:0: the dry run, the SSG step, the
     device pipeline and the serving run on the mesh. -> rank 0's numbers
@@ -2762,6 +2815,11 @@ def _mesh_rank(rank, work, state_dict, batch):
     out["serve"] = dict(seconds=res["infer_seconds"], miou=res["miou"],
                         launches=[dict(zip(MESH_KERNELS, row))
                                   for row in counts.tolist()])
+    # sg's check on the mesh: the runner's graphs against eager, each rank
+    labels, pool, counts = mesh_serving(torch, mesh, work, state_dict)
+    if not same_as_rank0(pool.to(DEVICE)):
+        raise AssertionError("[y] the ranks' graph-served pools differ")
+    out["graphs"] = dict(labels=labels, pool=pool, counts=counts)
     return out
 
 
@@ -2808,11 +2866,22 @@ def phase_mesh(torch, work, state_dict):
     # a one-rank NCCL group
     summary = dryrun.dryrun_multichip(1)
     print(f"[y] dryrun_multichip(1), NCCL on {DEVICE}: {summary}")
+    # sg's check on the mesh: graphs against eager, and one process
+    one_labels, one_pool, _ = mesh_serving(torch, None, work, state_dict)
     mesh = pmesh.make_mesh(1, backend="nccl")
     try:
         held("one-rank NCCL mesh", step(mesh), one)
+        labels, pool, counts = mesh_serving(torch, mesh, work, state_dict)
     finally:
         pmesh.close_mesh()
+    if not (np.array_equal(labels, one_labels) and torch.equal(pool,
+                                                               one_pool)):
+        raise AssertionError("[y] the one-rank NCCL mesh's graph-served "
+                             "labels or pool differ from one process's")
+    print(f"[y] d's tile, {SG_VOTES} votes, device re-blocking, serving "
+          f"programs as CUDA graphs on the one-rank NCCL mesh: labels and "
+          f"pool bitwise equal to cuda_graphs=False on the mesh and to one "
+          f"process's graphs ((warm-ups, captures, replays) {counts})")
 
     # single-process serving of d's tile, the figure beside the mesh's
     args = mesh_serve_args(work, state_dict, "y_one")
@@ -2864,6 +2933,17 @@ def phase_mesh(torch, work, state_dict):
     if differ > n // 1000:
         raise AssertionError(f"mesh serving differs from one process on "
                              f"{differ} of {n} points")
+    sg = out["graphs"]
+    differ = int(np.sum(sg["labels"] != one_labels))
+    print(f"[y] d's tile, {SG_VOTES} votes, device re-blocking, serving "
+          f"programs as CUDA graphs on two gloo ranks: each rank's labels "
+          f"and pool bitwise equal to cuda_graphs=False on the mesh, the "
+          f"ranks' pools equal; labels differ from one process's on "
+          f"{differ} of {n} points ((warm-ups, captures, replays) on rank "
+          f"0 {sg['counts']})")
+    if differ > n // 1000:
+        raise AssertionError(f"graph-served mesh labels differ from one "
+                             f"process on {differ} of {n} points")
 
 
 GRAPH_TRAIN_POINTS = 1_200_000   # 12 steps an epoch: an 8-step call + 4
@@ -2946,8 +3026,6 @@ def phase_graphs(torch, work, states):
     """[cg] the engine's steps as CUDA graphs against the same steps eager
     (``cuda_graphs=False``), bitwise; then the time and memory of both at
     k = 1, 4 and 8, and the training CLI with each."""
-    import functools
-
     from tumseg_torch.cli import train as train_cli
     from tumseg_torch.data.dataset import TrainBlockDataset
     from tumseg_torch.data.device_sampler import DeviceBlockSampler
@@ -3131,6 +3209,284 @@ def phase_graphs(torch, work, states):
           f"mIoU); phase {time.perf_counter() - t0:.1f} s")
 
 
+SG_VOTES = 2
+SG_SECOND_POINTS = 150_000   # the second scene of sg's run_testing
+
+
+def served_model(torch, name, state_dict):
+    """``name``'s module with ``state_dict``'s weights, on the card."""
+    from tumseg_torch import models
+
+    model = models.get_module(name).get_model(8)
+    model.load_state_dict(state_dict)
+    return model.to(DEVICE).eval()
+
+
+def graph_runners(torch, model, **kw):
+    """Runners of one model, one a value of ``cuda_graphs``: graphs (True)
+    first, then eager (False)."""
+    from tumseg_torch.infer.voting import InferenceRunner
+
+    return [InferenceRunner(model, 8, batch_size=B, device=DEVICE,
+                            cuda_graphs=graphs, **kw)
+            for graphs in (True, False)]
+
+
+def program_calls(blocks, votes, path):
+    """Program calls of ``votes`` votes over ``blocks`` blocks: a chunk of
+    B blocks each, and on the device re-blocking path a re-blocking a
+    vote."""
+    return votes * (math.ceil(blocks / B) + (path == "device_reblock"))
+
+
+def serve_graph_eager(torch, what, path, tile, runners, votes=SG_VOTES,
+                      switch=None):
+    """Serves scene 0 of ``tile`` on the graph runner and on the eager one
+    (each on a fresh dataset of the same seed, so the host-drawn paths draw
+    the same blocks; under ``switch``, an ops context, where given): labels
+    and pools bitwise equal, the graph's warm-ups and replays one a program
+    call. -> (blocks a vote, the graph runner's StepGraphs)."""
+    out = []
+    for runner in runners:
+        ds = scene_dataset(tile)
+        with switch() if switch else contextlib.nullcontext():
+            labels = runner.infer_scene(ds, 0, votes)
+        out.append((labels, runner._buffers["pool"]))
+    (got, got_pool), (want, want_pool) = out
+    if not (np.array_equal(got, want) and torch.equal(got_pool, want_pool)):
+        raise AssertionError(f"[sg] {what}: the graph runner's labels differ "
+                             f"on {int(np.sum(got != want))} points, pools "
+                             f"equal {torch.equal(got_pool, want_pool)}")
+    blocks = sum(math.ceil(c[0].size / N)
+                 for c in scene_dataset(tile).grid_structure(0))
+    graphs = runners[0].graphs
+    calls = program_calls(blocks, votes, path)
+    programs = 2 if path == "device_reblock" else 1
+    if (graphs.warmups != programs or graphs.captures != programs
+            or graphs.warmups + graphs.replays != calls):
+        raise AssertionError(f"[sg] {what}: {graphs.warmups} warm-ups, "
+                             f"{graphs.captures} captures and "
+                             f"{graphs.replays} replays for {calls} program "
+                             f"calls of {programs} programs")
+    if runners[1].graphs is not None:
+        raise AssertionError(f"[sg] {what}: the eager runner has graphs")
+    print(f"[sg] {what}: {votes} votes of {blocks} blocks, labels and pool "
+          f"bitwise equal to eager ({len(np.unique(got))} classes); "
+          f"{graphs.warmups} warm-ups, {graphs.captures} captures in "
+          f"{graphs.capture_seconds:.3f} s, {graphs.replays} replays")
+    return blocks, graphs
+
+
+def enqueue_us(torch, fn, calls=5):
+    """The host's time of one call of ``fn`` from a drained device, in
+    microseconds, median of ``calls``: the time to enqueue its work."""
+    runs = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def event_seconds(torch, fn):
+    """CUDA-event seconds of ``fn()`` on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def phase_serve_graphs(torch, work, states):
+    """[sg] (after cg) the serving runner's programs as CUDA graphs
+    (``InferenceRunner``'s default on the card) against the same programs
+    eager (``cuda_graphs=False``), bitwise; then the forward's and the
+    serving runs' times, idle share and peak memory, graph and eager in
+    turns."""
+    from tumseg_torch import ops
+    from tumseg_torch.infer.voting import run_testing
+    from tumseg_torch.viz.writers import read_labels_txt
+
+    ssg, msg, trial = ("pointnet2_sem_seg", "pointnet2_sem_seg_msg",
+                       "pointnet2_sem_seg_trial")
+    tile = work / "data" / "facade.las"
+    t0 = time.perf_counter()
+
+    # the B=32 forward (predict_blocks) of every model: one replay a call
+    x = model_batch(B, N)
+    for name, state, dtype in ((ssg, states[ssg], None),
+                               (ssg, states[ssg], torch.bfloat16),
+                               (msg, states[msg], None),
+                               (POINTNET, states[POINTNET], None),
+                               (trial, states[ssg], None)):
+        model = served_model(torch, name, state)
+        graph, eager = graph_runners(torch, model, compute_dtype=dtype)
+        got = [graph.predict_blocks(x) for _ in range(3)]
+        want = eager.predict_blocks(x)
+        if not all(np.array_equal(g, want) for g in got) or (
+                graph.graphs.replays, graph.graphs.captures) != (2, 1):
+            raise AssertionError(f"[sg] {name} forward: graph against eager "
+                                 f"{[np.mean(g == want) for g in got]}, "
+                                 f"{graph.graphs.replays} replays")
+        print(f"[sg] {name}{' bf16' if dtype else ''} B={B}x{N} "
+              f"predict_blocks: warm-up, capture + replay, replay: labels "
+              f"bitwise equal to eager ({len(np.unique(want))} classes)")
+
+    # the three paths, the models, bf16, the window and the fused switch
+    ssg_model = served_model(torch, ssg, states[ssg])
+    for path, kw in (("device_reblock", {}),
+                     ("device_features", dict(device_reblock=False)),
+                     ("host", dict(device_features=False))):
+        serve_graph_eager(torch, f"{ssg} {path}", path, tile,
+                          graph_runners(torch, ssg_model, **kw))
+    for what, model, kw, switch in (
+            (f"{ssg} bf16", ssg_model, dict(compute_dtype=torch.bfloat16),
+             None),
+            (msg, served_model(torch, msg, states[msg]), {}, None),
+            (POINTNET, served_model(torch, POINTNET, states[POINTNET]), {},
+             None),
+            (trial, served_model(torch, trial, states[ssg]), {}, None),
+            (f"{ssg} window_ops", ssg_model, dict(window_ops=True), None),
+            (f"{ssg} fused switch", ssg_model, {}, ops.fused_group_enabled)):
+        serve_graph_eager(torch, f"{what} device_reblock", "device_reblock",
+                          tile, graph_runners(torch, model, **kw),
+                          switch=switch)
+
+    # two scenes through run_testing, the second staged by its prefetch
+    # while the first votes (ungridded, so the prefetch grids and uploads)
+    second = work / "data_sg" / "second.las"
+    second.parent.mkdir()
+    write_facade_tile(np.random.default_rng(SEED + 13), second,
+                      SG_SECOND_POINTS, length=10.0)
+    dumps, pools = {}, {}
+    for graphs, runner in zip((True, False), graph_runners(torch,
+                                                           ssg_model)):
+        ds = scene_dataset(tile)
+        ds2 = scene_dataset(second)
+        for attr in ("file_list", "scene_points_list", "semantic_labels_list",
+                     "scene_points_num", "room_coord_min", "room_coord_max",
+                     "extra_features_data"):
+            getattr(ds, attr).extend(getattr(ds2, attr))
+        vis = work / f"sg_{'graph' if graphs else 'eager'}"
+        vis.mkdir()
+        run_testing(ds, runner, num_votes=SG_VOTES, visual_dir=vis,
+                    log_string=lambda *a: None)
+        dumps[graphs] = [read_labels_txt(str(vis / f"{name}.txt"))
+                         for name in ("facade", "second")]
+        pools[graphs] = runner._buffers["pool"]     # the second scene's
+        if graphs:
+            g = runner.graphs
+            if g.captures != 4:
+                raise AssertionError(f"[sg] run_testing: {g.captures} "
+                                     f"captures over two scenes, expected 4")
+            captured = (g.captures, g.capture_seconds, g.replays)
+    if not (all(np.array_equal(a, b) for a, b in zip(dumps[True],
+                                                     dumps[False]))
+            and torch.equal(pools[True], pools[False])):
+        raise AssertionError("[sg] run_testing over two scenes: the graph "
+                             "runner's labels or pool differ from eager's")
+    print(f"[sg] run_testing, two scenes ({SCENE_POINTS} + "
+          f"{SG_SECOND_POINTS} points, the second gridded and uploaded by "
+          f"the prefetch while the first votes): both label dumps and the "
+          f"second scene's pool bitwise equal to eager's; {captured[0]} "
+          f"captures (2 a scene) in "
+          f"{captured[1]:.3f} s, {captured[2]} replays; checks "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the forward: event ms, host us a call and peak memory, in turns
+    xd = torch.as_tensor(x, device=DEVICE)
+    for dtype in (None, torch.bfloat16):
+        runs, replay_us = {True: [], False: []}, []
+        for graphs in (True, False, False, True):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runner = graph_runners(torch, ssg_model, compute_dtype=dtype)[
+                0 if graphs else 1]
+            fwd = functools.partial(runner._forward, xd)
+            fwd()
+            fwd()        # warm-up, then the capture and a replay
+            ms = time_ms(torch, fwd, 10)[0]
+            us = enqueue_us(torch, fwd)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            if graphs:   # the host's time of the replay alone
+                (entry,) = runner.graphs.graphs.values()
+                replay_us.append(enqueue_us(torch, entry.graph.replay))
+            runs[graphs].append((ms, us, peak))
+            del runner, fwd
+        print(f"[sg] {ssg} {'bf16' if dtype else 'f32'} forward B={B}x{N}, "
+              f"graph / eager in turns: "
+              + "; ".join(f"{'graph' if g else 'eager'} "
+                          f"{[round(m, 3) for m, _, _ in runs[g]]} ms, host "
+                          f"{[round(u, 1) for _, u, _ in runs[g]]} us a "
+                          f"call, peak {[round(p, 1) for _, _, p in runs[g]]}"
+                          f" MiB" for g in (True, False))
+              + f"; the graph's replay() alone "
+                f"{[round(u, 1) for u in replay_us]} us")
+
+    # serving d's tile and n's: scene-points/s and idle share, in turns
+    for path, n in ((tile, SCENE_POINTS),
+                    (work / "scale" / "facade_1m.las", SCALE_POINTS)):
+        ds = scene_dataset(path)
+        blocks = sum(math.ceil(c[0].size / N) for c in ds.grid_structure(0))
+        chunks = math.ceil(blocks / B)
+        runs = {True: [], False: []}
+        busy = []
+        for graphs in (True, False, False, True):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            runner = graph_runners(torch, ssg_model)[0 if graphs else 1]
+            first = event_seconds(
+                torch, lambda: runner.infer_scene(ds, 0, SG_VOTES))
+            wall = event_seconds(
+                torch, lambda: runner.infer_scene(ds, 0, SG_VOTES))
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            extra = ""
+            if graphs:
+                # busy: the programs' replays back to back, the chunk's on
+                # the first chunk of a vote (its last, whose dump rows all
+                # vote into one row, is what the capture's statics hold)
+                g = runner.graphs
+                chunk, reblock = (
+                    next(v for k, v in g.graphs.items() if k[0] == kind)
+                    for kind in ("vote_chunk", "reblock"))
+                grid = runner._grid_tensors(ds, 0)
+                first_chunk = (runner._reblock(grid, 0, 0, N)[:B],
+                               grid[4][:B])
+                with torch.inference_mode():   # the statics' mode
+                    for static, given in zip(chunk.inputs, first_chunk):
+                        static.copy_(given)
+                chunk_ms = time_ms(torch, chunk.graph.replay, 5)[0]
+                reblock_ms = time_ms(torch, reblock.graph.replay, 3)[0]
+                busy.append(SG_VOTES * (chunks * chunk_ms + reblock_ms)
+                            / 1e3)
+                extra = (f", {g.captures} captures in "
+                         f"{g.capture_seconds:.3f} s, replays: a chunk "
+                         f"{chunk_ms:.3f} ms, a re-blocking "
+                         f"{reblock_ms:.3f} ms")
+            runs[graphs].append((first, wall, peak, extra))
+            del runner
+        busy_s = float(np.mean(busy))
+        print(f"[sg] {n} points x {SG_VOTES} votes ({blocks} blocks, "
+              f"{chunks} chunks a vote), device re-blocking, busy "
+              f"{busy_s:.4f} s (back-to-back replays), graph / eager in "
+              f"turns:")
+        for g in (True, False):
+            print(f"[sg]   {'graph' if g else 'eager'}: "
+                  + "; ".join(f"{n * SG_VOTES / wall:.0f} scene-points/s "
+                              f"(event wall {wall:.4f} s, idle "
+                              f"{1 - busy_s / wall:.4f}), first call "
+                              f"{first:.3f} s{extra}, peak {peak:.1f} MiB"
+                              for first, wall, peak, extra in runs[g]))
+    print(f"[sg] phase {time.perf_counter() - t0:.1f} s")
+
+
 def launched(launches):
     """The kernels launched at least once, with their counts."""
     return {name: n for name, n in launches.items() if n}
@@ -3285,8 +3641,9 @@ def main() -> int:
     phase_pointnet_train(torch, work, pointnet_state)
     phase_frozen(torch, work, state_dict)
     phase_mesh(torch, work, state_dict)
-    phase_graphs(torch, work, {ssg: state_dict, msg: msg_state,
-                               POINTNET: pointnet_state})
+    states = {ssg: state_dict, msg: msg_state, POINTNET: pointnet_state}
+    phase_graphs(torch, work, states)
+    phase_serve_graphs(torch, work, states)
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

@@ -1,7 +1,7 @@
 """The training engine's steps made ready for CUDA graphs, on the CPU.
 
 On the card ``TrainEngine`` captures its steps as CUDA graphs
-(``tumseg_torch/train/graphs.py``); ``chip_smoke.py`` [cg] holds them bit
+(``tumseg_torch/utils/graphs.py``); ``chip_smoke.py`` [cg] holds them bit
 for bit against the eager steps there. What a capture needs is checked
 here, where the steps run eagerly:
 
@@ -44,7 +44,7 @@ from tumseg_torch.ops import kernels
 from tumseg_torch.train import checkpoint as tckpt
 from tumseg_torch.train import loop as tloop
 from tumseg_torch.train import metrics as tmetrics
-from tumseg_torch.train.graphs import StepGraphs
+from tumseg_torch.utils.graphs import StepGraphs
 
 B, N, C = 2, 256, 8
 LR, WD = 1e-3, 1e-4

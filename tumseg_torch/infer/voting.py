@@ -32,6 +32,23 @@ vote's blocks and broadcasts them, so the ranks vote on one re-blocking; on
 device re-blocking every rank draws the same ``(seed, scene, vote)``
 stream.
 
+On a CUDA device every serving program runs as a CUDA graph
+(:class:`tumseg_torch.utils.graphs.StepGraphs`), the counterparts of
+``tumseg``'s ``jax.jit`` programs: the B-block forward of
+:meth:`InferenceRunner.predict_blocks` (``jax.jit(forward)``,
+``tumseg/infer/voting.py:250-272``), each chunk of a vote (featurize,
+forward, argmax and the vote into the pool on the device paths, the body
+of ``_vote_scan_fn``'s scan, ``:480-540``; forward, argmax and
+:func:`_scatter_votes` on the host path) and each vote's re-blocking
+(``_reblock_on_device``, ``:134-188``). The first call of a program's key
+runs eagerly, the second is captured, every later one is one replay, bit
+for bit the eager call. The graphs bind the weights, the scene's tensors,
+its grid and the pool: another scene drops and captures them again, so a
+scene of V votes in NB blocks costs one warm-up and one capture of its
+chunk and of its re-blocking. ``cuda_graphs=False``, the counterpart of
+``jax.disable_jit``, serves eagerly. A mesh's all-reduce of a vote stays
+outside the graphs. Every program runs under ``torch.inference_mode``.
+
 The TPU's scene-shape buckets and block granules
 (``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
 exist to spare XLA recompiles, and PyTorch does not recompile. So is the
@@ -54,6 +71,7 @@ import torch
 from tumseg_torch import ops
 from tumseg_torch.data.dataset import _COLOR_FEATURES
 from tumseg_torch.parallel.mesh import pad_to_multiple
+from tumseg_torch.utils.graphs import StepGraphs
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
@@ -61,12 +79,45 @@ from tumseg_torch.train import metrics as M
 
 def _scatter_votes(pool: torch.Tensor, point_idx: torch.Tensor,
                    pred: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """pool [N_scene, C] += one_hot(pred) at point_idx where keep, in place.
-    Counts are integers below 2**24 in f32, so the order of the atomic adds
-    on the card cannot change the pool."""
-    pool.index_put_((point_idx.reshape(-1).long(), pred.reshape(-1).long()),
-                    keep.reshape(-1).to(pool.dtype), accumulate=True)
+    """pool [N_scene, C] (contiguous) += one_hot(pred) at point_idx where
+    keep, in place: one ``index_add_`` of ``keep`` at ``idx * C + pred``
+    into the flat pool (``index_put_`` reads its indices' range back to the
+    host, which a CUDA graph cannot hold). Counts are integers below 2**24
+    in f32, so the order of the atomic adds on the card cannot change the
+    pool."""
+    flat = (point_idx.reshape(-1).long() * pool.shape[1]
+            + pred.reshape(-1).long())
+    pool.view(-1).index_add_(0, flat, keep.reshape(-1).to(pool.dtype))
     return pool
+
+
+def _pad_rows(a: np.ndarray, rows: int, fill=None) -> np.ndarray:
+    """``a`` with its leading axis padded to ``rows``: its last row
+    repeated, or rows of ``fill``."""
+    short = rows - a.shape[0]
+    if short <= 0:
+        return a
+    pad = (np.repeat(a[-1:], short, axis=0) if fill is None
+           else np.full((short,) + a.shape[1:], fill, a.dtype))
+    return np.concatenate([a, pad])
+
+
+def vote_seed(seed: int, scene_idx: int, vote: int) -> int:
+    """The seed of one vote's re-blocking draws: scenes and votes draw
+    independently (``jax.random.fold_in`` in ``tumseg``)."""
+    state = np.random.SeedSequence([seed, scene_idx, vote])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def draw_vote(generator: torch.Generator, length: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draws of one vote's :func:`reblock_on_device` from
+    ``generator``: (u [L] f32 in [0, 1), keys [L] int64 below 2**32)."""
+    device = generator.device
+    u = torch.rand(length, generator=generator, device=device)
+    keys = torch.randint(0, 2 ** 32, (length,), generator=generator,
+                         device=device, dtype=torch.int64)
+    return u, keys
 
 
 def _build_reblock_arrays(cells, block_points: int):
@@ -236,12 +287,17 @@ class InferenceRunner:
     works on the CPU as well, with the plain ops. ``compute_dtype`` (None:
     f32) is the model's compute dtype, ``tumseg``'s ``--bf16``. With a
     ``mesh`` the runner runs on ``mesh.device`` (``device`` is not read)
-    and ``batch_size`` must be a multiple of the mesh size."""
+    and ``batch_size`` must be a multiple of the mesh size.
+
+    On a CUDA device each serving program runs as a CUDA graph
+    (``self.graphs``, a :class:`StepGraphs`; see the module's docstring);
+    ``cuda_graphs=False`` serves eagerly, bit for bit the same."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  batch_size: int = 32, device="cuda", mesh=None,
                  compute_dtype=None, device_features="auto",
-                 device_reblock="auto", window_ops="auto", seed: int = 0):
+                 device_reblock="auto", window_ops="auto", seed: int = 0,
+                 cuda_graphs: bool = True):
         if mesh is not None:
             if batch_size % mesh.size:
                 raise ValueError(
@@ -270,11 +326,76 @@ class InferenceRunner:
         self._scene_cache = {}
         self._grid_cache = {}
         self._cache_lock = threading.Lock()
+        # held by uploads, warm-ups and captures: see StepGraphs
+        self._device_lock = threading.Lock()
+        self.graphs = (StepGraphs(self.device, lock=self._device_lock)
+                       if cuda_graphs and self.device.type == "cuda"
+                       else None)
+        self._bound = {}        # name -> (address, shape) of bound tensors
+        self._buffers = {}      # the pool and the mesh increment
+        self._generator = None  # the vote draws', re-seeded each vote
 
     def _labels(self, x: torch.Tensor) -> torch.Tensor:
         """[B, N] argmax labels of the model's forward of ``x``."""
         return self.model(x, compute_dtype=self.compute_dtype)[0].argmax(
             dim=-1)
+
+    def _bind(self, **tensors) -> None:
+        """Names the tensors, beside the weights, that the next programs
+        read or write in place (a scene's tensors, its grid, the pool, the
+        mesh increment; a value is a tensor, a sequence or None): a graph
+        captured against other ones is dropped."""
+        for name, value in tensors.items():
+            if not isinstance(value, (tuple, list)):
+                value = (value,)
+            self._bound[name] = tuple((t.data_ptr(), tuple(t.shape))
+                                      for t in value
+                                      if isinstance(t, torch.Tensor))
+
+    def _bindings(self) -> tuple:
+        """The addresses of the tensors that a captured program reads or
+        writes in place."""
+        weights = tuple(t.data_ptr() for t in (*self.model.parameters(),
+                                                *self.model.buffers()))
+        return weights + tuple(sorted(self._bound.items()))
+
+    def _run(self, key: tuple, fn, inputs=(), generators=()):
+        """``fn(*inputs)`` under inference mode: eager, or the CUDA graph of
+        ``key`` and of every Python value that the program reads."""
+        with torch.inference_mode():
+            if self.graphs is None:
+                return fn(*inputs)
+            key += (self.compute_dtype, ops.switches())
+            return self.graphs.run(key, fn, inputs, generators,
+                                   self._bindings)
+
+    def _zeroed(self, name: str, shape) -> torch.Tensor:
+        """The runner's f32 buffer ``name`` (the pool, the mesh increment)
+        of ``shape``, zeroed: one buffer, kept while the shape holds and
+        zeroed in place, so the address that the graphs bind stays put and
+        a scene voted again keeps its graphs."""
+        buf = self._buffers.get(name)
+        with torch.inference_mode():
+            if buf is None or tuple(buf.shape) != tuple(shape):
+                buf = self._buffers[name] = torch.zeros(
+                    shape, dtype=torch.float32, device=self.device)
+            else:
+                buf.zero_()
+        return buf
+
+    def _pool(self, shape) -> torch.Tensor:
+        """The scene's pool, zeroed, bound with the mesh's increment (on a
+        mesh, else none)."""
+        pool = self._zeroed("pool", shape)
+        self._bind(pool=pool, increment=None if self.mesh is None
+                   else self._zeroed("increment", shape))
+        return pool
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N] argmax labels of ``x`` [B, N, C] f32 on the device, as one
+        program (``jax.jit(forward)``)."""
+        return self._run(("forward", tuple(x.shape)),
+                         lambda x: (self._labels(x),), (x,))[0]
 
     def predict_blocks(self, scene_data: np.ndarray) -> np.ndarray:
         """scene_data [num_blocks, N, C] -> predicted labels [num_blocks, N].
@@ -310,15 +431,10 @@ class InferenceRunner:
         bs = bs or self.batch_size
         for s in range(0, scene_data.shape[0], bs):
             chunk = scene_data[s:s + bs]
-            real = chunk.shape[0]
-            if real < bs:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], bs - real, axis=0)])
-            x = torch.as_tensor(np.ascontiguousarray(chunk, np.float32),
-                                device=self.device)
-            with torch.inference_mode():
-                pred = self._labels(x)
-            yield pred, real
+            x = torch.as_tensor(
+                np.ascontiguousarray(_pad_rows(chunk, bs), np.float32),
+                device=self.device)
+            yield self._forward(x), chunk.shape[0]
 
     def _cached(self, cache, dataset, scene_idx: int, build):
         """Per-scene device cache (``tumseg/infer/voting.py:338-381``). An
@@ -378,8 +494,10 @@ class InferenceRunner:
             else:
                 extra = np.zeros((n, 0), dtype=pts.dtype)
                 color_mask = np.zeros((0,), dtype=bool)
-            return tuple(torch.as_tensor(a, device=self.device)
-                         for a in (pts, extra, pts.max(axis=0), color_mask))
+            with self._device_lock:
+                return tuple(torch.as_tensor(a, device=self.device)
+                             for a in (pts, extra, pts.max(axis=0),
+                                       color_mask))
 
         return self._cached(self._scene_cache, dataset, scene_idx, build)
 
@@ -394,23 +512,27 @@ class InferenceRunner:
             (flat_base, starts, counts, sizes, offsets, segments,
              _order) = _build_reblock_arrays(cells, dataset.block_points)
             dev = self.device
-            sizes_t = torch.as_tensor(sizes.astype(np.int64), device=dev)
-            starts_pos = torch.repeat_interleave(
-                torch.as_tensor(starts, device=dev), sizes_t)
-            counts_pos = torch.repeat_interleave(
-                torch.as_tensor(counts, device=dev), sizes_t)
             cell_rank = np.repeat(np.arange(starts.shape[0], dtype=np.int32),
                                   sizes)
-            return (torch.as_tensor(flat_base, device=dev), starts_pos,
-                    counts_pos, cell_rank,
-                    torch.as_tensor(offsets, device=dev), segments)
+            with self._device_lock:
+                sizes_t = torch.as_tensor(sizes.astype(np.int64), device=dev)
+                starts_pos, counts_pos = (
+                    torch.repeat_interleave(torch.as_tensor(a, device=dev),
+                                            sizes_t,
+                                            output_size=flat_base.shape[0])
+                    for a in (starts, counts))
+                return (torch.as_tensor(flat_base, device=dev), starts_pos,
+                        counts_pos, cell_rank,
+                        torch.as_tensor(offsets, device=dev), segments)
 
         return self._cached(self._grid_cache, dataset, scene_idx, build)
 
     def prefetch_scene(self, dataset, scene_idx: int) -> None:
         """Stage a scene ahead of time (``run_testing`` calls this from its
         prefetch thread): its host gridding and, on the device paths, its
-        uploads, so they overlap the current scene's votes."""
+        uploads, so they overlap the current scene's votes. The uploads
+        hold the runner's device lock, which holds them out of a warm-up or
+        capture (see :class:`StepGraphs`)."""
         if not hasattr(dataset, "grid_structure"):
             return
         dataset.grid_structure(scene_idx)   # host gridding (memoized)
@@ -419,34 +541,53 @@ class InferenceRunner:
             if self.device_reblock:
                 self._grid_tensors(dataset, scene_idx)
 
+    def _vote_generator(self, scene_idx: int, vote: int) -> torch.Generator:
+        """The runner's one vote generator on the device, re-seeded with
+        :func:`vote_seed`: it draws what a fresh generator so seeded draws,
+        and a graph registers it once."""
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(vote_seed(self.seed, scene_idx, vote))
+        return self._generator
+
     def vote_draws(self, scene_idx: int, vote: int, length: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The draws of one vote's :func:`reblock_on_device`: (u [L] f32 in
-        [0, 1), keys [L] int64 below 2**32) from a generator on the device
-        seeded by (seed, scene, vote), so scenes and votes draw
-        independently (``jax.random.fold_in`` in ``tumseg``)."""
-        state = np.random.SeedSequence([self.seed, scene_idx, vote])
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
-        u = torch.rand(length, generator=gen, device=self.device)
-        keys = torch.randint(0, 2 ** 32, (length,), generator=gen,
-                             device=self.device, dtype=torch.int64)
-        return u, keys
+        """The draws of one vote's :func:`reblock_on_device` (see
+        :func:`draw_vote`) for (seed, scene, vote)."""
+        return draw_vote(self._vote_generator(scene_idx, vote), length)
 
+    def _reblock(self, grid, scene_idx: int, vote: int, block_points: int
+                 ) -> torch.Tensor:
+        """One vote's draws and :func:`reblock_on_device` of the grid
+        tensors ``grid`` as one program (``_reblock_on_device``) ->
+        [NB, block_points] int32."""
+        flat_base, starts_pos, counts_pos, _cell_rank, _offsets, segments = \
+            grid
+        gen = self._vote_generator(scene_idx, vote)
+        length = flat_base.shape[0]
+
+        def reblock():
+            u, keys = draw_vote(gen, length)
+            return (reblock_on_device(u, keys, flat_base, starts_pos,
+                                      counts_pos, block_points, segments),)
+        return self._run(("reblock", length, segments, block_points),
+                         reblock, (), [gen])[0]
+
+    @torch.inference_mode()
     def _vote(self, scene, idx_blocks: torch.Tensor, offsets: torch.Tensor,
               pool_flat: torch.Tensor, block_size: float) -> None:
         """One vote's chunk loop (``_vote_scan_fn``'s "scan" mode,
         ``tumseg/infer/voting.py:480-540``): each B-block chunk of
         ``idx_blocks`` [NB, P] is featurized, forwarded, and the ones of its
         argmax are added at ``idx * C + pred`` into ``pool_flat``
-        [(n + 1) * C], in place. A short last chunk is padded to B with the
-        dump row ``n``, so every forward has the kernels' B-block shapes.
-        Counts are small integers in f32: atomics cannot change the pool.
-        On a mesh the blocks are padded with dump rows to a multiple of B,
-        this rank votes its share, B / size blocks a forward, into a zero
+        [(n + 1) * C], in place, as one program. A short last chunk is
+        padded to B with the dump row ``n``, so every chunk has the
+        kernels' B-block shapes and a scene one chunk program. Counts are
+        small integers in f32: atomics cannot change the pool. On a mesh
+        the blocks are padded with dump rows to a multiple of B, this rank
+        votes its share, B / size blocks a chunk, into the zeroed
         increment, and the all-reduced increment is added to the pool."""
-        scene_xyz, scene_extra, coord_max, color_mask = scene
-        n = scene_xyz.shape[0]
+        n = scene[0].shape[0]
         bs, C = self.batch_size, self.num_classes
         target = pool_flat
         if self.mesh is not None:
@@ -457,8 +598,23 @@ class InferenceRunner:
             offsets = torch.cat([offsets, offsets.new_zeros(pad, 2)])
             rows = self.mesh.rows(idx_blocks.shape[0])
             idx_blocks, offsets = idx_blocks[rows], offsets[rows]
-            target = torch.zeros_like(pool_flat)
+            target = self._zeroed("increment", pool_flat.shape)
             bs //= self.mesh.size
+        self._bind(scene=scene, pool=pool_flat,
+                   increment=None if target is pool_flat else target)
+
+        def chunk(idx, offs):
+            points = featurize(*scene, idx.clamp(max=n - 1), offs,
+                               block_size)
+            pred = self._labels(points)
+            flat = idx.reshape(-1).long() * C + pred.reshape(-1)
+            target.index_add_(0, flat,
+                              torch.ones_like(flat, dtype=target.dtype))
+            return ()
+
+        key = ("vote_chunk", bs, idx_blocks.shape[1], idx_blocks.dtype,
+               offsets.dtype, float(block_size),
+               tuple((t.dtype, tuple(t.shape)) for t in scene))
         for s in range(0, idx_blocks.shape[0], bs):
             idx = idx_blocks[s:s + bs]
             offs = offsets[s:s + bs]
@@ -466,12 +622,7 @@ class InferenceRunner:
                 pad = bs - idx.shape[0]
                 idx = torch.cat([idx, idx.new_full((pad, idx.shape[1]), n)])
                 offs = torch.cat([offs, offs.new_zeros(pad, 2)])
-            points = featurize(scene_xyz, scene_extra, coord_max, color_mask,
-                               idx.clamp(max=n - 1), offs, block_size)
-            pred = self._labels(points)
-            flat = idx.reshape(-1).long() * C + pred.reshape(-1)
-            target.index_add_(0, flat,
-                              torch.ones_like(flat, dtype=target.dtype))
+            self._run(key, chunk, (idx, offs))
         if self.mesh is not None:
             pool_flat += self.mesh.all_reduce_(target)
 
@@ -494,20 +645,17 @@ class InferenceRunner:
     def _infer_scene_device_reblock(self, dataset, scene_idx, num_votes,
                                     gt_weight_gate):
         """``tumseg/infer/voting.py:594-640``: scene and grid uploaded once,
-        each vote re-blocked and voted on the device."""
+        each vote re-blocked (one program) and voted on the device."""
         scene = self._scene_tensors(dataset, scene_idx)
-        (flat_base, starts_pos, counts_pos, _cell_rank, offsets,
-         segments) = self._grid_tensors(dataset, scene_idx)
+        grid = self._grid_tensors(dataset, scene_idx)
         n = scene[0].shape[0]
-        pool_flat = torch.zeros((n + 1) * self.num_classes,
-                                dtype=torch.float32, device=self.device)
+        pool_flat = self._pool(((n + 1) * self.num_classes,))
+        self._bind(scene=scene, grid=grid)
         bp = int(dataset.block_points)
         for vote in progress(range(num_votes), desc="votes"):
-            u, keys = self.vote_draws(scene_idx, vote, flat_base.shape[0])
-            idx_blocks = reblock_on_device(u, keys, flat_base, starts_pos,
-                                           counts_pos, bp, segments)
+            idx_blocks = self._reblock(grid, scene_idx, vote, bp)
             with ops.window_enabled(self.window_ops):
-                self._vote(scene, idx_blocks, offsets, pool_flat,
+                self._vote(scene, idx_blocks, grid[4], pool_flat,
                            float(dataset.block_size))
         return self._finish(dataset, scene_idx, pool_flat, gt_weight_gate)
 
@@ -518,8 +666,8 @@ class InferenceRunner:
         vote."""
         scene = self._scene_tensors(dataset, scene_idx)
         n = scene[0].shape[0]
-        pool_flat = torch.zeros((n + 1) * self.num_classes,
-                                dtype=torch.float32, device=self.device)
+        pool_flat = self._pool(((n + 1) * self.num_classes,))
+        self._bind(scene=scene)
         draws = _HostDraws(dataset.grid_indices, scene_idx, num_votes,
                            self.mesh)
         try:
@@ -536,11 +684,32 @@ class InferenceRunner:
             draws.close()
         return self._finish(dataset, scene_idx, pool_flat, gt_weight_gate)
 
+    def _host_chunks(self, scene_data: np.ndarray, scene_index: np.ndarray,
+                     keep: np.ndarray, target: torch.Tensor, bs: int) -> None:
+        """Votes each chunk of ``bs`` host-featurized blocks into ``target``
+        [N_scene, C]: forward, argmax and :func:`_scatter_votes` as one
+        program. A short last chunk is padded to ``bs`` (its last block
+        repeated, point index 0, ``keep`` False), so its padded rows cast no
+        vote and every chunk has one shape (``tumseg/infer/voting.py:
+        718-735``)."""
+        def chunk(x, idx, kp):
+            _scatter_votes(target, idx, self._labels(x), kp)
+            return ()
+
+        key = ("host_chunk", bs, scene_data.shape[1:], tuple(target.shape))
+        for s in range(0, scene_data.shape[0], bs):
+            arrays = (
+                np.ascontiguousarray(_pad_rows(scene_data[s:s + bs], bs),
+                                     np.float32),
+                _pad_rows(np.asarray(scene_index[s:s + bs], np.int64), bs, 0),
+                _pad_rows(np.asarray(keep[s:s + bs], bool), bs, False))
+            self._run(key, chunk, tuple(torch.as_tensor(a, device=self.device)
+                                        for a in arrays))
+
     def _infer_scene_host(self, dataset, scene_idx, num_votes,
                           gt_weight_gate):
         n_scene = dataset.semantic_labels_list[scene_idx].shape[0]
-        pool = torch.zeros((n_scene, self.num_classes), dtype=torch.float32,
-                           device=self.device)
+        pool = self._pool((n_scene, self.num_classes))
 
         def draw(i):
             scene_data, _, scene_smpw, scene_index = dataset.__getitem__(i)
@@ -564,18 +733,8 @@ class InferenceRunner:
                         scene_data, scene_index)
                     scene_data, keep = scene_data[rows], keep[rows]
                     scene_index = scene_index[rows]
-                    target = torch.zeros_like(pool)
-                # padded rows of a short last chunk cast no vote
-                for ci, (pred, real) in enumerate(
-                        self._predict_chunks(scene_data, bs)):
-                    s = ci * bs
-                    _scatter_votes(
-                        target,
-                        torch.as_tensor(scene_index[s:s + real],
-                                        device=self.device),
-                        pred[:real],
-                        torch.as_tensor(keep[s:s + real],
-                                        device=self.device))
+                    target = self._zeroed("increment", pool.shape)
+                self._host_chunks(scene_data, scene_index, keep, target, bs)
                 if self.mesh is not None:
                     pool += self.mesh.all_reduce_(target)
         finally:

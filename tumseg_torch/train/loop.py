@@ -22,7 +22,7 @@ Same behaviour as ``tumseg``'s host-pipeline path:
   and on the best mIoU, and the accuracy / loss / IoU charts.
 
 On a CUDA device every step runs as a captured CUDA graph
-(``tumseg_torch.train.graphs``), the counterpart of ``tumseg``'s ``jax.jit``
+(``tumseg_torch.utils.graphs``), the counterpart of ``tumseg``'s ``jax.jit``
 steps: a room-id call of k steps is one replay, its batches' selection
 included, as ``tumseg``'s ``lax.scan`` superstep is one dispatch. The
 learning rate and the BN momentum are device scalars written in place
@@ -78,7 +78,7 @@ from tumseg_torch.nn.layers import BatchNorm
 from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train import metrics as M
-from tumseg_torch.train.graphs import StepGraphs
+from tumseg_torch.utils.graphs import StepGraphs
 
 LEARNING_RATE_CLIP = 1e-5
 MOMENTUM_ORIGINAL = 0.1

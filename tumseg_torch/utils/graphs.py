@@ -1,14 +1,18 @@
-"""CUDA graphs of the training engine's steps: the port's counterpart of
-``tumseg``'s ``jax.jit`` train and eval steps and of its ``lax.scan``
-supersteps, k steps in one dispatch (``tumseg/train/loop.py:175-274``).
+"""CUDA graphs of the port's device programs: the counterparts of
+``tumseg``'s ``jax.jit`` programs. The training engine runs its train and
+eval steps and its ``lax.scan`` supersteps, k steps in one dispatch
+(``tumseg/train/loop.py:175-274``), through them; the serving runner its
+B-block forward, each vote's chunks and its re-blocking
+(``tumseg/infer/voting.py:134-188, 250-316, 480-592``).
 
-A step here is a function of device tensors that enqueues a fixed
+A program here is a function of device tensors that enqueues a fixed
 sequence of work: for a room-id superstep the selection of its k batches,
-then k forwards, losses, backwards and optimizer updates. :class:`StepGraphs`
+then k forwards, losses, backwards and optimizer updates; for a vote's
+chunk its featurization, forward, argmax and vote. :class:`StepGraphs`
 runs such a function by key:
 
 1. the first call of a key runs it eagerly on a side stream, the warm-up:
-   a real step, which builds the kernels, makes the optimizer state and
+   a real call, which builds the kernels, makes the optimizer state and
    the stream's cuBLAS workspace, and runs under
    ``torch.cuda.set_sync_debug_mode("error")``, so an op that would read
    back to the host, which no capture can hold, raises there by name;
@@ -18,7 +22,7 @@ runs such a function by key:
 3. that call and every later one copy their inputs into the static ones
    and replay the graph on the current stream: one dispatch.
 
-A replay equals the eager step bit for bit: the same kernels run on the
+A replay equals the eager call bit for bit: the same kernels run on the
 same memory in the same order. A registered generator's draws start, in a
 replay, at the offset that the generator has at that moment, as an eager
 draw would start, and advance it by what the capture drew
@@ -26,18 +30,27 @@ draw would start, and advance it by what the capture drew
 replays and drawing from it outside the graph both work as in eager code.
 
 A graph reads and writes the memory that its tensors had at capture: the
-parameters, buffers, optimizer state, learning rate and loss weights.
-``bindings`` gives those tensors' addresses; when they differ from the
-last call's (a tensor replaced rather than written in place, as
-``load_optimizer_leaves`` replaces the optimizer state), every graph is
-dropped, to be warmed up and captured again. Python values that the
-function reads at capture (the model's mode, the compute dtype, the ops
-switches) belong in the key. A failed capture raises; nothing falls back
-to eager.
+parameters, buffers, optimizer state, learning rate and loss weights of a
+step; the weights, the scene, its grid and the vote pool of a serving
+program. ``bindings`` gives those tensors' addresses; when they differ from
+the last call's (a tensor replaced rather than written in place, as
+``load_optimizer_leaves`` replaces the optimizer state, or another scene
+voted), every graph is dropped, to be warmed up and captured again. Python
+values that the function reads at capture (the model's mode, the compute
+dtype, the ops switches, a scene's shapes) belong in the key. A failed
+capture raises; nothing falls back to eager.
+
+The sync check of a warm-up holds for the whole process, and a capture
+forbids a sync from any thread. So ``lock``, where given, is held through
+every warm-up and capture, and a thread that does device work beside the
+programs (the serving runner's prefetch, which uploads the next scene)
+holds it around that work.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 import warnings
 from typing import (Callable, Dict, Hashable, List, NamedTuple, Sequence,
                     Tuple)
@@ -55,17 +68,22 @@ class _Graph(NamedTuple):
 
 
 class StepGraphs:
-    """The CUDA graphs of one engine's steps on ``device``. ``captures``
-    and ``replays`` count the graphs captured and the replays run."""
+    """The CUDA graphs of one engine's or runner's programs on ``device``.
+    ``warmups``, ``captures`` and ``replays`` count the eager first calls,
+    the graphs captured and the replays run; ``capture_seconds`` is the
+    host time of the captures. ``lock``: see the module's docstring."""
 
-    def __init__(self, device):
+    def __init__(self, device, lock=None):
         self.device = torch.device(device)
+        self.lock = contextlib.nullcontext() if lock is None else lock
         self.graphs: Dict[Hashable, _Graph] = {}
         self._warm = set()
         self._bindings = None
         self._stream = None
+        self.warmups = 0
         self.captures = 0
         self.replays = 0
+        self.capture_seconds = 0.0
 
     def check_bindings(self, addresses: Tuple) -> None:
         """Drops every graph, its memory pool and its warm-up when
@@ -86,14 +104,17 @@ class StepGraphs:
         entry = self.graphs.get(key)
         if entry is None:
             if key not in self._warm:
-                out = self._warm_up(fn, inputs)
+                with self.lock:
+                    out = self._warm_up(fn, inputs)
                 self._warm.add(key)
+                self.warmups += 1
                 # a warm-up writes in place; it only adds what did not
                 # exist (the optimizer state, at the first step)
                 self._bindings = bindings()
                 return out
-            entry = self.graphs[key] = self._capture(key, fn, inputs,
-                                                     generators)
+            with self.lock:
+                entry = self.graphs[key] = self._capture(key, fn, inputs,
+                                                         generators)
         for static, given in zip(entry.inputs, inputs):
             static.copy_(given)
         entry.graph.replay()
@@ -126,6 +147,7 @@ class StepGraphs:
         return out
 
     def _capture(self, key, fn, inputs, generators) -> _Graph:
+        t0 = time.perf_counter()
         static = [t.clone() for t in inputs]
         graph = torch.cuda.CUDAGraph()
         for g in generators:
@@ -136,7 +158,8 @@ class StepGraphs:
                                       capture_error_mode="global"):
                     outputs = fn(*static)
         except Exception as e:
-            raise RuntimeError(f"capturing the {key[0]} step {key[1:]} as a "
-                               f"CUDA graph failed: {e}") from e
+            raise RuntimeError(f"capturing the {key[0]} program {key[1:]} as "
+                               f"a CUDA graph failed: {e}") from e
         self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
         return _Graph(graph, static, outputs, launches)
