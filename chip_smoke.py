@@ -2696,28 +2696,237 @@ def mesh_serve_args(work, state_dict, log_dir):
         "--class8", "--RGB_OFF", "--seed", str(SEED)])
 
 
-def mesh_serving(torch, mesh, work, state_dict):
-    """d's tile served by device re-blocking (``SG_VOTES`` votes at B=32)
-    on ``mesh`` (None: one process) with graphs and eager: labels and pools
-    bitwise equal on this rank (a graph's program never holds the vote's
-    all-reduce). -> (labels, pool on the host, (warm-ups, captures,
-    replays))."""
+# the runner's options of each vote path
+SERVE_PATHS = {"reblock": dict(device_features=True, device_reblock=True),
+               "features": dict(device_features=True, device_reblock=False),
+               "host": dict(device_features=False)}
+
+
+def mesh_serving(torch, mesh, work, state_dict, path="reblock"):
+    """d's tile served by ``path`` (``SG_VOTES`` votes at B=32) on ``mesh``
+    (None: one process) with graphs and eager: labels and pools bitwise
+    equal on this rank. On an NCCL mesh each vote's all-reduce is a program
+    of its own, ``vote_reduce``; on a gloo mesh it runs between the
+    graphs. Every key is warmed up once and captured once. -> (labels,
+    pool on the host, (warm-ups, captures, replays), the keys' kinds)."""
     from tumseg_torch.infer.voting import InferenceRunner
 
     model = serving_model(torch, state_dict)
     out = []
     for graphs in (True, False):
         runner = InferenceRunner(model, 8, batch_size=B, device=DEVICE,
-                                 mesh=mesh, cuda_graphs=graphs)
+                                 mesh=mesh, cuda_graphs=graphs,
+                                 **SERVE_PATHS[path])
         labels = runner.infer_scene(
             scene_dataset(work / "data" / "facade.las"), 0, SG_VOTES)
         out.append((labels, runner._buffers["pool"].cpu(), runner.graphs))
     (labels, pool, g), (want, want_pool, _) = out
     if not (np.array_equal(labels, want) and torch.equal(pool, want_pool)):
         raise AssertionError(f"[y] serving graph against eager on the mesh "
-                             f"{mesh}: labels differ on "
+                             f"{mesh}, {path} path: labels differ on "
                              f"{int(np.sum(labels != want))} points")
-    return labels, pool, (g.warmups, g.captures, g.replays)
+    kinds = sorted({key[0] for key in g.graphs})
+    if not g.warmups == g.captures == len(g.graphs):
+        raise AssertionError(f"[y] {path} path on {mesh}: {g.warmups} "
+                             f"warm-ups and {g.captures} captures of "
+                             f"{len(g.graphs)} keys {kinds}")
+    reduce = mesh is not None and mesh.capturable
+    if ("vote_reduce" in kinds) != reduce:
+        raise AssertionError(f"[y] {path} path on {mesh}: programs {kinds}")
+    return labels, pool, (g.warmups, g.captures, g.replays), kinds
+
+
+MESH_ROWS = (2, 4, 8, 16)   # rows a rank of a 16-block batch on 8 .. 1 cards
+
+
+def counted_graphs(graphs, what):
+    """One warm-up and one capture a key of ``graphs``."""
+    if not graphs.warmups == graphs.captures == len(graphs.graphs):
+        raise AssertionError(f"[y] {what}: {graphs.warmups} warm-ups and "
+                             f"{graphs.captures} captures of "
+                             f"{len(graphs.graphs)} keys")
+    return (f"(warm-ups, captures, replays) ({graphs.warmups}, "
+            f"{graphs.captures}, {graphs.replays}), one and one a key")
+
+
+def mesh_graph_checks(torch, work, state_dict, mesh):
+    """y on the one-rank NCCL mesh: the engine's programs as CUDA graphs
+    against ``cuda_graphs=False`` on the same mesh, bitwise (host-pipeline
+    train steps of Adam f32 and bf16 and SGD, room-id calls of k = 1 and
+    4, ``eval_batch_rooms``), every all-reduce of a capture issued on the
+    capturing stream, then the per-row step table."""
+    from tumseg_torch.data.dataset import TrainBlockDataset
+    from tumseg_torch.data.device_sampler import DeviceBlockSampler
+    from tumseg_torch.parallel import mesh as pmesh
+    from tumseg_torch.utils import graphs as G
+
+    ssg = "pointnet2_sem_seg"
+    t0 = time.perf_counter()
+    # every all-reduce: (inside a capture, on a capturing stream, from
+    # psum's backward, which autograd runs)
+    seen, within = [], {"capture": False, "backward": False}
+    real = (pmesh.Mesh.all_reduce_, G.StepGraphs._capture,
+            pmesh._PSum.backward)
+
+    def all_reduce_(self, t):
+        seen.append((within["capture"],
+                     torch.cuda.is_current_stream_capturing(),
+                     within["backward"]))
+        return real[0](self, t)
+
+    def flagged(name, fn):
+        def run(*args):
+            within[name] = True
+            try:
+                return fn(*args)
+            finally:
+                within[name] = False
+        return run
+
+    pmesh.Mesh.all_reduce_ = all_reduce_
+    G.StepGraphs._capture = flagged("capture", real[1])
+    pmesh._PSum.backward = staticmethod(flagged("backward", real[2]))
+    try:
+        x, target, _ = mesh_step_batch(torch)
+        for label, kw in (("Adam f32", {}),
+                          ("Adam bf16", dict(compute_dtype=torch.bfloat16)),
+                          ("SGD f32", dict(optimizer="SGD"))):
+            engines = graph_engines(torch, ssg, state_dict, None, mesh=mesh,
+                                    **kw)
+            losses = []
+            for _ in range(3):
+                out = [e.train_batch(x, target, GRAPH_LR, GRAPH_MOMENTUM)
+                       for e in engines]
+                same_outputs(torch, f"{label} mesh train step", out[0],
+                             out[1], "y")
+                losses.append(round(float(out[0][0]), 5))
+            n = same_state(torch, f"{label} after 3 mesh steps", *engines,
+                           tag="y")
+            if engines[1].graphs is not None:
+                raise AssertionError("[y] cuda_graphs=False made graphs")
+            print(f"[y] one-rank NCCL mesh, {label} SSG train step "
+                  f"B={TRAIN_B}x{N} (draws, fast gathers) x 3, graph against "
+                  f"cuda_graphs=False: losses {losses}, every loss and "
+                  f"correct count and all {n} parameter, buffer and "
+                  f"optimizer tensors bitwise; "
+                  f"{counted_graphs(engines[0].graphs, label)}")
+
+        files = sorted(str(p) for p in (work / "train_data").glob("*.las")
+                       if p.name != "held_out.las")
+        ds = TrainBlockDataset(files, [], num_classes=8, num_point=N,
+                               color=False, class8=True, seed=SEED)
+        sampler = DeviceBlockSampler.from_dataset(ds, device=DEVICE)
+        rooms = ds.room_idxs
+        rng = np.random.default_rng(SEED + 13)
+        engines = graph_engines(torch, ssg, state_dict, sampler, mesh=mesh)
+        losses, _ = graph_train_calls(torch, "room-id mesh", engines, rng,
+                                      rooms, (1, 1, 4, 4), tag="y")
+        for _ in range(2):
+            ids = rng.choice(rooms, TRAIN_B).astype(np.int32)
+            out = [e.eval_batch_rooms(ids) for e in engines]
+            same_outputs(torch, "eval_batch_rooms on the mesh", out[0],
+                         out[1], "y")
+        n = same_state(torch, "after the room-id calls", *engines, tag="y")
+        print(f"[y] one-rank NCCL mesh, room-id calls of k = 1, 1, 4, 4 "
+              f"(losses {[round(v, 4) for v in losses]}) and 2 "
+              f"eval_batch_rooms, graph against cuda_graphs=False: outputs "
+              f"and all {n} tensors bitwise; "
+              f"{counted_graphs(engines[0].graphs, 'room-id calls')}")
+    finally:
+        pmesh.Mesh.all_reduce_, G.StepGraphs._capture = real[:2]
+        pmesh._PSum.backward = staticmethod(real[2])
+    captured = [c for c in seen if c[0]]
+    if not captured or not all(on for _, on, _ in captured):
+        raise AssertionError(f"[y] {sum(not on for _, on, _ in captured)} "
+                             f"of {len(captured)} all-reduces of a capture "
+                             f"ran off the capturing stream")
+    backward = sum(b for _, _, b in captured)
+    if not backward:
+        raise AssertionError("[y] no all-reduce of a captured backward")
+    print(f"[y] the captures on the mesh issued {len(captured)} "
+          f"all-reduces, all on the capturing stream, {backward} of them "
+          f"from psum's backward, which autograd runs; checks "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh_step_table(torch, state_dict, mesh, sampler, rooms)
+
+
+def mesh_step_table(torch, state_dict, mesh, sampler, rooms):
+    """The SSG f32 room-id step at ``MESH_ROWS`` rows a rank on the
+    one-rank NCCL mesh, graph and eager in turns: CUDA-event ms a step,
+    host µs to issue one, back-to-back replay ms, idle share (1 - replay /
+    step) and peak memory; the kernels of one replay's trace, NCCL's
+    among them; and, at ``TRAIN_B`` rows, the point kernels that one step
+    launches on a rank, graph and eager."""
+    from tumseg_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 14)
+    per_step = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    print(f"[y] SSG f32 room-id step on the one-rank NCCL mesh, fast "
+          f"gathers, by rows a rank (a {TRAIN_B}-block batch on "
+          f"{TRAIN_B} / rows cards); graph / eager in turns (CUDA events, "
+          f"median of 3 after 2 warm-up calls):")
+    for rows in MESH_ROWS:
+        ids = rng.choice(rooms, (1, rows)).astype(np.int32)
+        runs = {True: [], False: []}
+        trace = None
+        for graphs in (True, False, False, True):
+            engine = graph_engines(torch, "pointnet2_sem_seg", state_dict,
+                                   sampler, which=(graphs,), mesh=mesh)[0]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call = functools.partial(engine.train_batch_rooms_multi, ids,
+                                     GRAPH_LR, GRAPH_MOMENTUM)
+            for _ in range(2):     # warm-up, then the capture and a replay
+                call()
+            if rows == TRAIN_B and graphs not in per_step:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                call()
+                torch.cuda.synchronize()
+                per_step[graphs] = launched(kernels.launches)
+                check_training_launches(kernels.launches, 1,
+                                        f"[y] a mesh step (graph {graphs})")
+            ms = time_ms(torch, call, 1)[0]
+            us = enqueue_us(torch, call)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+            replay = None
+            if graphs:
+                (g,) = [e.graph for e in engine.graphs.graphs.values()]
+                replay = time_ms(torch, g.replay, 5)[0]
+                if trace is None:
+                    torch.cuda.synchronize()
+                    with torch.profiler.profile(activities=acts) as prof:
+                        g.replay()
+                        torch.cuda.synchronize()
+                    names = [e.name for e in prof.events() if e.device_type
+                             == torch.autograd.DeviceType.CUDA]
+                    trace = (len(names),
+                             sum("nccl" in n.lower() for n in names),
+                             sum("memcpy" in n.lower() for n in names))
+            runs[graphs].append((ms, us, replay, peak))
+            del engine, call
+        graph, eager = runs[True], runs[False]
+        busy = np.mean([r for _, _, r, _ in graph])
+
+        def col(rs, i, nd):
+            return [round(r[i], nd) for r in rs]
+        print(f"[y]   {rows} rows: graph {col(graph, 0, 3)} ms a step, "
+              f"host {col(graph, 1, 1)} us, replays {col(graph, 2, 3)} ms, "
+              f"peak {col(graph, 3, 1)} MiB; eager {col(eager, 0, 3)} ms, "
+              f"host {col(eager, 1, 1)} us, peak {col(eager, 3, 1)} MiB; "
+              f"idle (1 - replay / step) graph "
+              f"{round(1 - busy / np.mean(col(graph, 0, 6)), 3)}, eager "
+              f"{round(1 - busy / np.mean(col(eager, 0, 6)), 3)}; one "
+              f"replay's trace: {trace[0]} device events, {trace[1]} NCCL "
+              f"kernels, {trace[2]} memcpys")
+    if per_step[True] != per_step[False]:
+        raise AssertionError(f"[y] a mesh step launched {per_step[True]} as "
+                             f"a graph, {per_step[False]} eagerly")
+    print(f"[y] point kernels one SSG step launches on a rank of the mesh, "
+          f"graph and eager: {per_step[True]}")
 
 
 def _mesh_rank(rank, work, state_dict, batch):
@@ -2816,7 +3025,7 @@ def _mesh_rank(rank, work, state_dict, batch):
                         launches=[dict(zip(MESH_KERNELS, row))
                                   for row in counts.tolist()])
     # sg's check on the mesh: the runner's graphs against eager, each rank
-    labels, pool, counts = mesh_serving(torch, mesh, work, state_dict)
+    labels, pool, counts, _ = mesh_serving(torch, mesh, work, state_dict)
     if not same_as_rank0(pool.to(DEVICE)):
         raise AssertionError("[y] the ranks' graph-served pools differ")
     out["graphs"] = dict(labels=labels, pool=pool, counts=counts)
@@ -2866,22 +3075,34 @@ def phase_mesh(torch, work, state_dict):
     # a one-rank NCCL group
     summary = dryrun.dryrun_multichip(1)
     print(f"[y] dryrun_multichip(1), NCCL on {DEVICE}: {summary}")
-    # sg's check on the mesh: graphs against eager, and one process
-    one_labels, one_pool, _ = mesh_serving(torch, None, work, state_dict)
+    # sg's check on the mesh: graphs against eager, and one process, on
+    # each vote path
+    served = {path: mesh_serving(torch, None, work, state_dict, path)
+              for path in SERVE_PATHS}
+    one_labels = served["reblock"][0]
     mesh = pmesh.make_mesh(1, backend="nccl")
     try:
+        if not mesh.capturable:
+            raise AssertionError(f"[y] {mesh}: NCCL on {DEVICE} is not "
+                                 f"capturable")
         held("one-rank NCCL mesh", step(mesh), one)
-        labels, pool, counts = mesh_serving(torch, mesh, work, state_dict)
+        for path in SERVE_PATHS:
+            labels, pool, counts, kinds = mesh_serving(torch, mesh, work,
+                                                       state_dict, path)
+            want, want_pool = served[path][:2]
+            if not (np.array_equal(labels, want)
+                    and torch.equal(pool, want_pool)):
+                raise AssertionError(f"[y] the one-rank NCCL mesh's graph-"
+                                     f"served labels or pool differ from "
+                                     f"one process's on the {path} path")
+            print(f"[y] d's tile, {SG_VOTES} votes, {path} path, serving "
+                  f"programs {kinds} as CUDA graphs on the one-rank NCCL "
+                  f"mesh: labels and pool bitwise equal to cuda_graphs="
+                  f"False on the mesh and to one process's graphs "
+                  f"((warm-ups, captures, replays) {counts}, one a key)")
+        mesh_graph_checks(torch, work, state_dict, mesh)
     finally:
         pmesh.close_mesh()
-    if not (np.array_equal(labels, one_labels) and torch.equal(pool,
-                                                               one_pool)):
-        raise AssertionError("[y] the one-rank NCCL mesh's graph-served "
-                             "labels or pool differ from one process's")
-    print(f"[y] d's tile, {SG_VOTES} votes, device re-blocking, serving "
-          f"programs as CUDA graphs on the one-rank NCCL mesh: labels and "
-          f"pool bitwise equal to cuda_graphs=False on the mesh and to one "
-          f"process's graphs ((warm-ups, captures, replays) {counts})")
 
     # single-process serving of d's tile, the figure beside the mesh's
     args = mesh_serve_args(work, state_dict, "y_one")
@@ -2965,31 +3186,32 @@ def engine_state(engine):
     return out
 
 
-def same_state(torch, what, graph, eager):
+def same_state(torch, what, graph, eager, tag="cg"):
     got, want = engine_state(graph), engine_state(eager)
     if got.keys() != want.keys():
-        raise AssertionError(f"[cg] {what}: the engines hold different "
+        raise AssertionError(f"[{tag}] {what}: the engines hold different "
                              f"tensors")
     bad = [k for k in want if not torch.equal(got[k], want[k])]
     if bad:
-        raise AssertionError(f"[cg] {what}: graph != eager in {len(bad)} of "
-                             f"{len(want)} tensors, e.g. {bad[:4]}")
+        raise AssertionError(f"[{tag}] {what}: graph != eager in {len(bad)} "
+                             f"of {len(want)} tensors, e.g. {bad[:4]}")
     return len(want)
 
 
-def same_outputs(torch, what, got, want):
+def same_outputs(torch, what, got, want, tag="cg"):
     """(losses, corrects) or (losses, tallies) of two calls, bitwise."""
     for g, w in zip(got, want):
         pairs = ([(g[k], w[k]) for k in w] if isinstance(w, dict)
                  else [(g, w)])
         if not all(torch.equal(a, b) for a, b in pairs):
-            raise AssertionError(f"[cg] {what}: graph {got} != eager {want}")
+            raise AssertionError(f"[{tag}] {what}: graph {got} != eager "
+                                 f"{want}")
 
 
 def graph_engines(torch, model_name, state_dict, sampler, compute_dtype=None,
-                  which=(True, False)):
+                  which=(True, False), optimizer="Adam", mesh=None):
     """Engines from the same weights and seed, one a value of ``which``:
-    CUDA graphs (True) and eager (False)."""
+    CUDA graphs (True) and eager (False); on ``mesh`` when given."""
     import copy
 
     from tumseg_torch import models
@@ -2998,13 +3220,14 @@ def graph_engines(torch, model_name, state_dict, sampler, compute_dtype=None,
     base = models.get_module(model_name).get_model(8)
     base.load_state_dict(state_dict)
     weights = np.random.default_rng(SEED + 8).random(8) + 0.5
-    return [TrainEngine(copy.deepcopy(base), 8, weights, device=DEVICE,
-                        seed=SEED, sampler=sampler,
-                        compute_dtype=compute_dtype, cuda_graphs=graphs)
+    return [TrainEngine(copy.deepcopy(base), 8, weights, optimizer=optimizer,
+                        device=DEVICE, seed=SEED, sampler=sampler,
+                        compute_dtype=compute_dtype, mesh=mesh,
+                        cuda_graphs=graphs)
             for graphs in which]
 
 
-def graph_train_calls(torch, what, engines, rng, rooms, calls):
+def graph_train_calls(torch, what, engines, rng, rooms, calls, tag="cg"):
     """The room-id calls of ``calls`` (k each) on both engines, each call's
     losses and corrects and then the whole state held bitwise."""
     losses = []
@@ -3016,9 +3239,10 @@ def graph_train_calls(torch, what, engines, rng, rooms, calls):
         else:
             out = [e.train_batch_rooms_multi(ids, GRAPH_LR, GRAPH_MOMENTUM)
                    for e in engines]
-        same_outputs(torch, f"{what} {k}-step call", out[0], out[1])
+        same_outputs(torch, f"{what} {k}-step call", out[0], out[1], tag)
         losses += out[0][0].reshape(-1).tolist()
-    n = same_state(torch, f"{what} after {sum(calls)} steps", *engines)
+    n = same_state(torch, f"{what} after {sum(calls)} steps", *engines,
+                   tag=tag)
     return losses, n
 
 

@@ -76,9 +76,11 @@ class Programs:
 
 class OneRankMesh:
     """A one-process stand-in for ``parallel.mesh.Mesh``: every collective
-    is the identity."""
+    is the identity. It stands for a mesh whose collectives can be
+    captured, so a vote's all-reduce is a program of its own."""
 
     size, rank, device = 1, 0, torch.device("cpu")
+    capturable = True
 
     def rows(self, n):
         return slice(0, n)

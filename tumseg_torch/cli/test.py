@@ -18,7 +18,9 @@ checkpoint serves either way.
 ``--num_devices`` and the coordinator flags serve on a ``data`` mesh as the
 training CLI trains on one (``tumseg_torch.parallel``): every rank votes its
 share of each vote's blocks (``--batch_size`` a multiple of the mesh size),
-and only rank 0 writes the log and the label dumps.
+and only rank 0 writes the log and the label dumps. On GPUs (NCCL) each
+vote's all-reduce runs as a CUDA graph beside the serving programs
+(``InferenceRunner``).
 """
 
 from __future__ import annotations

@@ -28,7 +28,9 @@ the CPU with ``--gpu cpu``), each taking ``B / D`` rows of every batch.
 joins a multi-process mesh instead, this process one rank on ``--gpu``.
 Every rank reads the data and the checkpoint; only rank 0 writes the log,
 the checkpoints and the saved datasets. Without ``--seed`` rank 0 draws one
-for every rank, so the ranks draw the same batches.
+for every rank, so the ranks draw the same batches. On GPUs the ranks form
+an NCCL mesh, whose steps run as CUDA graphs with their collectives inside
+(``TrainEngine``); with ``--gpu cpu`` a gloo mesh steps eagerly.
 """
 
 from __future__ import annotations

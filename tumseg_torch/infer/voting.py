@@ -25,12 +25,12 @@ With a ``mesh`` (``tumseg_torch.parallel``, one process a device;
 contiguous share of a vote's blocks (padded to a multiple of
 ``batch_size``), ``batch_size / size`` blocks a forward, into a zero local
 pool increment, and one all-reduce adds the increment to the pool on every
-rank; the carried pool itself is never reduced. Vote counts are small
-integers in f32, so the order of the sums cannot change the pool. On the
-host-drawn paths (host re-blocking, device featurization) rank 0 draws the
-vote's blocks and broadcasts them, so the ranks vote on one re-blocking; on
-device re-blocking every rank draws the same ``(seed, scene, vote)``
-stream.
+rank (:meth:`InferenceRunner._reduce_vote`); the carried pool itself is
+never reduced. Vote counts are small integers in f32, so the order of the
+sums cannot change the pool. On the host-drawn paths (host re-blocking,
+device featurization) rank 0 draws the vote's blocks and broadcasts them,
+so the ranks vote on one re-blocking; on device re-blocking every rank
+draws the same ``(seed, scene, vote)`` stream.
 
 On a CUDA device every serving program runs as a CUDA graph
 (:class:`tumseg_torch.utils.graphs.StepGraphs`), the counterparts of
@@ -46,8 +46,17 @@ for bit the eager call. The graphs bind the weights, the scene's tensors,
 its grid and the pool: another scene drops and captures them again, so a
 scene of V votes in NB blocks costs one warm-up and one capture of its
 chunk and of its re-blocking. ``cuda_graphs=False``, the counterpart of
-``jax.disable_jit``, serves eagerly. A mesh's all-reduce of a vote stays
-outside the graphs. Every program runs under ``torch.inference_mode``.
+``jax.disable_jit``, serves eagerly. Every program runs under
+``torch.inference_mode``.
+
+On an NCCL mesh of CUDA devices (``Mesh.capturable``) each vote's
+all-reduce of the increment and its add into the pool are one more program,
+``vote_reduce``: one replay a vote on all three paths, the ``psum(inc)``
+that ``tumseg``'s vote program holds (``:561-583``). The host draws'
+broadcasts stay outside the graphs, and so does :meth:`predict_blocks`'
+all-reduce of the labels, read back at once. On a gloo mesh (the CPU, or
+ranks that share one card) the all-reduce runs eagerly between the chunk
+programs: gloo's collectives cannot be captured.
 
 The TPU's scene-shape buckets and block granules
 (``tumseg/infer/voting.py:384-392``, ``:452-458``) are left out: they
@@ -290,8 +299,9 @@ class InferenceRunner:
     and ``batch_size`` must be a multiple of the mesh size.
 
     On a CUDA device each serving program runs as a CUDA graph
-    (``self.graphs``, a :class:`StepGraphs`; see the module's docstring);
-    ``cuda_graphs=False`` serves eagerly, bit for bit the same."""
+    (``self.graphs``, a :class:`StepGraphs`; see the module's docstring),
+    on an NCCL mesh each vote's all-reduce too; ``cuda_graphs=False`` serves
+    eagerly, bit for bit the same."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  batch_size: int = 32, device="cuda", mesh=None,
@@ -328,9 +338,10 @@ class InferenceRunner:
         self._cache_lock = threading.Lock()
         # held by uploads, warm-ups and captures: see StepGraphs
         self._device_lock = threading.Lock()
-        self.graphs = (StepGraphs(self.device, lock=self._device_lock)
-                       if cuda_graphs and self.device.type == "cuda"
-                       else None)
+        self.graphs = (StepGraphs(
+            self.device, lock=self._device_lock,
+            mesh=mesh if mesh is not None and mesh.capturable else None)
+            if cuda_graphs and self.device.type == "cuda" else None)
         self._bound = {}        # name -> (address, shape) of bound tensors
         self._buffers = {}      # the pool and the mesh increment
         self._generator = None  # the vote draws', re-seeded each vote
@@ -390,6 +401,20 @@ class InferenceRunner:
         self._bind(pool=pool, increment=None if self.mesh is None
                    else self._zeroed("increment", shape))
         return pool
+
+    def _reduce_vote(self, pool: torch.Tensor,
+                     increment: torch.Tensor) -> None:
+        """pool += the increment summed over the mesh, in place: on a
+        capturable mesh one program (key ``vote_reduce``), else eager."""
+        def reduce():
+            pool.add_(self.mesh.all_reduce_(increment))
+            return ()
+
+        if self.mesh.capturable:
+            self._run(("vote_reduce", tuple(pool.shape)), reduce)
+        else:
+            with torch.inference_mode():
+                reduce()
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, N] argmax labels of ``x`` [B, N, C] f32 on the device, as one
@@ -586,7 +611,8 @@ class InferenceRunner:
         small integers in f32: atomics cannot change the pool. On a mesh
         the blocks are padded with dump rows to a multiple of B, this rank
         votes its share, B / size blocks a chunk, into the zeroed
-        increment, and the all-reduced increment is added to the pool."""
+        increment, and :meth:`_reduce_vote` adds the all-reduced increment
+        to the pool."""
         n = scene[0].shape[0]
         bs, C = self.batch_size, self.num_classes
         target = pool_flat
@@ -624,7 +650,7 @@ class InferenceRunner:
                 offs = torch.cat([offs, offs.new_zeros(pad, 2)])
             self._run(key, chunk, (idx, offs))
         if self.mesh is not None:
-            pool_flat += self.mesh.all_reduce_(target)
+            self._reduce_vote(pool_flat, target)
 
     def _finish(self, dataset, scene_idx: int, pool_flat: torch.Tensor,
                 gt_weight_gate: bool) -> np.ndarray:
@@ -736,7 +762,7 @@ class InferenceRunner:
                     target = self._zeroed("increment", pool.shape)
                 self._host_chunks(scene_data, scene_index, keep, target, bs)
                 if self.mesh is not None:
-                    pool += self.mesh.all_reduce_(target)
+                    self._reduce_vote(pool, target)
         finally:
             draws.close()
         return pool.argmax(dim=1).cpu().numpy()

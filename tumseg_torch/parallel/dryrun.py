@@ -11,6 +11,9 @@
    process (8 blocks a rank, of distinct scales): loss within 1e-5
    relative, parameters within 5e-4.
 
+On an NCCL mesh of CUDA devices the engine's steps and the votes run as
+CUDA graphs with their collectives inside, as they do for the CLIs.
+
 ``python -m tumseg_torch.parallel.dryrun N [DEVICE] [BACKEND]`` runs it.
 """
 

@@ -15,6 +15,17 @@ backward is the all-reduce SUM of the cotangent. Each rank's gradient is
 then ``size`` times its share of the true one, and
 :func:`all_reduce_gradients` averages them.
 
+NCCL's collectives on a CUDA device can be captured into a CUDA graph
+(:attr:`Mesh.capturable`), gloo's cannot. On such a mesh the training
+engine and the serving runner capture their programs with the collectives
+inside (``tumseg_torch.utils.graphs``), as ``tumseg``'s ``shard_map``
+programs hold their ``psum``s: :func:`psum`'s buffers and
+:func:`all_reduce_gradients`' flat buffer are then allocated in the graph's
+memory pool and the all-reduces run on the graph's stream. The group is
+made as for eager use: ``ProcessGroupNCCL``'s watchdog and async error
+handling stay at PyTorch's defaults, under which the card's captures hold
+(``chip_smoke.py`` [y]).
+
 :func:`initialize_distributed` keeps ``tumseg``'s explicit opt-in: a process
 joins a group only when given a coordinator (flag or
 ``TUMSEG_COORDINATOR_ADDRESS``) together with its process count and id.
@@ -49,6 +60,13 @@ class Mesh:
     rank: int
     device: torch.device
     group: object = None
+
+    @property
+    def capturable(self) -> bool:
+        """Whether this mesh's collectives can run inside a CUDA graph:
+        NCCL on a CUDA device (:func:`collectives_capturable`)."""
+        return collectives_capturable(dist.get_backend(self.group),
+                                      self.device)
 
     def rows(self, n: int) -> slice:
         """This rank's contiguous share of ``n`` rows (``n % size == 0``)."""
@@ -113,6 +131,13 @@ class Mesh:
         t = torch.tensor([0 if value is None else int(value)],
                          dtype=torch.int64, device=self.device)
         return int(self.broadcast_(t).item())
+
+
+def collectives_capturable(backend: str, device) -> bool:
+    """Whether collectives of ``backend`` on ``device`` can be captured into
+    a CUDA graph: NCCL's on a CUDA device (NCCL >= 2.9.6, which every CUDA
+    build of PyTorch 2 ships). gloo's run on the host and cannot."""
+    return backend == "nccl" and torch.device(device).type == "cuda"
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -218,7 +243,10 @@ def close_mesh() -> None:
 
 class _PSum(torch.autograd.Function):
     """The sum over the ranks; its backward sums the cotangent over the
-    ranks, the adjoint of the sum of every rank's objective."""
+    ranks, the adjoint of the sum of every rank's objective. Each direction
+    all-reduces a fresh copy, which inside a capture comes from the graph's
+    pool; the backward's all-reduce, issued by autograd, lands in the
+    graph as the forward's does."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -245,7 +273,9 @@ def all_reduce_gradients(params, mesh: Mesh) -> None:
     """Every parameter's gradient averaged over the ranks (one all-reduce
     of a flat buffer). Under :func:`psum`'s backward each rank holds
     ``size`` times its share of the gradient, so the mean is the gradient of
-    the global loss."""
+    the global loss. The flat buffer is made on each call (inside a capture,
+    in the graph's pool) and only device work follows, so a step can hold
+    it."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return

@@ -55,8 +55,16 @@ and denominator, the gradients are averaged over the ranks, and the correct
 counts and eval tallies are ``psum``'d, so every rank reads the global
 numbers. Each rank draws from its own streams, the counterpart of
 ``fold_axis``: room-id step ``s`` from ``(seed, s, rank)``, so a ``k``-step
-call still equals ``k`` single steps on the mesh. The mesh's steps are
-eager: its gloo collectives cannot be captured.
+call still equals ``k`` single steps on the mesh. On an NCCL mesh of CUDA
+devices (``Mesh.capturable``, what ``--num_devices`` spawns on GPUs) every
+step is a CUDA graph as on one device, with its collectives inside: the
+BatchNorms' ``pmean``s, the loss's ``psum``s and their backward
+all-reduces, the flat gradient all-reduce and the ``psum``'d corrects and
+tallies, as ``tumseg``'s ``jax.jit(shard_map(step))`` holds them
+(``tumseg/train/loop.py:221-265``); a room-id call of k steps is one replay
+after its rejection rounds, whose row split stays on the host. On a gloo
+mesh (the CPU, or ranks that share one card) the steps run eagerly: gloo's
+collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -159,16 +167,17 @@ class TrainEngine:
     path's steps draw nothing (FPS from index 0, no dropout; with
     ``augment_rotate=False``), ``tumseg``'s ``rngs={}``.
 
-    On a CUDA device with no ``mesh`` each step runs as a CUDA graph
-    (``self.graphs``, a :class:`StepGraphs`): the first call of a step's
-    shape warms it up eagerly, the second captures it, and every call from
-    then on is one replay. ``cuda_graphs=False`` is ``tumseg``'s
-    ``jax.disable_jit``: the same steps, eager, bit for bit what the graphs
-    compute. A step that finds a parameter, buffer or optimizer state
-    tensor replaced since the last call (:meth:`load_state` replaces the
-    optimizer state; the weights it copies in place) drops the graphs,
-    which are captured again. With a ``mesh`` the steps stay eager: gloo
-    cannot be captured."""
+    On a CUDA device each step runs as a CUDA graph (``self.graphs``, a
+    :class:`StepGraphs`): the first call of a step's shape warms it up
+    eagerly, the second captures it, and every call from then on is one
+    replay. On a ``mesh`` that holds for an NCCL mesh (``mesh.capturable``),
+    whose graphs hold the step's collectives; a gloo mesh runs its steps
+    eagerly. ``cuda_graphs=False`` is ``tumseg``'s ``jax.disable_jit``: the
+    same steps, eager, bit for bit what the graphs compute. A step that
+    finds a parameter, buffer or optimizer state tensor replaced since the
+    last call (:meth:`load_state` replaces the optimizer state; the weights
+    it copies in place) drops the graphs, which are captured again; on a
+    mesh every rank does so on the same call."""
 
     def __init__(self, model: torch.nn.Module, num_classes: int,
                  train_weights: np.ndarray, optimizer: str = "Adam",
@@ -200,8 +209,11 @@ class TrainEngine:
         self._eval_count = 0
         self._gens = []         # the room-id calls' generators, re-seeded
         self._momentum = None   # the momentum in the BNs' scalars
-        self.graphs = (StepGraphs(self.device) if cuda_graphs and mesh is None
-                       and self.device.type == "cuda" else None)
+        # on a mesh, broadcast_state also makes the communicator that the
+        # graphs' collectives use, before any capture
+        self.graphs = (StepGraphs(self.device, mesh=mesh)
+                       if cuda_graphs and self.device.type == "cuda"
+                       and (mesh is None or mesh.capturable) else None)
         if mesh is not None:
             pmesh.broadcast_state(self.model, mesh)
 
@@ -258,7 +270,8 @@ class TrainEngine:
 
     def _bindings(self) -> tuple:
         """The addresses of the tensors that a captured step reads or
-        writes in place."""
+        writes in place. A mesh step keeps nothing else: its collectives'
+        buffers, the flat gradient one included, are the graph's own."""
         tensors = [*self.model.parameters(), *self.model.buffers(),
                    self.weights]
         for group in self.optimizer.param_groups:

@@ -45,11 +45,43 @@ forbids a sync from any thread. So ``lock``, where given, is held through
 every warm-up and capture, and a thread that does device work beside the
 programs (the serving runner's prefetch, which uploads the next scene)
 holds it around that work.
+
+On a ``mesh`` whose collectives can be captured (NCCL on a CUDA device,
+``Mesh.capturable``) a program holds its collectives, the counterpart of a
+``jax.jit(shard_map(...))`` program with its ``psum``s inside. Such a
+program needs three things, which :class:`StepGraphs` states and enforces:
+
+- the communicator exists before the first capture (NCCL makes it at a
+  group's first collective, with allocations and syncs that no capture can
+  hold): the engine's ``broadcast_state`` at construction and every key's
+  eager warm-up make it, and the key check below runs a collective first;
+- every rank warms up and captures the same keys on the same call, or one
+  rank's captured all-reduce would meet another rank's eager one. The
+  keys hold no rank-dependent value, every rank rebinds on the same call
+  (a ``load_state`` runs on all of them), and before each warm-up and capture
+  the ranks compare a digest of the key (:func:`agree_on_key`: a Python
+  value is described by its type where its repr would differ between
+  ranks); a rank that differs raises on every rank, before any of them
+  enqueues the program;
+- nothing in another thread breaks the capture. ``ProcessGroupNCCL``'s
+  watchdog thread queries the events of the eager collectives it tracks,
+  which a capture in ``"global"`` mode forbids to every thread. On the
+  card (torch 2.11, NCCL 2.28) global captures of the mesh's steps held all
+  the same, with the async error handling on and off; the watchdog's
+  behaviour is PyTorch's, though, and may change. So a mesh's captures run
+  in ``"thread_local"`` mode (:data:`MESH_CAPTURE_MODE`): the capturing
+  thread is still held to capture's rules, the watchdog's queries are not,
+  and the runner's prefetch, the one other thread that touches the
+  device, is held out by ``lock``. The key check's readback also completes
+  every eager collective before a capture begins.
+
+A failed capture raises on a mesh as well; nothing falls back to eager.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
 import warnings
 from typing import (Callable, Dict, Hashable, List, NamedTuple, Sequence,
@@ -58,6 +90,40 @@ from typing import (Callable, Dict, Hashable, List, NamedTuple, Sequence,
 import torch
 
 from tumseg_torch.ops import kernels
+
+
+# the capture mode of a mesh's programs: see the module's docstring
+MESH_CAPTURE_MODE = "thread_local"
+
+
+def describe_key(value) -> str:
+    """A program key as every rank sees it: numbers, strings, dtypes, None
+    and tuples by their repr, any other object (a generator, a sampler) by
+    its type alone."""
+    if isinstance(value, (tuple, list)):
+        return "(" + ", ".join(describe_key(v) for v in value) + ")"
+    if value is None or isinstance(value, (bool, int, float, str,
+                                           torch.dtype)):
+        return repr(value)
+    return type(value).__name__
+
+
+def agree_on_key(mesh, phase: str, key: Hashable) -> None:
+    """Raises on every rank of ``mesh`` unless all of them call this with
+    the same ``phase`` ("warm-up", "capture") and key (by
+    :func:`describe_key`): rank 0's digest is broadcast, and a count of the
+    ranks that differ is all-reduced and read back."""
+    text = f"{phase} {describe_key(key)}"
+    digest = int.from_bytes(hashlib.sha256(text.encode()).digest()[:7],
+                            "little")
+    mine = torch.tensor([digest], dtype=torch.int64, device=mesh.device)
+    first = mesh.broadcast_(mine.clone())
+    differ = mesh.all_reduce_((first != mine).to(torch.int64))
+    if int(differ.item()):
+        raise RuntimeError(
+            f"rank {mesh.rank}: {int(differ.item())} of the {mesh.size} "
+            f"ranks would {phase} another program than rank 0 here; this "
+            f"rank's is {text}")
 
 
 class _Graph(NamedTuple):
@@ -71,11 +137,17 @@ class StepGraphs:
     """The CUDA graphs of one engine's or runner's programs on ``device``.
     ``warmups``, ``captures`` and ``replays`` count the eager first calls,
     the graphs captured and the replays run; ``capture_seconds`` is the
-    host time of the captures. ``lock``: see the module's docstring."""
+    host time of the captures. ``lock`` and ``mesh`` (a capturable mesh
+    whose collectives the programs hold): see the module's docstring."""
 
-    def __init__(self, device, lock=None):
+    def __init__(self, device, lock=None, mesh=None):
+        if mesh is not None and not mesh.capturable:
+            raise ValueError(f"the collectives of {mesh} cannot be captured "
+                             f"into a CUDA graph: run its programs eagerly")
         self.device = torch.device(device)
         self.lock = contextlib.nullcontext() if lock is None else lock
+        self.mesh = mesh
+        self.capture_mode = "global" if mesh is None else MESH_CAPTURE_MODE
         self.graphs: Dict[Hashable, _Graph] = {}
         self._warm = set()
         self._bindings = None
@@ -103,6 +175,9 @@ class StepGraphs:
         self.check_bindings(bindings())
         entry = self.graphs.get(key)
         if entry is None:
+            if self.mesh is not None:
+                agree_on_key(self.mesh, "capture" if key in self._warm
+                             else "warm-up", key)
             if key not in self._warm:
                 with self.lock:
                     out = self._warm_up(fn, inputs)
@@ -155,7 +230,7 @@ class StepGraphs:
         try:
             with kernels.capturing() as launches:
                 with torch.cuda.graph(graph, stream=self._side_stream(),
-                                      capture_error_mode="global"):
+                                      capture_error_mode=self.capture_mode):
                     outputs = fn(*static)
         except Exception as e:
             raise RuntimeError(f"capturing the {key[0]} program {key[1:]} as "
