@@ -19,6 +19,10 @@ b. runs each kernel and its plain PyTorch version on the same inputs at the
    host time a call of the group wrapper and of ``index_select`` at the
    last centroid gather; FPS at each stage's shape is also held bitwise on
    a tie-heavy batch (an integer lattice) and with random starts;
+ct. (right after b) the card tests: ``python3 -m pytest --noconftest
+   tests/test_torch_cuda.py`` in a subprocess, on the kernels a built: it
+   prints the count passed and the seconds, and fails on any failure,
+   error or skip, or when fewer tests pass than the file collects;
 c. runs that forward with the kernels and with the plain versions: log-probs
    within 1e-4 and argmax equal on >= 99.99% of points, both timed;
 d. serves a synthetic ~300K-point facade tile through
@@ -279,6 +283,21 @@ sg. (after cg) the serving runner's programs as CUDA graphs
    CUDA-event wall; busy: a vote's chunks at the back-to-back replay
    time of its first chunk, and its re-blocking's), the first call's
    seconds, captures and capture seconds, peak memory;
+tl. (after sg, before the kernels' line) the port's benches, each through
+   its ``main(argv)`` at its defaults (``TOOL_ARGS``: ``breakdown`` at 3
+   turns, ``train_sustained`` at 1 epoch): ``voting_bench`` (graph,
+   eager, eager, graph) and ``train_sustained`` (graph, eager), then
+   ``sampler_probe``, ``serve_probe3``, ``breakdown`` and ``roofline``;
+   each tool's first line the card's, its JSON lines checked (the keys,
+   finite positive rates and times, every point of the scene voted, the
+   roofline's FLOPs equal to ``roofline.model_flops``, the count from the
+   layers' widths, and no split whose parts exceed their whole by more
+   than the runs' spread: the SA blocks against the forward, the
+   layers' gradients against the train step, FPS and the ball query
+   against their stage's block, the sampler's rounds, sort and gathers
+   against a whole batch, a vote without its scatter against the vote,
+   the programs' busy time against a vote's wall), its seconds and
+   headline printed and its output kept under ``build/chip_smoke/tools``;
 z. (last) the port's end-to-end tools: ``tumseg_torch.tools.soak`` at its
    defaults (three 600K-point facade tiles, ``--class8 --bf16`` with
    colour, 3 epochs at B=16 x 4096, a 3-vote B=32 test with ``--visual``),
@@ -296,7 +315,8 @@ z. (last) the port's end-to-end tools: ``tumseg_torch.tools.soak`` at its
 Each kernel's time at the main path's shapes stands beside its bound: the
 larger of its bytes (each input read once, each output written once) over
 the H100's 3.35 TB/s and its f32 operations over 67 TFLOP/s, counted from
-this run's inputs (a ball query and the fused kernel count 9 operations
+this run's inputs by the rules of ``tumseg_torch/tools/roofline.py``
+(a ball query and the fused kernel count 9 operations
 a candidate their z-slab walk tests, the window 3-NN 14), and beside one
 PyTorch call that computes the same function where there is one. A kernel
 with a fast mode also reports ``fast_ms``, the fast mode's time, beside
@@ -311,7 +331,7 @@ the engine's steps and the runner's programs as CUDA graphs: a kernel
 launch that a graph captured counts once each time the graph replays
 (``kernels.replayed``), so the launch counts of the training and serving
 runs are the kernels' runs. A JSON summary of the kernels is printed
-after phases a-y, cg and sg and before z; the last line is
+after phases a-y, ct, cg, sg and tl and before z; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, and the script
 then exits non-zero without printing the last line (nor the kernels' line
 when a phase before z failed). Without a CUDA device it exits with code 2.
@@ -321,15 +341,22 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import shutil
 import subprocess
 import sys
 import time
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import numpy as np
+
+# the card's HBM3 bytes/s and f32 operations/s outside the tensor cores and
+# the kernels' counting rules: one count for the bounds here and the tool's
+from tumseg_torch.tools import roofline
+from tumseg_torch.tools.roofline import F32_OPS_PER_S, HBM_BYTES_PER_S
 
 SEED = 0
 DEVICE = "cuda:0"
@@ -374,9 +401,6 @@ PARITY_TUMSEG = {0: 0.4684, 1: 0.4863, 2: 0.4724}
 PARITY_REFERENCE = {0: 0.4135, 1: 0.4614, 2: 0.3618}
 PARITY_MEAN_MIN = 0.4122
 SERVED_MIOU_MIN = 0.3
-# H100 SXM: HBM3 bytes/s and f32 operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 REPLACES = {
     "fps": "tumseg/ops/pallas/fps.py:39",
     "ball_query": "tumseg/ops/pallas/ballquery.py:279",
@@ -607,8 +631,7 @@ class Report:
             dms = device_ms(torch, kernel_fn, reps)
             if library_fn:
                 ldms = device_ms(torch, library_fn, reps)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
+        _, bytes_ms, ops_ms = roofline.bound_ms(nbytes, ops)
         k = self.kernels[name]
         if on_path:
             k["ms"] += ms
@@ -658,15 +681,6 @@ class Report:
               f"{[round(r, 4) for r in eruns]}{dev}  max|err| {err:g}")
 
 
-def group_cost(idx, C, n):
-    """Bytes and operations of the group kernel: idx, src and centres read,
-    the [B, S, K, C] output written; one subtraction per xyz element."""
-    Bq, S, Kq = idx.shape
-    return dict(nbytes=4 * (Bq * S * Kq + Bq * n * C + Bq * S * 3
-                            + Bq * S * Kq * C),
-                ops=Bq * S * Kq * 3)
-
-
 def ball_query_line(torch, report, name, stage, xyz, new_xyz, radii, ks,
                     kernel_fn, plain_fn, phase, plain_reps):
     """Times a ball-query stage beside its bound and prints its geometry,
@@ -685,8 +699,8 @@ def ball_query_line(torch, report, name, stage, xyz, new_xyz, radii, ks,
                            ks)
     ms, dms = report.add(
         torch, name, f"{stage} N={n} S={s} r={radii}", kernel_fn, plain_fn,
-        0.0, nbytes=b * n * 12 + b * s * 12 + b * s * sum(ks) * 4,
-        ops=9 * tested, plain_reps=plain_reps, phase=phase)
+        0.0, plain_reps=plain_reps, phase=phase,
+        **roofline.ball_query_cost(b, n, s, ks, tested))
     geometry = kernels.ball_query_geometry(b, n, s, len(ks))
     print(f"[{phase}] {name} {stage} N={n} S={s} (Q, L, tile, walk) "
           f"{geometry}: event {ms:.4f} ms, "
@@ -749,8 +763,7 @@ def phase_kernels(torch, report):
             torch, "fps", f"N={n} npoint={npoint}",
             lambda: kernels.farthest_point_sample(src, npoint),
             lambda: core.farthest_point_sample(src, npoint), 0.0,
-            nbytes=B * n * 12 + B * 4 + B * npoint * 4,
-            ops=B * npoint * n * 10, reps=5, plain_reps=1)
+            reps=5, plain_reps=1, **roofline.fps_cost(B, n, npoint))
         print(f"[b] fps N={n} npoint={npoint} {kernels.fps_geometry(n)} "
               f"(threads, points): a step {ms * 1e3 / npoint:.4f} "
               f"us event, " + ("not measured" if dms is None else
@@ -767,7 +780,7 @@ def phase_kernels(torch, report):
                    lambda: kernels.group_points(idx1, src, zc),
                    lambda: core.group_points(idx1, src, zc), 0.0,
                    library_fn=gather_call(torch, idx1, src),
-                   **group_cost(idx1, 3, n))
+                   **roofline.group_cost(*idx1.shape, 3, n))
         new_xyz = g_p.contiguous()
 
         b_k = kernels.query_ball_point(radius, K, src, new_xyz)
@@ -823,7 +836,7 @@ def phase_kernels(torch, report):
                    lambda: kernels.group_points(idx, src, ctr),
                    lambda: core.group_points(idx, src, ctr), 0.0,
                    library_fn=gather_call(torch, idx, src),
-                   **group_cost(idx, C, src.shape[1]))
+                   **roofline.group_cost(*idx.shape, C, src.shape[1]))
 
     for lvl, (xyz1, xyz2, d) in enumerate(zip(xyzs[:-1], xyzs[1:], FP_D)):
         n1, s = xyz1.shape[1], xyz2.shape[1]
@@ -836,17 +849,13 @@ def phase_kernels(torch, report):
                                  "differ from the plain version")
         torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
         err = (ok - op).abs().max().item()
-        # a full scan's 8 operations a distance and 3 compares into the top
-        # 3 (more than the z-slab search tests: the bound is the bytes'
-        # either way); the weights, then 3 multiplies and 2 adds an output
+        # a full scan's operations (more than the z-slab search tests: the
+        # bound is the bytes' either way)
         _, dms = report.add(
             torch, "three_nn_interpolate", f"N={n1} S={s} D={d}",
             lambda: kernels.three_nn_interpolate(xyz1, xyz2, p2),
             lambda: core.three_nn_interpolate(xyz1, xyz2, p2), err,
-            nbytes=4 * (B * n1 * 3 + B * s * 3 + B * s * d + B * n1 * 6
-                        + B * n1 * d),
-            ops=B * n1 * s * 11 + B * n1 * 10 + B * n1 * d * 5,
-            plain_reps=2)
+            plain_reps=2, **roofline.three_nn_cost(B, n1, s, d))
         print(f"[b] three_nn_interpolate fp{lvl + 1} N={n1} S={s} D={d} "
               f"(Q, R) {kernels.three_nn_geometry(B, n1, d)}: "
               f"device {_ms(dms)}; out bitwise the plain version "
@@ -1052,7 +1061,8 @@ def phase_backward(torch, report):
                    lambda: kernels.group_points_backward(idx, g, n),
                    lambda: core.group_points_backward(idx, g, n), 0.0,
                    phase="e", on_path=on_path, **kw,
-                   **group_bwd_cost(idx, g.shape[-1], n))
+                   **roofline.group_backward_cost(*idx.shape, g.shape[-1],
+                                                  n))
 
     def index_add_call(idx, g, n):
         """One ``index_add_`` over the flattened indices into a zeroed
@@ -1077,11 +1087,6 @@ def phase_backward(torch, report):
                                      (Bq * s, Bq * n1)).coalesce()
         dense = g.reshape(Bq * n1, -1)
         return lambda: torch.sparse.mm(wt, dense)
-
-    def group_bwd_cost(idx, C, n):
-        Bq, S, Kq = idx.shape
-        return dict(nbytes=4 * (Bq * S * Kq + Bq * S * Kq * C + Bq * n * C),
-                    ops=Bq * S * Kq * C)
 
     xyz = torch.as_tensor(facade_blocks(rng, TRAIN_B, N), device=dev)
     xyzs, idxs = [xyz], []
@@ -1113,8 +1118,7 @@ def phase_backward(torch, report):
                    lambda: core.interpolate_backward(nn_idx, w, g, s), 0.0,
                    library_fn=sparse_call(nn_idx, w, g, s), phase="e",
                    on_path=on_path,
-                   nbytes=4 * (Bq * n1 * 6 + Bq * n1 * d + Bq * s * d),
-                   ops=Bq * n1 * 3 * d * 2)
+                   **roofline.interpolate_backward_cost(Bq, n1, s, d))
 
     for lvl, d in enumerate(FP_D):  # fp1..fp4 interpolate lvl+1 onto lvl
         xyz1, xyz2 = xyzs[lvl], xyzs[lvl + 1]
@@ -1645,7 +1649,7 @@ def phase_window(torch, report):
     flat1, flat2 = xyz1.clone(), xyz2.clone()
     flat1[..., 2] = 5.0                  # one z for all: every query fails
     flat2[..., 2] = 5.0
-    nbytes = 4 * (B * N * 3 + B * S * 3 + B * S * d + B * N * 6 + B * N * d)
+    nbytes = roofline.three_nn_cost(B, N, S, d)["nbytes"]
     ops = {}
     for label, x1, x2, on_path in (("facade", xyz1, xyz2, True),
                                    ("mixed", xyz1, mixed, False),
@@ -1680,10 +1684,7 @@ def phase_window(torch, report):
               f"plain version in both modes; {fails} of {B * N} queries "
               f"fail tumseg's window guard; the walk tests "
               f"{tested / (B * N):.1f} candidates a query (walk model)")
-        # ~14 operations a candidate the walk tests (the expansion-form
-        # distance and the compares into the top 3), the weights, 5 an
-        # output element
-        ops[label] = 14 * tested + B * N * 10 + B * N * d * 5
+        ops[label] = roofline.window_cost(B, N, S, d, tested)["ops"]
         report.add(torch, "three_nn_window", f"{label} N={N} S={S} C={C}",
                    lambda: kernels.three_nn_window_interpolate(
                        x1, x2, p2, C, tile),
@@ -2019,17 +2020,6 @@ def phase_fast(torch, report):
           "three runs")
 
 
-def fused_cost(idx, C, n, tested, fast):
-    """Bytes and operations of the fused kernel: xyz, centroids and src
-    read, idx and the grouped tensor written; 9 operations a candidate its
-    walk tests (``tested``, by ``ball_query_probe.walk_model``, as the ball
-    query's lines count theirs), one subtraction an xyz output."""
-    Bq, S, Kq = idx.shape
-    return dict(nbytes=Bq * n * 12 + Bq * S * 12 + Bq * n * C * 4
-                + Bq * S * Kq * 4 + Bq * S * Kq * C * (2 if fast else 4),
-                ops=9 * tested + Bq * S * Kq * 3)
-
-
 def phase_fused(torch, report):
     """The fused ball query + group at sa1-sa4 of the B=32 x 4096 forward,
     against the split kernels and its plain version, in both modes."""
@@ -2064,15 +2054,15 @@ def phase_fused(torch, report):
             torch, "fused_ball_group", label,
             lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
             lambda: core.fused_ball_group(r, K, xyz, ctr, src), 0.0,
-            plain_reps=2, phase="p", **fused_cost(i_f, c, n, tested, False))
+            plain_reps=2, phase="p",
+            **roofline.fused_cost(*i_f.shape, c, n, tested, False))
         report.add_fast(torch, "fused_ball_group", label,
                         lambda: kernels.fused_ball_group(r, K, xyz, ctr, src,
                                                          True),
                         lambda: kernels.fused_ball_group(r, K, xyz, ctr, src),
                         0.0, "p")
-        fb = fused_cost(i_f, c, n, tested, True)
-        bound = max(fb["nbytes"] / HBM_BYTES_PER_S,
-                    fb["ops"] / F32_OPS_PER_S) * 1e3
+        fb = roofline.fused_cost(*i_f.shape, c, n, tested, True)
+        bound = roofline.bound_ms(fb["nbytes"], fb["ops"])[0]
         print(f"[p] fused {label} fast: bound {bound:.5f} ms "
               f"({fb['nbytes'] / 1e6:.2f} MB, {fb['ops'] / 1e9:.3f} Gop)")
         for fast in (False, True):
@@ -3534,6 +3524,7 @@ def phase_serve_graphs(torch, work, states):
     turns."""
     from tumseg_torch import ops
     from tumseg_torch.infer.voting import run_testing
+    from tumseg_torch.tools import voting_bench
     from tumseg_torch.viz.writers import read_labels_txt
 
     ssg, msg, trial = ("pointnet2_sem_seg", "pointnet2_sem_seg_msg",
@@ -3633,9 +3624,7 @@ def phase_serve_graphs(torch, work, states):
             runner = graph_runners(torch, ssg_model, compute_dtype=dtype)[
                 0 if graphs else 1]
             fwd = functools.partial(runner._forward, xd)
-            fwd()
-            fwd()        # warm-up, then the capture and a replay
-            ms = time_ms(torch, fwd, 10)[0]
+            ms = float(np.median(roofline.forward_runs(runner, xd, 3)))
             us = enqueue_us(torch, fwd)
             peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
             if graphs:   # the host's time of the replay alone
@@ -3677,19 +3666,9 @@ def phase_serve_graphs(torch, work, states):
                 # the first chunk of a vote (its last, whose dump rows all
                 # vote into one row, is what the capture's statics hold)
                 g = runner.graphs
-                chunk, reblock = (
-                    next(v for k, v in g.graphs.items() if k[0] == kind)
-                    for kind in ("vote_chunk", "reblock"))
-                grid = runner._grid_tensors(ds, 0)
-                first_chunk = (runner._reblock(grid, 0, 0, N)[:B],
-                               grid[4][:B])
-                with torch.inference_mode():   # the statics' mode
-                    for static, given in zip(chunk.inputs, first_chunk):
-                        static.copy_(given)
-                chunk_ms = time_ms(torch, chunk.graph.replay, 5)[0]
-                reblock_ms = time_ms(torch, reblock.graph.replay, 3)[0]
-                busy.append(SG_VOTES * (chunks * chunk_ms + reblock_ms)
-                            / 1e3)
+                vote_ms, chunk_ms, reblock_ms = voting_bench.program_busy_ms(
+                    runner, voting_bench.first_chunk(runner, ds, B), chunks)
+                busy.append(SG_VOTES * vote_ms / 1e3)
                 extra = (f", {g.captures} captures in "
                          f"{g.capture_seconds:.3f} s, replays: a chunk "
                          f"{chunk_ms:.3f} ms, a re-blocking "
@@ -3709,6 +3688,294 @@ def phase_serve_graphs(torch, work, states):
                               f"{first:.3f} s{extra}, peak {peak:.1f} MiB"
                               for first, wall, peak, extra in runs[g]))
     print(f"[sg] phase {time.perf_counter() - t0:.1f} s")
+
+CARD_TESTS = "tests/test_torch_cuda.py"
+
+
+def phase_card_tests(work):
+    """[ct] (right after b) the card tests, ``python3 -m pytest
+    --noconftest tests/test_torch_cuda.py`` in a subprocess, on the
+    kernels that [a] built: every test that the file collects passes, none
+    fails, errs or skips, or this raises."""
+    root = Path(__file__).resolve().parent
+    report = work / "card_tests.xml"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", CARD_TESTS, "-q",
+         "-p", "no:cacheprovider", "-rfEs", f"--junitxml={report}"],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    counts = dict.fromkeys(("tests", "failures", "errors", "skipped"), 0)
+    if report.exists():
+        suite = ET.parse(report).getroot()
+        suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+        counts = {k: int(suite.get(k, 0)) for k in counts}
+    passed = (counts["tests"] - counts["failures"] - counts["errors"]
+              - counts["skipped"])
+    print(f"[ct] {CARD_TESTS}: {passed} passed of {counts['tests']} "
+          f"collected ({counts['failures']} failed, {counts['errors']} "
+          f"errors, {counts['skipped']} skipped) in {seconds:.1f} s, exit "
+          f"{res.returncode}")
+    if res.returncode != 0 or counts["tests"] == 0 or passed != counts[
+            "tests"]:
+        print(res.stdout[-6000:] + res.stderr[-3000:])
+        raise AssertionError(f"[ct] the card tests did not all pass: "
+                             f"{passed} of {counts['tests']}, exit "
+                             f"{res.returncode}")
+
+
+# the tools' defaults, but breakdown's runs (3, not 5) and train_sustained's
+# epochs (1, not 2), so that the phase stays within about 4 minutes
+TOOL_ARGS = {"voting_bench": [], "train_sustained": ["--epochs", "1"],
+             "sampler_probe": [], "breakdown": ["--iters", "3"],
+             "serve_probe3": [], "roofline": []}
+# graph and --eager in turns where a tool has both
+TOOL_TURNS = {"voting_bench": (False, True, True, False),
+              "train_sustained": (False, True)}
+VOTING_KEYS = ("metric", "scene_points", "votes", "block_batches",
+               "blocks_per_vote", "wall_s", "host_grid_s_per_vote",
+               "host_full_featurize_s_per_vote", "device_features",
+               "device_reblock", "value", "cuda_graphs", "idle_share",
+               "voted_points")
+SUSTAINED_KEYS = ("mode", "steps", "batch", "npoint", "epoch_s",
+                  "ms_per_step", "points_per_sec")
+SAMPLER_PHASES = ("candidates_pass", "rejection_loop", "sort_u_idx", "top_k",
+                  "featurize_gathers", "sample_batch_full")
+ROOFLINE_KEYS = ("model", "shape", "dtype", "flops", "flops_traced", "bytes",
+                 "forward_ms", "mfu", "compute_bound_ms", "hbm_bound_ms")
+
+
+def run_tool(name, argv, work):
+    """``tumseg_torch.tools.<name>.main(argv)``, its output kept in
+    ``work/tools/``: (its JSON lines, seconds). Its first line must be the
+    card's."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"tumseg_torch.tools.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    logs = work / "tools"
+    logs.mkdir(exist_ok=True)
+    turn = len(list(logs.glob(f"{name}_*.log")))
+    (logs / f"{name}_{turn}.log").write_text(" ".join(argv) + "\n" + text)
+    lines = text.strip().splitlines()
+    if rc != 0 or not lines[0].startswith(torch.cuda.get_device_name(0)):
+        raise AssertionError(f"[tl] {name} {argv}: exit {rc}, first line "
+                             f"{lines[0]!r}")
+    return [json.loads(t) for t in lines[1:] if t.startswith("{")], seconds
+
+
+def _have(what, line, keys):
+    missing = [k for k in keys if k not in line]
+    if missing:
+        raise AssertionError(f"[tl] {what}: missing {missing} in {line}")
+
+
+def _rate(what, *values):
+    for v in values:
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"[tl] {what}: {v!r} is not a finite "
+                                 f"positive rate or time")
+
+
+def _spread(*runs):
+    """The runs' spread, summed over the rows: max - min of each."""
+    return sum(max(r) - min(r) for r in runs)
+
+
+def _split(what, parts, whole, spread):
+    """Raises where the parts exceed their whole by more than the
+    spread."""
+    if parts > whole + spread:
+        raise AssertionError(f"[tl] {what}: the parts {parts:.4f} exceed "
+                             f"the whole {whole:.4f} by more than the "
+                             f"spread {spread:.4f}")
+
+
+def check_voting(lines, eager):
+    (line,) = lines
+    what = f"voting_bench{' --eager' if eager else ''}"
+    _have(what, line, VOTING_KEYS)
+    _rate(what, line["value"], line["wall_s"], line["host_grid_s_per_vote"],
+          line["host_full_featurize_s_per_vote"], line["blocks_per_vote"])
+    if line["voted_points"] != line["scene_points"]:
+        raise AssertionError(f"[tl] {what}: {line['voted_points']} of "
+                             f"{line['scene_points']} points voted")
+    if line["cuda_graphs"] is eager or not line["device_reblock"]:
+        raise AssertionError(f"[tl] {what}: graphs {line['cuda_graphs']}, "
+                             f"device re-blocking {line['device_reblock']}")
+    if not eager and not math.isfinite(line["idle_share"]):
+        raise AssertionError(f"[tl] {what}: idle share "
+                             f"{line['idle_share']}")
+    return line
+
+
+def check_sustained(lines, eager):
+    what = f"train_sustained{' --eager' if eager else ''}"
+    modes = [line["mode"] for line in lines]
+    if modes != ["device_rate", "device_pipeline", "host_pipeline",
+                 "superstep8", "summary"]:
+        raise AssertionError(f"[tl] {what}: modes {modes}")
+    for line in lines[:-1]:
+        _have(what, line, SUSTAINED_KEYS)
+        _rate(f"{what} {line['mode']}", line["epoch_s"], line["ms_per_step"],
+              line["points_per_sec"], line["steps"])
+    _rate(f"{what} summary",
+          *(v for k, v in lines[-1].items() if k != "mode"))
+    return {line["mode"]: line for line in lines}
+
+
+def check_sampler(lines):
+    if set(lines[0]) != {"cap", "cands"} or lines[0]["cands"] != 9 * lines[
+            0]["cap"]:
+        raise AssertionError(f"[tl] sampler_probe: {lines[0]}")
+    by = {line["phase"]: line for line in lines[1:]}
+    if tuple(by) != SAMPLER_PHASES:
+        raise AssertionError(f"[tl] sampler_probe: phases {tuple(by)}")
+    for phase, line in by.items():
+        _rate(f"sampler_probe {phase}", line["ms"], *line["runs"])
+    parts = ("rejection_loop", "sort_u_idx", "featurize_gathers")
+    _split("sampler_probe: rejection, sort and gathers against a batch",
+           sum(by[p]["ms"] for p in parts), by["sample_batch_full"]["ms"],
+           _spread(*(by[p]["runs"] for p in parts + ("sample_batch_full",))))
+    return by
+
+
+def check_breakdown(lines):
+    by = {line["name"]: line for line in lines}
+    for name, line in by.items():
+        _have(f"breakdown {name}", line, ("name", "ms", "compile_s", "runs"))
+        _rate(f"breakdown {name}", line["ms"], *line["runs"])
+
+    def rows(prefix, suffix):
+        found = [by[k] for k in by
+                 if k.startswith(prefix) and suffix in k]
+        if not found:
+            raise AssertionError(f"[tl] breakdown: no {prefix}*{suffix} row")
+        return found
+
+    # the FP blocks are left out: on their random clouds they and the SA
+    # blocks add up to within 2% of the forward (the head is ~0.15 ms), a
+    # margin that the blocks' inputs, not the card, decide
+    layers = [r for i in range(1, 5) for r in rows(f"sa{i}", "_block")]
+    whole = by[f"forward B{B}"]
+    _split("breakdown: the SA blocks against the forward",
+           sum(r["ms"] for r in layers), whole["ms"],
+           _spread(whole["runs"], *(r["runs"] for r in layers)))
+    grads = [r for i in range(1, 5) for p in (f"sa{i}", f"fp{i}")
+             for r in rows(p, "_fwdbwd")]
+    step = by[f"train_step B{TRAIN_B} bf16"]
+    _split("breakdown: the layers' gradients against the train step",
+           sum(r["ms"] for r in grads), step["ms"],
+           _spread(step["runs"], *(r["runs"] for r in grads)))
+    for i in range(1, 5):
+        parts = rows(f"fps{i}", "") + rows(f"bq{i}", "")
+        (block,) = rows(f"sa{i}", "_block")
+        _split(f"breakdown: FPS and the ball query against sa{i}'s block",
+               sum(r["ms"] for r in parts), block["ms"],
+               _spread(block["runs"], *(r["runs"] for r in parts)))
+    return by
+
+
+def check_serve_probe(lines):
+    if set(lines[0]) != {"nb", "nb_pad", "L", "n_pad"}:
+        raise AssertionError(f"[tl] serve_probe3: {lines[0]}")
+    by = {line["phase"]: line for line in lines[1:-1]}
+    for phase, line in by.items():
+        _rate(f"serve_probe3 {phase}", line["ms_per_vote"], *line["runs"])
+    if "derived" not in lines[-1] or len(by) != 5:
+        raise AssertionError(f"[tl] serve_probe3: phases {tuple(by)}, last "
+                             f"{lines[-1]}")
+    full, part = by["scan_full"], by["scan_no_scatter"]
+    _split("serve_probe3: the vote without its scatter against the vote",
+           part["ms_per_vote"], full["ms_per_vote"],
+           _spread(full["runs"], part["runs"]))
+    return by
+
+
+def check_roofline(lines):
+    line = lines[-1]
+    _have("roofline", line, ROOFLINE_KEYS)
+    B_, N_ = (int(v) for v in line["shape"][1:].split("xN"))
+    widths = roofline.model_flops(line["model"], B_, N_)
+    if not line["flops"] == line["flops_traced"] == widths:
+        raise AssertionError(f"[tl] roofline: {line['flops']} FLOPs, "
+                             f"{line['flops_traced']} traced, {widths} from "
+                             f"the layers' widths")
+    _rate("roofline", line["flops"], line["forward_ms"], line["mfu"],
+          line["bytes"])
+    for k in lines[:-1]:
+        _rate(f"roofline {k['kernel']} {k['stage']}", k["nbytes"],
+              k["bound_ms"])
+    return line
+
+
+def phase_tools(work):
+    """[tl] (after sg, before the kernels' line) the port's benches on the
+    card through their ``main(argv)``, at ``TOOL_ARGS``, graph and
+    ``--eager`` in turns where a tool has both (``TOOL_TURNS``): each
+    tool's JSON lines checked (keys, finite positive rates and times, every
+    point voted, the roofline's FLOPs equal to the count from the layers'
+    widths, no split whose parts exceed their whole by more than the runs'
+    spread), its seconds and its headline printed."""
+    t0 = time.perf_counter()
+    args = dict(TOOL_ARGS)
+    args["train_sustained"] = args["train_sustained"] + [
+        "--workdir", str(work / "tools_sustained")]
+    args["sampler_probe"] = args["sampler_probe"] + [
+        "--workdir", str(work / "tools_sampler")]
+
+    walls = {False: [], True: []}
+    for eager in TOOL_TURNS["voting_bench"]:
+        argv = args["voting_bench"] + (["--eager"] if eager else [])
+        lines, seconds = run_tool("voting_bench", argv, work)
+        line = check_voting(lines, eager)
+        walls[eager].append(line["wall_s"])
+        print(f"[tl] voting_bench{' --eager' if eager else ''} "
+              f"({seconds:.1f} s): "
+              f"{line['value']:.1f} scene-points/s ({line['scene_points']} "
+              f"points x {line['votes']} votes, {line['blocks_per_vote']} "
+              f"blocks, event wall {line['wall_s']:.4f} s, idle share "
+              f"{line['idle_share']}, host grid "
+              f"{line['host_grid_s_per_vote']:.3f} s a vote)")
+        if not eager:
+            spread = (max(walls[False]) - min(walls[False])) / line["wall_s"]
+            _split("voting_bench: the programs' busy time against the wall",
+                   1.0 - line["idle_share"], 1.0, spread)
+    for eager in TOOL_TURNS["train_sustained"]:
+        argv = args["train_sustained"] + (["--eager"] if eager else [])
+        lines, seconds = run_tool("train_sustained", argv, work)
+        by = check_sustained(lines, eager)
+        print(f"[tl] train_sustained{' --eager' if eager else ''} "
+              f"({seconds:.1f} s): " + "; ".join(
+                  f"{m} {by[m]['points_per_sec']:.0f} points/s "
+                  f"({by[m]['ms_per_step']:.3f} ms a step)"
+                  for m in list(by)[:-1]))
+    for name, check in (("sampler_probe", check_sampler),
+                        ("serve_probe3", check_serve_probe),
+                        ("breakdown", check_breakdown)):
+        lines, seconds = run_tool(name, args[name], work)
+        by = check(lines)
+        print(f"[tl] {name} ({seconds:.1f} s): " + "; ".join(
+            f"{k} {v.get('ms', v.get('ms_per_vote')):.4f} ms"
+            for k, v in by.items()))
+    lines, seconds = run_tool("roofline", args["roofline"], work)
+    line = check_roofline(lines)
+    print(f"[tl] roofline ({seconds:.1f} s): {line['model']} "
+          f"{line['shape']} {line['dtype']}: {line['flops']} FLOPs "
+          f"(traced {line['flops_traced']}), forward {line['forward_ms']:.4f}"
+          f" ms, MFU {line['mfu']:.5f}, compute bound "
+          f"{line['compute_bound_ms']:.4f} ms, HBM bound "
+          f"{line['hbm_bound_ms']:.4f} ms ({line['bytes']} bytes, the point "
+          f"kernels' {line['point_kernel_bytes']}), point kernels' bound "
+          f"{line['point_kernel_bound_ms']:.4f} ms")
+    print(f"[tl] phase {time.perf_counter() - t0:.1f} s")
 
 
 def launched(launches):
@@ -3816,7 +4083,9 @@ def main() -> int:
     print(f"[a] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build.library()
-    print(f"[a] kernels built and loaded in {build.build_seconds:.2f} s")
+    print(f"[a] kernels built and loaded in {build.build_seconds:.2f} s; "
+          f"bounds at {HBM_BYTES_PER_S / 1e12} TB/s and "
+          f"{F32_OPS_PER_S / 1e12} TFLOP/s (tumseg_torch/tools/roofline.py)")
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -3832,6 +4101,7 @@ def main() -> int:
     ssg, msg = "pointnet2_sem_seg", "pointnet2_sem_seg_msg"
     report = Report()
     phase_kernels(torch, report)
+    phase_card_tests(work)
     phase_window(torch, report)
     phase_fused(torch, report)
     state_dict = phase_forward(torch, ssg, "c")
@@ -3868,6 +4138,7 @@ def main() -> int:
     states = {ssg: state_dict, msg: msg_state, POINTNET: pointnet_state}
     phase_graphs(torch, work, states)
     phase_serve_graphs(torch, work, states)
+    phase_tools(work)
 
     for name, k in report.kernels.items():
         k["launches"] = launches[name]

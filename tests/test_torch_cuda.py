@@ -882,3 +882,23 @@ def test_fused_switch_on_card(cuda):
     assert kernels.launches["fused_ball_group"] == 4
     assert kernels.launches["ball_query"] == split["ball_query"] - 4
     assert kernels.launches["group"] == split["group"] - 4
+
+
+def test_bench_replay_holds_what_its_program_reads(cuda):
+    """``benchutil.captured``'s replay holds the tensors that its program's
+    closure reads: once the caller drops them, their memory does not go to
+    the next tensors of that size while the replay still reads it."""
+    from tumseg_torch.tools import benchutil
+
+    n = 1 << 16
+    out = torch.zeros(n, device=cuda)
+    x = torch.arange(n, dtype=torch.float32, device=cuda)
+    replay = benchutil.captured(cuda, lambda x=x: (out.copy_(x * 2),))
+    expected = x * 2
+    del x
+    others = [torch.full((n,), 7.0, device=cuda) for _ in range(4)]
+    out.zero_()
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, expected)
+    assert all(bool((o == 7.0).all()) for o in others)

@@ -56,6 +56,12 @@ def test_entry_points_load_no_jax_and_no_tumseg():
         "import chip_smoke, tumseg_torch.cli.test, tumseg_torch.cli.train\n"
         "import tumseg_torch.infer.voting, tumseg_torch.train.loop\n"
         "import tumseg_torch.tools.soak, tumseg_torch.tools.miou_parity\n"
+        "import tumseg_torch.tools.voting_bench\n"
+        "import tumseg_torch.tools.train_sustained\n"
+        "import tumseg_torch.tools.sampler_probe\n"
+        "import tumseg_torch.tools.breakdown\n"
+        "import tumseg_torch.tools.serve_probe3\n"
+        "import tumseg_torch.tools.roofline\n"
         "import sem_seg_training_torch, sem_seg_testing_torch\n"
         "for m in (sem_seg_training_torch, sem_seg_testing_torch):\n"
         "    assert callable(m.main) and callable(m.parse_args)\n"

@@ -157,6 +157,15 @@ def group_points(idx: torch.Tensor, src: torch.Tensor,
     return GroupPoints.apply(idx, src, new_xyz, _impl(src), fast)
 
 
+def group_neighborhoods(idx: torch.Tensor, src: torch.Tensor,
+                        new_xyz: torch.Tensor, fast_gather: bool = False):
+    """Gather src rows ([B, N, 3 + D], xyz first) by idx [B, S, K] and centre
+    the first 3 channels on new_xyz -> [B, S, K, 3 + D]
+    (``tumseg/ops/__init__.py:214-228``): :func:`group_points`, bf16 with
+    ``fast_gather``."""
+    return group_points(idx, src, new_xyz, fast=fast_gather)
+
+
 def fused_ball_group(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor, src: torch.Tensor,
                      fast: bool = False):

@@ -137,7 +137,7 @@ TALLIES = ("seen", "predicted", "correct")
 
 
 def _add_tallies(total, t):
-    return t if total is None else {k: total[k] + t[k] for k in t}
+    return dict(t) if total is None else M.accumulate(total, t)
 
 
 # the count of a rank's host-path stream on a mesh: above every train step

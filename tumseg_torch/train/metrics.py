@@ -62,6 +62,15 @@ def zero_tallies(num_classes: int) -> Dict[str, np.ndarray]:
     return {"seen": z.copy(), "predicted": z.copy(), "correct": z.copy()}
 
 
+def accumulate(acc, tallies):
+    """``acc[k] += tallies[k]`` for every tally, on the device and in place
+    in ``acc`` (``tumseg/train/metrics.py:55-62``): no readback, so a CUDA
+    graph can hold it. Returns ``acc``."""
+    for k in acc:
+        acc[k] = acc[k] + tallies[k]
+    return acc
+
+
 def accumulate_host(acc, tallies):
     """int64 host-side accumulation across scenes."""
     for k in acc:
