@@ -902,3 +902,55 @@ def test_bench_replay_holds_what_its_program_reads(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, expected)
     assert all(bool((o == 7.0).all()) for o in others)
+
+
+def test_serving_spans_match_the_graph_counters(cuda, tmp_path):
+    """One traced vote run of two scenes on the device re-blocking path:
+    one ``tumseg.graphs.drop`` a new scene; as many warm-up, capture and
+    replay spans as ``warmups``, ``captures`` and ``replays``; a lock wait
+    for each warm-up, capture and upload; one gate upload and one readback
+    a scene; an untraced scene records nothing."""
+    from tumseg_torch.data.dataset import TestGridDataset
+    from tumseg_torch.data.las import write_las
+    from tumseg_torch.infer.voting import InferenceRunner
+    from tumseg_torch.models.pointnet2_sem_seg import get_model
+    from tumseg_torch.utils import profiling as P
+
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(2):
+        n = 1200
+        xyz = np.stack([2.0 * rng.random(n), rng.uniform(0, 1.0, n),
+                        rng.uniform(0, 4.0, n)], 1)
+        paths.append(str(tmp_path / f"scene{i}.las"))
+        write_las(paths[-1], xyz, rng.choice([1, 2, 3, 7], n))
+    ds = TestGridDataset(las_file_list=paths, num_classes=8, block_points=256,
+                         class8=True, color=False, seed=0)
+    torch.manual_seed(0)
+    runner = InferenceRunner(get_model(8), 8, batch_size=4, device=cuda,
+                             device_features=True, device_reblock=True)
+    P.reset_spans()
+    g = runner.graphs
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for scene in (0, 1):
+                runner.infer_scene(ds, scene, 2)
+        traced = P.span_records()
+        warmups, captures, replays = g.warmups, g.captures, g.replays
+        runner.infer_scene(ds, 0, 1)
+        assert P.span_records() == traced and g.replays > replays
+    finally:
+        P.reset_spans()
+    count = {}
+    for r in traced:
+        count[r.name] = count.get(r.name, 0) + 1
+    assert [r.request for r in traced if r.name == "tumseg.graphs.drop"] \
+        == [0, 1]
+    assert count["tumseg.graphs.warmup"] == warmups > 0
+    assert count["tumseg.graphs.capture"] == captures > 0
+    assert count["tumseg.graphs.replay"] == replays > 0
+    assert count["tumseg.graphs.run"] == warmups + replays
+    assert count["tumseg.lock.wait"] == warmups + captures + 2 * 2
+    assert count["tumseg.serve.scene"] == count["tumseg.serve.finish"] == 2
+    assert count["tumseg.upload"] == count["tumseg.readback"] == 2

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from tumseg_torch.data.dataset import _COLOR_FEATURES
+from tumseg_torch.utils.profiling import readback, span, upload
 
 _BIN_FRACTION = 0.6   # bin width / block_size; must be > 0.5 for coverage
 _CAP_GRANULE = 256    # bin capacity rounded up, as in tumseg
@@ -374,32 +375,35 @@ class DeviceBlockSampler:
         """The rejection rounds of k batches, batch i drawing its centre
         uniforms from ``generators[i]``: (rid [k * B] int64, centres [k * B,
         3], counts [k * B]). Each round reads back one ``[rows]`` bool, so
-        this part stays outside a CUDA graph."""
-        rid = torch.as_tensor(np.asarray(room_ids_k),
-                              device=self.device).long()
-        k, B = rid.shape
-        rid = rid.reshape(-1)
-        center = torch.empty(k * B, 3, device=self.device)
-        cnt = torch.empty(k * B, dtype=torch.int64, device=self.device)
-        pending = np.arange(k * B)      # flat rows, so grouped by batch
-        rounds = 0
-        while pending.size:
-            batch = pending // B
-            u = torch.cat([torch.rand(int((batch == i).sum()), self.trials,
-                                      generator=generators[i],
-                                      device=self.device)
-                           for i in np.unique(batch)])
-            rows = torch.as_tensor(pending, device=self.device)
-            c, n, ok = self._first_accepted(rid[rows], u)
-            center[rows] = c
-            cnt[rows] = n
-            ok = ok.cpu().numpy()                       # the round's readback
-            if rounds == 0:
-                self.stats["redrawn"] += int((~ok).sum())
-            rounds += 1
-            pending = pending[~ok]
-        self.stats["rows"] += k * B
-        self.stats["rounds"] += rounds
+        this part stays outside a CUDA graph. Under a profiler it is the
+        span ``tumseg.sampler.accept``, each readback ``tumseg.readback``
+        and each upload ``tumseg.upload``."""
+        with span("tumseg.sampler.accept"):
+            rid = upload(np.asarray(room_ids_k), self.device).long()
+            k, B = rid.shape
+            rid = rid.reshape(-1)
+            center = torch.empty(k * B, 3, device=self.device)
+            cnt = torch.empty(k * B, dtype=torch.int64, device=self.device)
+            pending = np.arange(k * B)      # flat rows, so grouped by batch
+            rounds = 0
+            while pending.size:
+                batch = pending // B
+                u = torch.cat([torch.rand(int((batch == i).sum()),
+                                          self.trials,
+                                          generator=generators[i],
+                                          device=self.device)
+                               for i in np.unique(batch)])
+                rows = upload(pending, self.device)
+                c, n, ok = self._first_accepted(rid[rows], u)
+                center[rows] = c
+                cnt[rows] = n
+                ok = readback(ok).numpy()           # the round's readback
+                if rounds == 0:
+                    self.stats["redrawn"] += int((~ok).sum())
+                rounds += 1
+                pending = pending[~ok]
+            self.stats["rows"] += k * B
+            self.stats["rounds"] += rounds
         return rid, center, cnt
 
     def draw_select(self, rid, center, cnt, generators):

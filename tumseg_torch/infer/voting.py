@@ -81,6 +81,7 @@ from tumseg_torch import ops
 from tumseg_torch.data.dataset import _COLOR_FEATURES
 from tumseg_torch.parallel.mesh import pad_to_multiple
 from tumseg_torch.utils.graphs import StepGraphs
+from tumseg_torch.utils.profiling import WaitedLock, readback, span, upload
 from tumseg_torch.utils.progress import progress
 from tumseg_torch.viz.writers import write_labels_txt, write_obj_pointcloud
 from tumseg_torch.train import metrics as M
@@ -337,7 +338,7 @@ class InferenceRunner:
         self._grid_cache = {}
         self._cache_lock = threading.Lock()
         # held by uploads, warm-ups and captures: see StepGraphs
-        self._device_lock = threading.Lock()
+        self._device_lock = WaitedLock()
         self.graphs = (StepGraphs(
             self.device, lock=self._device_lock,
             mesh=mesh if mesh is not None and mesh.capturable else None)
@@ -557,10 +558,13 @@ class InferenceRunner:
         prefetch thread): its host gridding and, on the device paths, its
         uploads, so they overlap the current scene's votes. The uploads
         hold the runner's device lock, which holds them out of a warm-up or
-        capture (see :class:`StepGraphs`)."""
+        capture (see :class:`StepGraphs`). Under a profiler its gridding is
+        the span ``tumseg.serve.grid``, request id ``scene_idx`` (a scene
+        that no prefetch staged is gridded inside ``tumseg.serve.scene``)."""
         if not hasattr(dataset, "grid_structure"):
             return
-        dataset.grid_structure(scene_idx)   # host gridding (memoized)
+        with span("tumseg.serve.grid", scene_idx):
+            dataset.grid_structure(scene_idx)   # host gridding (memoized)
         if self.device_features:
             self._scene_tensors(dataset, scene_idx)
             if self.device_reblock:
@@ -657,16 +661,18 @@ class InferenceRunner:
         """The labels of a flat pool: votes count only where
         ``labelweights[gt]`` is finite and nonzero (a per-point constant, so
         it gates the finished pool, ``tumseg/infer/voting.py:630-639``),
-        then the argmax over the scene's rows."""
-        labels = dataset.semantic_labels_list[scene_idx].astype(np.int64)
-        n = labels.shape[0]
-        pool = pool_flat.reshape(n + 1, self.num_classes)[:n]
-        if gt_weight_gate:
-            smpw = np.asarray(dataset.labelweights, np.float32)[labels]
-            keep = torch.as_tensor((smpw != 0) & ~np.isinf(smpw),
-                                   device=self.device)
-            pool = torch.where(keep[:, None], pool, 0.0)
-        return pool.argmax(dim=1).cpu().numpy()
+        then the argmax over the scene's rows, read back. Under a profiler
+        it is the span ``tumseg.serve.finish``, the gate's upload
+        ``tumseg.upload``."""
+        with span("tumseg.serve.finish"):
+            labels = dataset.semantic_labels_list[scene_idx].astype(np.int64)
+            n = labels.shape[0]
+            pool = pool_flat.reshape(n + 1, self.num_classes)[:n]
+            if gt_weight_gate:
+                smpw = np.asarray(dataset.labelweights, np.float32)[labels]
+                keep = upload((smpw != 0) & ~np.isinf(smpw), self.device)
+                pool = torch.where(keep[:, None], pool, 0.0)
+            return readback(pool.argmax(dim=1)).numpy()
 
     def _infer_scene_device_reblock(self, dataset, scene_idx, num_votes,
                                     gt_weight_gate):
@@ -773,8 +779,10 @@ class InferenceRunner:
         for the whole scene [N_scene], through the path chosen at
         construction (``tumseg/infer/voting.py:688-701``).
         ``gt_weight_gate`` counts a point's votes only where
-        ``labelweights[gt]`` is finite and nonzero, as the reference does."""
-        with torch.inference_mode():
+        ``labelweights[gt]`` is finite and nonzero, as the reference does.
+        Under a profiler it is the span ``tumseg.serve.scene``, request id
+        ``scene_idx``."""
+        with torch.inference_mode(), span("tumseg.serve.scene", scene_idx):
             if (self.device_reblock and self.device_features
                     and hasattr(dataset, "grid_structure")):
                 return self._infer_scene_device_reblock(

@@ -87,6 +87,7 @@ from tumseg_torch.parallel import mesh as pmesh
 from tumseg_torch.train import checkpoint as ckpt
 from tumseg_torch.train import metrics as M
 from tumseg_torch.utils.graphs import StepGraphs
+from tumseg_torch.utils.profiling import span
 
 LEARNING_RATE_CLIP = 1e-5
 MOMENTUM_ORIGINAL = 0.1
@@ -381,24 +382,26 @@ class TrainEngine:
         of :meth:`train_batch_rooms`: the k batches' rejection rounds first
         (one readback a round for all of them), then their selection and
         the k steps, one CUDA graph on the card. Returns ([k] losses, [k]
-        corrects) on the device."""
-        room_ids_k = self._local_rooms(room_ids_k)
-        k, B = room_ids_k.shape
-        gens = self._streams(self._step_count, k)
-        self._step_count += k
-        self._set_schedule(lr, momentum)
-        self.model.train()
-        accepted = self.sampler.accept(room_ids_k, gens)
+        corrects) on the device. Under a profiler it is the span
+        ``tumseg.train.call``, request id the call's first step count."""
+        with span("tumseg.train.call", self._step_count):
+            room_ids_k = self._local_rooms(room_ids_k)
+            k, B = room_ids_k.shape
+            gens = self._streams(self._step_count, k)
+            self._step_count += k
+            self._set_schedule(lr, momentum)
+            self.model.train()
+            accepted = self.sampler.accept(room_ids_k, gens)
 
-        def steps(rid, center, cnt):
-            points, target, _ = self.sampler.draw_select(rid, center, cnt,
-                                                          gens)
-            out = [self._train_step(points[i], target[i], g)
-                   for i, g in enumerate(gens)]
-            return (torch.stack([l for l, _ in out]),
-                    torch.stack([c for _, c in out]))
-        return self._run(("train_rooms", k, B, self.sampler), steps,
-                         accepted, gens)
+            def steps(rid, center, cnt):
+                points, target, _ = self.sampler.draw_select(rid, center, cnt,
+                                                              gens)
+                out = [self._train_step(points[i], target[i], g)
+                       for i, g in enumerate(gens)]
+                return (torch.stack([l for l, _ in out]),
+                        torch.stack([c for _, c in out]))
+            return self._run(("train_rooms", k, B, self.sampler), steps,
+                             accepted, gens)
 
     def eval_batch_rooms(self, room_ids):
         """One eval call from ``[B]`` room ids -> (loss, tallies)."""

@@ -90,6 +90,7 @@ from typing import (Callable, Dict, Hashable, List, NamedTuple, Sequence,
 import torch
 
 from tumseg_torch.ops import kernels
+from tumseg_torch.utils.profiling import span
 
 
 # the capture mode of a mesh's programs: see the module's docstring
@@ -137,8 +138,13 @@ class StepGraphs:
     """The CUDA graphs of one engine's or runner's programs on ``device``.
     ``warmups``, ``captures`` and ``replays`` count the eager first calls,
     the graphs captured and the replays run; ``capture_seconds`` is the
-    host time of the captures. ``lock`` and ``mesh`` (a capturable mesh
-    whose collectives the programs hold): see the module's docstring."""
+    host time of the captures. Under a profiler, :meth:`run` and each
+    warm-up, capture, replay and drop of graphs is a span
+    (``tumseg_torch.utils.profiling``): ``tumseg.graphs.run``,
+    ``.warmup``, ``.capture``, ``.replay``, ``.drop``; the replay's span is
+    mostly the launch's wait for room in the device's queue. ``lock`` and
+    ``mesh`` (a capturable mesh whose collectives the programs hold): see
+    the module's docstring."""
 
     def __init__(self, device, lock=None, mesh=None):
         if mesh is not None and not mesh.capturable:
@@ -162,8 +168,9 @@ class StepGraphs:
         ``addresses`` differ from those the graphs were captured with: the
         next call of each key warms up and captures again."""
         if addresses != self._bindings:
-            self.graphs.clear()
-            self._warm.clear()
+            with span("tumseg.graphs.drop"):
+                self.graphs.clear()
+                self._warm.clear()
             self._bindings = addresses
 
     def run(self, key: Hashable, fn: Callable, inputs: Sequence[torch.Tensor],
@@ -172,31 +179,33 @@ class StepGraphs:
         """``fn(*inputs)`` -> a tuple of tensors, as the graph of ``key``
         (see the module's docstring). ``generators`` are those that ``fn``
         draws from; ``bindings()`` the addresses of what it touches."""
-        self.check_bindings(bindings())
-        entry = self.graphs.get(key)
-        if entry is None:
-            if self.mesh is not None:
-                agree_on_key(self.mesh, "capture" if key in self._warm
-                             else "warm-up", key)
-            if key not in self._warm:
-                with self.lock:
-                    out = self._warm_up(fn, inputs)
-                self._warm.add(key)
-                self.warmups += 1
-                # a warm-up writes in place; it only adds what did not
-                # exist (the optimizer state, at the first step)
-                self._bindings = bindings()
-                return out
-            with self.lock:
-                entry = self.graphs[key] = self._capture(key, fn, inputs,
-                                                         generators)
-        for static, given in zip(entry.inputs, inputs):
-            static.copy_(given)
-        entry.graph.replay()
-        kernels.replayed(entry.launches)
-        self.replays += 1
-        # the next replay overwrites the static outputs
-        return tuple(t.clone() for t in entry.outputs)
+        with span("tumseg.graphs.run"):
+            self.check_bindings(bindings())
+            entry = self.graphs.get(key)
+            if entry is None:
+                if self.mesh is not None:
+                    agree_on_key(self.mesh, "capture" if key in self._warm
+                                 else "warm-up", key)
+                if key not in self._warm:
+                    with self.lock, span("tumseg.graphs.warmup"):
+                        out = self._warm_up(fn, inputs)
+                    self._warm.add(key)
+                    self.warmups += 1
+                    # a warm-up writes in place; it only adds what did not
+                    # exist (the optimizer state, at the first step)
+                    self._bindings = bindings()
+                    return out
+                with self.lock, span("tumseg.graphs.capture"):
+                    entry = self.graphs[key] = self._capture(
+                        key, fn, inputs, generators)
+            for static, given in zip(entry.inputs, inputs):
+                static.copy_(given)
+            with span("tumseg.graphs.replay"):
+                entry.graph.replay()
+            kernels.replayed(entry.launches)
+            self.replays += 1
+            # the next replay overwrites the static outputs
+            return tuple(t.clone() for t in entry.outputs)
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
