@@ -19,6 +19,14 @@ b. runs each kernel and its plain PyTorch version on the same inputs at the
    host time a call of the group wrapper and of ``index_select`` at the
    last centroid gather; FPS at each stage's shape is also held bitwise on
    a tie-heavy batch (an integer lattice) and with random starts;
+bn. (after e) BatchNorm + ReLU (``csrc/batch_norm.cu``) at every layer of
+   the SSG: the apply at the B=32 forward's shapes bitwise the eager chain,
+   the backward terms and dx at the B=16 step's bitwise their plain
+   versions (autograd's ops), each timed beside its bound, its plain
+   version and, for the apply, ``F.batch_norm``; then the 22 layers
+   together as CUDA graphs, eager chain and autograd against the kernels
+   in turns, the B=32 eval forward and the B=16 training forward and
+   backward;
 ct. (right after b) the card tests: ``python3 -m pytest --noconftest
    tests/test_torch_cuda.py`` in a subprocess, on the kernels a built: it
    prints the count passed and the seconds, and fails on any failure,
@@ -180,10 +188,12 @@ t. (after n) ``pointnet_sem_seg``, which reaches no point kernel: its
    >= 0.999, >= 2 classes; bf16 compute against f32 (max |dlogp|, argmax
    agreement; printed, not held); f32 and bf16 timed in turns (median of
    3), peak memory over what was held before and a profiler breakdown by
-   kind of kernel as in s; no kernel launched;
+   kind of kernel as in s; no point kernel launched (the BatchNorm
+   kernels are);
 u. serves d's tile with those weights through ``tumseg_torch.cli.test
    --model pointnet_sem_seg``, f32 and ``--bf16`` in turns: scene-points/s,
-   a finite mIoU, labels not constant, every kernel's launches 0;
+   a finite mIoU, labels not constant, every point kernel's launches 0,
+   bn_apply's 16 a forward;
 v. one PointNet training step at B=16 x 4096 on the card and on the CPU,
    in train-mode and in eval-mode BN: loss within rtol 1e-5 of the CPU's
    (with the regularizer, > 0); gradients held against an f64 step on the
@@ -414,6 +424,10 @@ REPLACES = {
     "fused_ball_group": "tumseg/ops/pallas/fusedgroup.py:51; "
                         "tumseg/ops/pallas/fusedgroup.py:120",
 }
+# BatchNorm + ReLU: no Pallas kernel, tumseg leaves it to XLA's fusion
+BN_KERNELS = ("bn_apply", "bn_backward_terms", "bn_backward_dx")
+REPLACES.update(dict.fromkeys(BN_KERNELS, "none (XLA fuses BatchNorm in "
+                                          "tumseg/nn/layers.py:82-116)"))
 SOURCES = {
     "fps": "tumseg_torch/csrc/fps.cu",
     "ball_query": "tumseg_torch/csrc/ball_query.cu",
@@ -425,6 +439,7 @@ SOURCES = {
     "three_nn_window": "tumseg_torch/csrc/three_nn_window.cu",
     "fused_ball_group": "tumseg_torch/csrc/fused_ball_group.cu",
 }
+SOURCES.update(dict.fromkeys(BN_KERNELS, "tumseg_torch/csrc/batch_norm.cu"))
 # the kernels with a fast (single-pass bf16) mode
 FAST = ("group", "three_nn_interpolate", "group_backward",
         "interpolate_backward", "three_nn_window", "fused_ball_group")
@@ -432,25 +447,34 @@ FAST = ("group", "three_nn_interpolate", "group_backward",
 # of them that no single PyTorch call computes
 DEVICE_TIMED = ("fps", "ball_query", "ball_query_multi", "group",
                 "group_backward", "three_nn_interpolate",
-                "interpolate_backward", "three_nn_window", "fused_ball_group")
+                "interpolate_backward", "three_nn_window",
+                "fused_ball_group") + BN_KERNELS
 NO_LIBRARY = ("fps", "ball_query", "ball_query_multi", "three_nn_interpolate",
-              "three_nn_window", "fused_ball_group")
+              "three_nn_window", "fused_ball_group", "bn_backward_terms",
+              "bn_backward_dx")
 # launches of each kernel in one forward: group runs once per set
 # abstraction for the centroid gather and once per radius for the
-# neighbourhoods; a model's other ball query is never launched
+# neighbourhoods; a model's other ball query is never launched; bn_apply
+# once a BatchNorm layer
 PER_FORWARD = {
     "pointnet2_sem_seg": {"fps": 4, "ball_query": 4, "ball_query_multi": 0,
                           "group": 8, "three_nn_interpolate": 4,
-                          "three_nn_window": 0},
+                          "three_nn_window": 0, "bn_apply": 22},
     "pointnet2_sem_seg_msg": {"fps": 4, "ball_query": 0,
                               "ball_query_multi": 4, "group": 12,
                               "three_nn_interpolate": 4,
-                              "three_nn_window": 0},
+                              "three_nn_window": 0, "bn_apply": 34},
 }
 PER_FORWARD["pointnet2_sem_seg_trial"] = PER_FORWARD["pointnet2_sem_seg"]
-# PointNet reaches no point kernel: every count stays 0 in its runs
+# PointNet reaches no point kernel: every point kernel's count stays 0 in
+# its runs; its 16 BatchNorms run the apply
 POINTNET = "pointnet_sem_seg"
-PER_FORWARD[POINTNET] = dict.fromkeys(SOURCES, 0)
+PER_FORWARD[POINTNET] = dict(
+    {k: 0 for k in SOURCES if k not in BN_KERNELS}, bn_apply=16)
+# BatchNorm layers of each model: one launch of each training kernel a
+# layer and step
+BN_LAYERS = {"pointnet2_sem_seg": 22, "pointnet2_sem_seg_msg": 34,
+             POINTNET: 16}
 # the frozen variants and the extra feature channels each one pins
 FROZEN = {"pointnet2_sem_seg_original": 3, "pointnet2_sem_seg_trial": 0,
           "pointnet_sem_seg_original": 3}
@@ -462,6 +486,8 @@ PER_STEP = {
                               "ball_query_multi": 4},
     POINTNET: {},
 }
+for _name, _layers in BN_LAYERS.items():
+    PER_STEP[_name].update(dict.fromkeys(BN_KERNELS[1:], _layers))
 # fast launches of one training step with fast gathers: the neighbourhood
 # groups (once per radius), the interpolations and both backward kernels
 FAST_PER_STEP = {
@@ -1139,6 +1165,144 @@ def phase_backward(torch, report):
     print("[e] interpolate_backward on the adversarial inputs "
           f"({', '.join(adversarial_cases())}), both modes: bitwise the "
           "plain version on the CPU and over three runs")
+
+
+def bn_layer_shapes(torch, model_name, b):
+    """(M, C) of every BatchNorm input of one eval forward of
+    ``model_name`` at b blocks of N points, in order (the same in train
+    mode), from a forward on the card."""
+    from tumseg_torch.models import get_module
+    from tumseg_torch.nn.layers import BatchNorm
+
+    model = get_module(model_name).get_model(8).to(DEVICE).eval()
+    shapes = []
+    handles = [m.register_forward_pre_hook(
+        lambda bn, args: shapes.append((args[0].numel() // args[0].shape[-1],
+                                        args[0].shape[-1])))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    x = torch.as_tensor(model_batch(b, N), device=DEVICE)
+    with torch.inference_mode():
+        model(x)
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def phase_batch_norm(torch, report):
+    """bn. BatchNorm + ReLU (csrc/batch_norm.cu) at every layer of the SSG:
+    the apply at the B=32 x 4096 forward's shapes, bitwise the eager chain;
+    the backward terms and dx at the B=16 x 4096 step's shapes, bitwise
+    their plain versions (``core.batch_norm_terms``, ``core.batch_norm_dx``:
+    autograd's ops); each timed beside its bound, its plain version and,
+    for the apply, ``F.batch_norm`` (one call, without the ReLU). Then the
+    22 layers together, the eager chain and autograd (``ops.plain()``)
+    against the kernels' path, each captured as a CUDA graph (as the
+    serving and training programs run) and replayed in turns (plain,
+    kernels, kernels, plain): the B=32 eval forward, and the B=16 training
+    forward and backward."""
+    import torch.nn.functional as F
+
+    from tumseg_torch import ops
+    from tumseg_torch.ops import core, kernels
+    from tumseg_torch.tools.benchutil import captured
+
+    rng = np.random.default_rng(SEED + 11)
+    eps = 1e-5
+
+    def consts(C):
+        return tuple(torch.as_tensor(a.astype(np.float32), device=DEVICE)
+                     for a in (rng.normal(0.3, 0.5, C),
+                               rng.uniform(0.5, 2.0, C),
+                               rng.uniform(0.5, 1.5, C),
+                               rng.normal(0.0, 0.3, C)))
+
+    def rand(M, C, scale=1.0, shift=0.0):
+        return torch.randn(M, C, device=DEVICE) * scale + shift
+
+    torch.manual_seed(SEED + 11)
+    ssg = "pointnet2_sem_seg"
+    for i, (M, C) in enumerate(bn_layer_shapes(torch, ssg, B)):
+        x = rand(M, C, 1.5, 0.3)
+        mean, var, w, bias = consts(C)
+        inv = torch.rsqrt(var + eps) * w
+
+        def fn():
+            return kernels.bn_apply(x, mean, inv, bias, True)
+
+        def plain():
+            return torch.relu((x - mean) * inv + bias)
+
+        if not torch.equal(fn(), plain()):
+            raise AssertionError(f"[bn] apply at {M}x{C} is not bitwise")
+        report.add(torch, "bn_apply", f"fwd {i:2d} {M}x{C}", fn, plain, 0.0,
+                   library_fn=lambda: F.batch_norm(x, mean, var, w, bias,
+                                                   False, 0.0, eps),
+                   phase="bn", nbytes=8 * M * C + 12 * C, ops=4 * M * C)
+        del x
+    for i, (M, C) in enumerate(bn_layer_shapes(torch, ssg, TRAIN_B)):
+        x, g = rand(M, C, 1.5, 0.3), rand(M, C)
+        _, _, w, bias = consts(C)
+        label = f"step {i:2d} {M}x{C}"
+        mean = x.mean(dim=0)
+        r = torch.rsqrt((x * x).mean(dim=0) - mean * mean + eps)
+        inv = r * w
+        terms = kernels.bn_backward_terms(g, x, mean, inv, bias, True)
+        if not all(map(torch.equal, terms, core.batch_norm_terms(
+                g, x, mean, inv, bias, True))):
+            raise AssertionError(f"[bn] terms at {M}x{C} are not bitwise")
+        report.add(torch, "bn_backward_terms", label,
+                   lambda: kernels.bn_backward_terms(g, x, mean, inv, bias,
+                                                     True),
+                   lambda: core.batch_norm_terms(g, x, mean, inv, bias,
+                                                 True), 0.0, phase="bn",
+                   nbytes=20 * M * C + 12 * C, ops=6 * M * C)
+        _, _, ks, kmu = core.batch_norm_grads(
+            [t.sum(dim=0) for t in terms], mean, r, w, M, True)
+        gzi = terms[2]
+        del terms
+        if not torch.equal(kernels.bn_backward_dx(gzi, x, ks, kmu),
+                           core.batch_norm_dx(gzi, x, ks, kmu)):
+            raise AssertionError(f"[bn] dx at {M}x{C} is not bitwise")
+        report.add(torch, "bn_backward_dx", label,
+                   lambda: kernels.bn_backward_dx(gzi, x, ks, kmu),
+                   lambda: core.batch_norm_dx(gzi, x, ks, kmu), 0.0,
+                   phase="bn", nbytes=12 * M * C + 8 * C, ops=4 * M * C)
+        del x, g, gzi
+
+    mom = torch.tensor(0.1, dtype=torch.float64, device=DEVICE)
+    keep = torch.tensor(0.9, dtype=torch.float64, device=DEVICE)
+    for b, train in ((B, False), (TRAIN_B, True)):
+        layers = []
+        for M, C in bn_layer_shapes(torch, ssg, b):
+            mean, var, w, bias = consts(C)
+            layers.append((rand(M, C, 1.5, 0.3).requires_grad_(train),
+                           w.requires_grad_(train),
+                           bias.requires_grad_(train), mean, var,
+                           rand(M, C) if train else None))
+
+        def chain(plain):
+            out = []
+            with ops.plain() if plain else contextlib.nullcontext():
+                for x, w, bias, mean, var, g in layers:
+                    y = ops.batch_norm(x, w, bias, mean, var, mom, keep, eps,
+                                       train, relu=True)
+                    out += torch.autograd.grad(y, (x, w, bias), g) \
+                        if train else [y]
+            return tuple(out)
+
+        replays = {name: captured(torch.device(DEVICE),
+                                  functools.partial(chain, name == "plain"))
+                   for name in ("plain", "kernels")}
+        runs = {"plain": [], "kernels": []}
+        for name in ("plain", "kernels", "kernels", "plain"):
+            runs[name].append(time_ms(torch, replays[name], 5)[0])
+        what = (f"B={b} training forward + backward" if train
+                else f"B={b} eval forward")
+        print(f"[bn] SSG's {len(layers)} BatchNorm + ReLU layers, {what} "
+              f"(CUDA graphs, event ms, median of 3, in turns): eager chain "
+              f"{[round(v, 3) for v in runs['plain']]} ms, kernels "
+              f"{[round(v, 3) for v in runs['kernels']]} ms")
+        del layers, replays
 
 
 def sentinels_and_repeats(idx, n):
@@ -2425,10 +2589,11 @@ def phase_bf16(torch, work, states):
 
 def no_launches(what):
     """Raises if any point kernel was launched since the counts were set to
-    0 (the caller sets them)."""
+    0 (the caller sets them); the BatchNorm kernels run in every model."""
     from tumseg_torch.ops import kernels
 
-    launched = {k: n for k, n in kernels.launches.items() if n}
+    launched = {k: n for k, n in kernels.launches.items()
+                if n and k not in BN_KERNELS}
     if launched:
         raise AssertionError(f"{what} launched point kernels: {launched}")
 
@@ -2436,7 +2601,7 @@ def no_launches(what):
 def phase_pointnet_forward(torch):
     """PointNet's forward at B=32 x 4096: the card's f32 log-probs of two
     blocks against the CPU's forward of the same weights and blocks, bf16
-    beside f32, times in turns and peak memory; no kernel launched. ->
+    beside f32, times in turns and peak memory; no point kernel launched. ->
     the weights (BN calibrated on the blocks), on the CPU."""
     from tumseg_torch import models
     from tumseg_torch.nn.layers import calibrate_batch_norm
@@ -2614,7 +2779,7 @@ def phase_pointnet_train(torch, work, state):
           f"{[round(v, 3) for v in runs[None]]} ms, bf16 compute "
           f"{[round(v, 3) for v in runs[bf16]]} ms")
     launches = phase_train_cli(torch, work, POINTNET, 1, 6, "v")[0]
-    if any(launches.values()):
+    if any(n for k, n in launches.items() if k not in BN_KERNELS):
         raise AssertionError(f"PointNet training launched {launches}")
 
 
@@ -2651,8 +2816,8 @@ def phase_frozen(torch, work, ssg_state):
             continue
         raise AssertionError(f"{name} took {fixed + 1} extra channels")
     print(f"[w] pointnet_sem_seg_original forward B={B}x{N}x9: finite, "
-          f"{classes} classes, no kernel launched; every frozen variant "
-          f"rejects another extra-channel count")
+          f"{classes} classes, no point kernel launched; every frozen "
+          f"variant rejects another extra-channel count")
 
 
 # the kernels of d's list: each is launched on each rank of y's serving
@@ -2877,8 +3042,14 @@ def mesh_step_table(torch, state_dict, mesh, sampler, rooms):
                 call()
                 torch.cuda.synchronize()
                 per_step[graphs] = launched(kernels.launches)
-                check_training_launches(kernels.launches, 1,
-                                        f"[y] a mesh step (graph {graphs})")
+                what = f"[y] a mesh step (graph {graphs})"
+                check_training_launches(kernels.launches, 1, what,
+                                        batch_norm=False)
+                # a mesh keeps the plain BatchNorm: one call a layer
+                plain = kernels.plain_calls["batch_norm_plain"]
+                if plain < BN_LAYERS["pointnet2_sem_seg"]:
+                    raise AssertionError(f"{what}: {plain} plain "
+                                         "BatchNorms, expected >= 22")
             ms = time_ms(torch, call, 1)[0]
             us = enqueue_us(torch, call)
             peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
@@ -3983,11 +4154,14 @@ def launched(launches):
     return {name: n for name, n in launches.items() if n}
 
 
-def check_training_launches(launches, steps, what):
+def check_training_launches(launches, steps, what, batch_norm=True):
     """Each SSG kernel launched at least steps x its launches a training
-    step (forward and backward), as g holds them."""
+    step (forward and backward), as g holds them; the BatchNorm kernels
+    only with ``batch_norm`` (a mesh runs the plain BatchNorm)."""
     ssg = "pointnet2_sem_seg"
     for name, per in PER_FORWARD[ssg].items():
+        if name in BN_KERNELS and not batch_norm:
+            continue
         want = steps * (per + PER_STEP[ssg].get(name, 0))
         if launches[name] < want:
             raise AssertionError(f"{what}: {name} launched {launches[name]} "
@@ -4109,11 +4283,13 @@ def main() -> int:
     launches["fused_ball_group"] = phase_fused_switch(
         torch, state_dict)["fused_ball_group"]
     phase_backward(torch, report)
+    phase_batch_norm(torch, report)
     phase_fast(torch, report)
     phase_train_step(torch, state_dict, ssg, "f")
     launches.update({name: n for name, n in phase_train_cli(
         torch, work, ssg, TRAIN_EPOCHS, 10, "g")[0].items()
-        if name in ("group_backward", "interpolate_backward")})
+        if name in ("group_backward", "interpolate_backward")
+        + BN_KERNELS[1:]})
     phase_device_pipeline(torch, work, state_dict)
 
     phase_multi(torch, report)

@@ -25,7 +25,16 @@ The fast (single-pass bf16) modes: the group's bf16 output and the fused
 ball query + group (against the split kernels and its plain version, both
 modes) bit for bit; the interpolations within rtol 1e-5 / atol 1e-6 (their
 operands are bf16, so the products are exact and the f32 sums rarely
-round)."""
+round).
+
+BatchNorm + ReLU (csrc/batch_norm.cu): the apply bitwise the eager chain
+at every (M, C) of the SSG, MSG and PointNet forwards at B=32 and B=16,
+ReLU on and off, f32 and bf16 stores; ``BatchNormReLU``'s output, running
+stats and gradients bitwise the eager chain's and autograd's; two runs and
+a captured training step bitwise their eager calls; the launches of a
+forward and of a step."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -250,7 +259,9 @@ def test_msg_forward_kernels_match_plain(cuda):
     assert counts == {"fps": 4, "ball_query": 0, "ball_query_multi": 4,
                       "group": 12, "three_nn_interpolate": 4,
                       "group_backward": 0, "interpolate_backward": 0,
-                      "three_nn_window": 0, "fused_ball_group": 0}
+                      "three_nn_window": 0, "fused_ball_group": 0,
+                      "bn_apply": 34, "bn_backward_terms": 0,
+                      "bn_backward_dx": 0}
     assert sum(kernels.launches.values()) == sum(counts.values())
     assert (got - want).abs().max().item() <= 1e-4
     assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
@@ -954,3 +965,235 @@ def test_serving_spans_match_the_graph_counters(cuda, tmp_path):
     assert count["tumseg.lock.wait"] == warmups + captures + 2 * 2
     assert count["tumseg.serve.scene"] == count["tumseg.serve.finish"] == 2
     assert count["tumseg.upload"] == count["tumseg.readback"] == 2
+
+
+
+# -------------------------------------------------------- BatchNorm + ReLU
+
+def _bn_shapes(cuda, name, B, N=4096):
+    """The (M, C) of every BatchNorm input of model ``name``'s eval forward
+    of B blocks of N points, in order, from a forward on the card."""
+    import importlib
+
+    from tumseg_torch.nn.layers import BatchNorm
+
+    mod = importlib.import_module(f"tumseg_torch.models.{name}")
+    model = mod.get_model(8).to(cuda).eval()
+    shapes = []
+
+    def hook(bn, args):
+        shapes.append((args[0].numel() // args[0].shape[-1],
+                       args[0].shape[-1]))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm)]
+    x = _rand(np.random.default_rng(0), (B, N, 6), cuda)
+    with torch.inference_mode():
+        model(x)
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+BN_LAYERS = {"pointnet2_sem_seg": 22, "pointnet2_sem_seg_msg": 34,
+             "pointnet_sem_seg": 16}
+BN_KERNELS = ("bn_apply", "bn_backward_terms", "bn_backward_dx")
+
+
+def _bn_inputs(rng, M, C, cuda):
+    """x [M, C] around a channel offset, with exact zeros after the
+    normalisation at some entries (x == mean, bias 0), and its constants."""
+    x = rng.normal(0.5, 2.0, (M, C)).astype(np.float32)
+    mean = rng.normal(0.5, 0.5, C).astype(np.float32)
+    inv = rng.uniform(0.2, 2.0, C).astype(np.float32)
+    bias = rng.normal(0.0, 0.5, C).astype(np.float32)
+    bias[: C // 4] = 0.0
+    x[::7, : C // 4] = mean[: C // 4]
+    return tuple(torch.as_tensor(a, device=cuda) for a in (x, mean, inv,
+                                                           bias))
+
+
+@pytest.mark.parametrize("B", [32, 16])
+@pytest.mark.parametrize("name", sorted(BN_LAYERS))
+def test_bn_apply_bitwise_at_model_shapes(cuda, name, B):
+    """At every BatchNorm's (M, C) of the forward, ReLU on and off, f32 and
+    bf16 stores: bitwise ((x - mean) * inv + bias), relu, .to(dtype)."""
+    shapes = _bn_shapes(cuda, name, B)
+    assert len(shapes) == BN_LAYERS[name]
+    rng = np.random.default_rng(B)
+    for M, C in sorted(set(shapes)):
+        x, mean, inv, bias = _bn_inputs(rng, M, C, cuda)
+        z = (x - mean) * inv + bias
+        for relu in (True, False):
+            want = torch.relu(z) if relu else z
+            for dtype in (torch.float32, torch.bfloat16):
+                got = kernels.bn_apply(x, mean, inv, bias, relu, dtype)
+                assert got.dtype == dtype
+                assert torch.equal(got, want.to(dtype)), (M, C, relu, dtype)
+
+
+def _bn_both(cuda, shape, relu, train, dtype, misaligned, seed=0):
+    """y, the gradients of x, weight and bias and the running stats through
+    ops.batch_norm on the card (kernels) and inside ops.plain() (the eager
+    chain and autograd), from the same inputs, cotangent and running stats:
+    -> (kernels, plain)."""
+    rng = np.random.default_rng(seed)
+    C, size = shape[-1], int(np.prod(shape))
+    base = torch.as_tensor(rng.normal(0.7, 1.5, (size + 1,))
+                           .astype(np.float32), device=cuda)
+    g = torch.as_tensor(rng.normal(0.0, 1.0, shape).astype(np.float32),
+                        device=cuda).to(dtype)
+    w, b, rm0, rv0 = (torch.as_tensor(a.astype(np.float32), device=cuda)
+                      for a in (rng.uniform(0.5, 1.5, C),
+                                rng.normal(0.0, 0.3, C),
+                                rng.normal(0.5, 0.2, C),
+                                rng.uniform(1.0, 3.0, C)))
+    mom = torch.tensor(0.1, dtype=torch.float64, device=cuda)
+    keep = torch.tensor(0.9, dtype=torch.float64, device=cuda)
+    out = []
+    for plain in (False, True):
+        x = (base[1:] if misaligned else base[:-1]).view(shape)
+        x = x.detach().requires_grad_()
+        wp, bp = w.clone().requires_grad_(), b.clone().requires_grad_()
+        rm, rv = rm0.clone(), rv0.clone()
+        with ops.plain() if plain else contextlib.nullcontext():
+            y = ops.batch_norm(x, wp, bp, rm, rv, mom, keep, 1e-5, train,
+                               relu=relu, dtype=dtype)
+        out.append((y,) + torch.autograd.grad(y, (x, wp, bp), g) + (rm, rv))
+    return out
+
+
+BN_CASES = [(1, 32), (7, 3), (33, 196), (4097, 32), (1000, 1030),
+            (300, 1040), (65536, 64), (16, 512), (2, 64, 32, 64),
+            (16, 256, 32, 128), (4, 1024, 128), (16, 16, 32, 512)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("shape", BN_CASES)
+def test_batch_norm_relu_bitwise_autograd(cuda, shape, misaligned):
+    """``BatchNormReLU`` in train and eval, ReLU on and off, f32 and bf16
+    outputs (a bf16 cotangent then), on ragged and model shapes and a
+    misaligned x (the single-channel path): y, the running stats and the
+    gradients of x, weight and bias bitwise the eager chain's and
+    autograd's (``ops.plain()``)."""
+    for train in (True, False):
+        for relu in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                got, want = _bn_both(cuda, shape, relu, train, dtype,
+                                     misaligned)
+                what = f"{shape} train={train} relu={relu} {dtype}"
+                for name, a, b in zip(("y", "dx", "dweight", "dbias",
+                                       "running_mean", "running_var"),
+                                      got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b), \
+                        f"{what} {name}"
+
+
+def test_batch_norm_runs_repeat_bitwise(cuda):
+    """Two training forwards and backwards at sa1's widest BatchNorm of a
+    B=16 step give the same bits."""
+    runs = [_bn_both(cuda, (16, 1024, 32, 64), True, True, torch.float32,
+                     False)[0] for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _step(model, x, target, weight):
+    """Loss and parameter gradients of one training forward and backward."""
+    loss = model.loss(model(x)[0], target, None, weight)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return (loss,) + tuple(grads)
+
+
+def test_batch_norm_captured_step_bitwise_eager(cuda):
+    """An SSG training step (forward, loss, backward) captured as a CUDA
+    graph and replayed gives the eager step's loss and gradients bit for
+    bit (the running stats move each call and feed nothing of the step);
+    the graph's tally holds 22 launches of each BatchNorm kernel."""
+    from tumseg_torch.models.pointnet2_sem_seg import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = get_model(8).to(cuda).train()
+    rng = np.random.default_rng(3)
+    x = _rand(rng, (2, 1024, 6), cuda)
+    target = torch.as_tensor(rng.integers(0, 8, (2, 1024)), device=cuda)
+    weight = torch.ones(8, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _step(model, x, target, weight)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.capturing() as tally, torch.cuda.graph(graph):
+        captured = _step(model, x, target, weight)
+    eager = _step(model, x, target, weight)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
+    assert {k: tally[0][k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, 22)
+    assert tally[2]["batch_norm_plain"] == 0
+
+
+@pytest.mark.parametrize("name", sorted(BN_LAYERS))
+def test_batch_norm_launches_per_forward_and_step(cuda, name):
+    """One BatchNorm layer, one launch of each kernel: an eval forward
+    launches bn_apply once a layer and nothing else; a training step each
+    of the three once a layer; under ops.plain() none, and every layer
+    counts in ``plain_calls``."""
+    import importlib
+
+    mod = importlib.import_module(f"tumseg_torch.models.{name}")
+    torch.manual_seed(0)
+    model = mod.get_model(8).to(cuda)
+    x = _rand(np.random.default_rng(2), (2, 1024, 6), cuda)
+    n = BN_LAYERS[name]
+    kernels.reset_launches()
+    with torch.inference_mode():
+        model.eval()(x)
+    assert {k: kernels.launches[k] for k in BN_KERNELS} == {
+        "bn_apply": n, "bn_backward_terms": 0, "bn_backward_dx": 0}
+    kernels.reset_launches()
+    model.train()(x)[0].square().mean().backward()
+    assert {k: kernels.launches[k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, n)
+    assert kernels.plain_calls["batch_norm_plain"] == 0
+    kernels.reset_launches()
+    with ops.plain(), torch.inference_mode():
+        model.eval()(x)
+    assert not any(kernels.launches[k] for k in BN_KERNELS)
+    assert kernels.plain_calls["batch_norm_plain"] == n
+
+
+def test_batch_norm_refuses_what_it_does_not_take(cuda):
+    """A CUDA input of another dtype raises in ops.batch_norm; the kernel
+    wrappers refuse a wrong dtype, shape, layout or an input that requires
+    grad, and count nothing."""
+    x = torch.rand(64, 8, device=cuda)
+    c = torch.rand(8, device=cuda)
+    mom = torch.tensor(0.1, dtype=torch.float64, device=cuda)
+    kernels.reset_launches()
+    for dtype in (torch.float64, torch.bfloat16, torch.float16):
+        with pytest.raises(TypeError, match="f32"):
+            ops.batch_norm(x.to(dtype), c, c, c.clone(), c.clone(), mom,
+                           1 - mom, 1e-5, True)
+    with pytest.raises(TypeError):
+        kernels.bn_apply(x.double(), c, c, c, True)
+    with pytest.raises(TypeError):
+        kernels.bn_apply(x, c, c, c, True, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.bn_apply(x.t(), c, c, c, True)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.bn_apply(x, c[:4], c, c, True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernels.bn_backward_terms(x, x.clone().requires_grad_(), c, c, c,
+                                  True)
+    with pytest.raises(TypeError):
+        kernels.bn_backward_terms(x.half(), x, c, c, c, True)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.bn_backward_dx(x, x, c, c[:4])
+    assert sum(kernels.launches.values()) == 0
+    assert kernels.plain_calls["batch_norm_plain"] == 0

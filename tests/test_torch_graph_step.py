@@ -116,9 +116,17 @@ def test_confusion_tallies_match_tumseg(case):
 
 # -- BN momentum and the learning rate as device scalars ---------------------
 
-def _float_momentum_forward(self, x, mesh=None):
+def _float_momentum_forward(self, x, mesh=None, relu=False, dtype=None):
     """``BatchNorm.forward`` as it was with a Python-float ``momentum``,
-    the reference of the device-scalar one (mesh-free)."""
+    with the ReLU and the cast that its callers applied after it, the
+    reference of the device-scalar one (mesh-free)."""
+    y = _float_momentum_batch_norm(self, x)
+    if relu:
+        y = torch.relu(y)
+    return y if dtype is None else y.to(dtype)
+
+
+def _float_momentum_batch_norm(self, x):
     dtype = x.dtype
     x = x.to(torch.promote_types(dtype, torch.float32))
     if not self.training:

@@ -94,7 +94,7 @@ class PointNet2SemSeg(nn.Module):
             feat = getattr(self, f"fp{i}")(l_xyz[lvl], l_xyz[lvl + 1], skip,
                                            feat, fast_gather, compute_dtype,
                                            mesh)
-        h = F.relu(self.bn1(self.conv1(feat, compute_dtype), mesh))
+        h = self.bn1(self.conv1(feat, compute_dtype), mesh, relu=True)
         if draw:
             keep = 1.0 - DROPOUT_RATE
             mask = torch.rand(h.shape, generator=generator,

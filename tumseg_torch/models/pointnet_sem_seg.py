@@ -13,7 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from tumseg_torch.nn.layers import (BatchNorm, Dense, PointNetEncoder,
-                                    dense_input, feature_transform_regularizer,
+                                    feature_transform_regularizer,
                                     weighted_nll_loss)
 from tumseg_torch.parallel.mesh import pmean
 
@@ -49,8 +49,8 @@ class PointNetSemSeg(nn.Module):
         h, _, trans_feat = self.feat(x, compute_dtype, mesh)
         for i in range(1, 4):
             conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
-            h = dense_input(F.relu(bn(conv(h, compute_dtype), mesh)),
-                            compute_dtype)
+            h = bn(conv(h, compute_dtype), mesh, relu=True,
+                   dtype=compute_dtype)
         return (F.log_softmax(self.conv4(h, compute_dtype), dim=-1),
                 trans_feat)
 

@@ -36,7 +36,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from tumseg_torch import ops
-from tumseg_torch.parallel.mesh import pmean, psum
+from tumseg_torch.parallel.mesh import psum
 
 
 class Dense(nn.Module):
@@ -139,7 +139,8 @@ class BatchNorm(nn.Module):
     step that replays it. They are not saved in the state_dict.
     ``F.batch_norm`` computes the variance another way, so it is not used.
     In eval mode the running stats are used. It computes in f32 (f64 for an
-    f64 input) and returns its input's dtype."""
+    f64 input); ``ops.batch_norm`` runs it, on the card as the kernels of
+    ``csrc/batch_norm.cu``."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -163,32 +164,21 @@ class BatchNorm(nn.Module):
         self.momentum.fill_(momentum)
         self.momentum_keep.fill_(1.0 - momentum)
 
-    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
-        """With a ``mesh`` (training on a sharded batch), the batch moments
-        E[x] and E[x^2] are ``pmean``'d over the ranks and the unbiased
-        variance counts ``n * size`` values, as ``tumseg``'s ``axis_name``
-        does."""
-        dtype = x.dtype
-        x = x.to(torch.promote_types(dtype, torch.float32))
-        if not self.training:
-            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return ((x - self.running_mean) * inv + self.bias).to(dtype)
-        dims = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=dims)
-        sqmean = (x * x).mean(dim=dims)
-        n = x.numel() // x.shape[-1]
-        if mesh is not None:
-            mean, sqmean = pmean(mean, mesh), pmean(sqmean, mesh)
-            n *= mesh.size
-        var = sqmean - mean * mean
-        with torch.no_grad():
-            m, keep = self.momentum, self.momentum_keep
-            unbiased = var * (n / max(n - 1, 1))
-            self.running_mean.copy_(keep * self.running_mean + m * mean)
-            self.running_var.copy_(keep * self.running_var + m * unbiased)
-            self.num_batches_tracked += 1
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean) * inv + self.bias).to(dtype)
+    def forward(self, x: torch.Tensor, mesh=None, relu: bool = False,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """-> relu?(BatchNorm(x)) in ``dtype`` (default x's): the ReLU and
+        the cast to the next layer's compute dtype fused into the
+        normalisation. With a ``mesh`` (training on a sharded batch), the
+        batch moments E[x] and E[x^2] are ``pmean``'d over the ranks and
+        the unbiased variance counts ``n * size`` values, as ``tumseg``'s
+        ``axis_name`` does."""
+        if self.training:
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+        return ops.batch_norm(x, self.weight, self.bias, self.running_mean,
+                              self.running_var, self.momentum,
+                              self.momentum_keep, self.eps, self.training,
+                              mesh=mesh, relu=relu, dtype=dtype)
 
 
 @torch.no_grad()
@@ -236,9 +226,8 @@ def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList, x: torch.Tensor,
     goes to every BatchNorm."""
     last = len(convs) - 1
     for i, (conv, bn) in enumerate(zip(convs, bns)):
-        x = F.relu(bn(conv(x, compute_dtype), mesh))
-        if compute_dtype is not None and i < last:
-            x = x.to(compute_dtype)
+        x = bn(conv(x, compute_dtype), mesh, relu=True,
+               dtype=compute_dtype if i < last else None)
     return x
 
 
@@ -368,12 +357,6 @@ class FeaturePropagation(MLPStack):
         return self.mlp(interpolated, compute_dtype, mesh)
 
 
-def dense_input(x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """An activation whose only consumer is a :class:`Dense`, stored in the
-    compute dtype, which that ``Dense`` rounds to anyway."""
-    return x if compute_dtype is None else x.to(compute_dtype)
-
-
 class STN(nn.Module):
     """The reference's STN3d (``k=3``) and STNkd (``k=64``)
     (``tumseg/nn/layers.py:283-334``): x [B, N, channel] -> a transform
@@ -398,13 +381,14 @@ class STN(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=None,
                 mesh=None) -> torch.Tensor:
-        h = dense_input(F.relu(self.bn1(self.conv1(x, compute_dtype), mesh)),
-                        compute_dtype)
-        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype), mesh)),
-                        compute_dtype)
-        h = F.relu(self.bn3(self.conv3(h, compute_dtype), mesh)).amax(dim=1)
-        h = F.relu(self.bn4(self.fc1(h, compute_dtype), mesh))
-        h = F.relu(self.bn5(self.fc2(h, compute_dtype), mesh))
+        h = self.bn1(self.conv1(x, compute_dtype), mesh, relu=True,
+                     dtype=compute_dtype)
+        h = self.bn2(self.conv2(h, compute_dtype), mesh, relu=True,
+                     dtype=compute_dtype)
+        h = self.bn3(self.conv3(h, compute_dtype), mesh,
+                     relu=True).amax(dim=1)
+        h = self.bn4(self.fc1(h, compute_dtype), mesh, relu=True)
+        h = self.bn5(self.fc2(h, compute_dtype), mesh, relu=True)
         h = self.fc3(h, compute_dtype)
         iden = torch.eye(self.k, dtype=h.dtype, device=h.device)
         return (h + iden.reshape(1, -1)).view(-1, self.k, self.k)
@@ -444,14 +428,14 @@ class PointNetEncoder(nn.Module):
         h = torch.bmm(x[..., :3], trans)
         if D > 3:
             h = torch.cat([h, x[..., 3:]], dim=-1)
-        h = F.relu(self.bn1(self.conv1(h, compute_dtype), mesh))
+        h = self.bn1(self.conv1(h, compute_dtype), mesh, relu=True)
         trans_feat = None
         if self.feature_transform:
             trans_feat = self.fstn(h, compute_dtype, mesh)
             h = torch.bmm(h, trans_feat)
         pointfeat = h
-        h = dense_input(F.relu(self.bn2(self.conv2(h, compute_dtype), mesh)),
-                        compute_dtype)
+        h = self.bn2(self.conv2(h, compute_dtype), mesh, relu=True,
+                     dtype=compute_dtype)
         g = self.bn3(self.conv3(h, compute_dtype), mesh).amax(dim=1)
         if self.global_feat:
             return g, trans, trans_feat

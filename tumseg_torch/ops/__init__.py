@@ -27,6 +27,11 @@ split pair computes, bit for bit.
 gathers of ``tumseg``'s training step: the neighbourhood group stores bf16,
 the interpolation rounds its operands to bf16. The centroid gather
 (:func:`gather_rows`) is always exact, as in ``tumseg``.
+
+:func:`batch_norm` routes by its input as the point ops do, with one more
+case: a mesh keeps the plain formula on the card too (its ``pmean`` sits
+between the statistics and the normalisation). A BatchNorm on a CUDA
+tensor that takes the plain formula counts in ``kernels.plain_calls``.
 """
 
 from __future__ import annotations
@@ -38,8 +43,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from tumseg_torch.ops import core, kernels
-from tumseg_torch.ops.autograd import (FusedBallGroup, GroupPoints,
-                                       ThreeNNInterpolate)
+from tumseg_torch.ops.autograd import (BatchNormReLU, FusedBallGroup,
+                                       GroupPoints, ThreeNNInterpolate)
 # no kernel: plain PyTorch on every device, as no Pallas kernel answers them
 from tumseg_torch.ops.core import (  # noqa: F401
     pc_normalize, sample_and_group_all, square_distance)
@@ -240,3 +245,28 @@ def msg_ball_groups(radius_list: Sequence[float],
     model has."""
     idxs = query_ball_point_multi(radius_list, nsample_list, xyz, new_xyz)
     return [group_points(idx, src, new_xyz, fast_gather) for idx in idxs]
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               momentum: torch.Tensor, momentum_keep: torch.Tensor,
+               eps: float, training: bool, mesh=None, relu: bool = False,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``core.batch_norm`` (its arguments and result): on a CUDA f32 input
+    without a mesh the kernels (:class:`BatchNormReLU`; ``dtype`` f32 or
+    bf16), on a CUDA input inside :func:`plain` or with a mesh, or on any
+    other device, the plain formula. A CUDA input of another dtype
+    raises."""
+    if x.device.type == "cuda":
+        if mesh is None and not getattr(_state, "plain", False):
+            if x.dtype != torch.float32:
+                raise TypeError(f"batch_norm on the card takes f32 inputs, "
+                                f"got {x.dtype}")
+            return BatchNormReLU.apply(
+                x, weight, bias, running_mean, running_var, momentum,
+                momentum_keep, eps, training, relu,
+                torch.float32 if dtype is None else dtype)
+        kernels.count_plain("batch_norm_plain")
+    return core.batch_norm(x, weight, bias, running_mean, running_var,
+                           momentum, momentum_keep, eps, training, mesh,
+                           relu, dtype)

@@ -15,6 +15,9 @@ refuse tensors that require grad, so the forward hands them detached ones.
 Only the features are differentiated: the centres of a group and the
 indices and distances of the 3-NN depend on coordinates alone, which carry
 no parameter upstream, and get no gradient, as in the JAX package.
+
+:class:`BatchNormReLU` is BatchNorm (+ ReLU) on the card alone: the CPU and
+``ops.plain()`` run ``core.batch_norm`` under autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from tumseg_torch.ops import core
+from tumseg_torch.ops import core, kernels
 
 
 class GroupPoints(torch.autograd.Function):
@@ -121,3 +124,63 @@ class ThreeNNInterpolate(torch.autograd.Function):
                 idx, core.interpolation_weights(dists),
                 grad_out.contiguous(), ctx.s, fast=ctx.fast)
         return None, None, dp2, None, None, None, None
+
+
+class BatchNormReLU(torch.autograd.Function):
+    """``core.batch_norm`` without a mesh, bitwise it and autograd's
+    gradients of it, on the kernels of csrc/batch_norm.cu: x [..., C] f32
+    (CUDA), weight, bias and the running stats [C] f32 -> y [..., C] in
+    ``dtype`` (f32 or bf16). The statistics and every sum over the rows are
+    PyTorch's reductions, as in ``core.batch_norm`` and its autograd: in
+    training mean = E[x], var = E[x * x] - mean * mean, and the running
+    stats are updated by ``core.update_running_stats``; in eval the running
+    stats are used. ``kernels.bn_apply`` computes y.
+
+    Backward, from the saved x (no y, no mask): ``kernels.
+    bn_backward_terms`` forms the three tensors that autograd sums, their
+    sums are ``torch.sum``'s, ``core.batch_norm_grads`` runs autograd's [C]
+    ops, and in training ``kernels.bn_backward_dx`` adds x's four gradient
+    parts in the engine's order (in eval x's gradient is gz * inv). The
+    cotangent comes in y's dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, running_mean: torch.Tensor,
+                running_var: torch.Tensor, momentum: torch.Tensor,
+                momentum_keep: torch.Tensor, eps: float, training: bool,
+                relu: bool, dtype: torch.dtype) -> torch.Tensor:
+        x = x.detach()
+        weight, bias = weight.detach(), bias.detach()
+        dims = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        if training:
+            mean = x.mean(dim=dims)
+            var = (x * x).mean(dim=dims) - mean * mean
+            core.update_running_stats(running_mean, running_var, momentum,
+                                      momentum_keep, mean, var, n)
+        else:
+            mean, var = running_mean, running_var
+        r = torch.rsqrt(var + eps)
+        inv = r * weight
+        x2 = x.reshape(n, x.shape[-1])
+        y = kernels.bn_apply(x2, mean, inv, bias, relu, dtype)
+        ctx.save_for_backward(x2, mean, r, weight, inv, bias)
+        ctx.training, ctx.relu, ctx.x_shape = training, relu, x.shape
+        return y.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, mean, r, weight, inv, bias = ctx.saved_tensors
+        shape = ctx.x_shape
+        dims = tuple(range(len(shape) - 1))
+        terms = kernels.bn_backward_terms(g.reshape(x2.shape).contiguous(),
+                                          x2, mean, inv, bias, ctx.relu)
+        sums = [t.view(shape).sum(dim=dims) for t in terms]
+        dweight, dbias, ks, kmu = core.batch_norm_grads(
+            sums, mean, r, weight, x2.shape[0], ctx.training)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = terms[2] if ks is None else kernels.bn_backward_dx(
+                terms[2], x2, ks, kmu)
+            dx = dx.view(shape)
+        return (dx, dweight, dbias) + (None,) * 8

@@ -40,6 +40,9 @@ SIGNATURES = {
     "tumseg_three_nn_window": (_P,) * 6 + (_I,) * 7 + (_P,),
     "tumseg_fused_ball_group": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F)
     + (_I,) * 6 + (_P,),
+    "tumseg_bn_apply": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "tumseg_bn_backward_terms": (_P,) * 8 + (_I,) * 6 + (_P,),
+    "tumseg_bn_backward_dx": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

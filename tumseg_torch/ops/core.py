@@ -27,6 +27,13 @@ rounds its source to bf16, centres in f32 and stores bf16
 backward passes round their two operands to bf16 and multiply and add in
 f32, as one bf16 MXU pass at ``Precision.DEFAULT`` does
 (``tumseg/ops/pallas/interpolate.py:136-148``).
+
+:func:`batch_norm` is the plain BatchNorm (+ ReLU) of every Dense layer,
+the contract of ``csrc/batch_norm.cu``; on a mesh it is the only version.
+:func:`batch_norm_terms`, :func:`batch_norm_grads` and
+:func:`batch_norm_dx` are autograd's backward of it written out op by op, in
+its order, so bitwise autograd's gradients: the plain versions of the
+backward kernels, and the [C] ops that the kernels' path runs as they are.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.nn import functional as F
+
+from tumseg_torch.parallel.mesh import pmean
 
 
 def _direct_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -475,3 +485,96 @@ def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]
     if points is not None:
         grouped = torch.cat([grouped, points[:, None]], dim=-1)
     return new_xyz, grouped
+
+
+@torch.no_grad()
+def update_running_stats(running_mean: torch.Tensor,
+                         running_var: torch.Tensor, momentum: torch.Tensor,
+                         momentum_keep: torch.Tensor, mean: torch.Tensor,
+                         var: torch.Tensor, n: int) -> None:
+    """``running = (1 - momentum) * running + momentum * batch`` in place,
+    with the unbiased batch var of ``n`` values a channel; ``momentum`` and
+    ``momentum_keep`` (= 1 - momentum) are 0-d tensors, read when the ops
+    run, so a step captured as a CUDA graph reads the replaying step's."""
+    unbiased = var * (n / max(n - 1, 1))
+    running_mean.copy_(momentum_keep * running_mean + momentum * mean)
+    running_var.copy_(momentum_keep * running_var + momentum * unbiased)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               momentum: torch.Tensor, momentum_keep: torch.Tensor,
+               eps: float, training: bool, mesh=None, relu: bool = False,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-channel (last axis) batch norm with ``tumseg``'s formula
+    (``tumseg/nn/layers.py:82-116``): ``y = (x - mean) * (rsqrt(var + eps)
+    * weight) + bias``, then ``relu`` if asked, computed in f32 (f64 for an
+    f64 input) and returned in ``dtype`` (default x's). In training mean
+    and var are the batch's, var = E[x^2] - E[x]^2 (with a ``mesh`` the
+    moments ``pmean``'d over the ranks and n counting every rank's rows),
+    and the running stats are updated (:func:`update_running_stats`); in
+    eval they are used."""
+    out_dtype = x.dtype if dtype is None else dtype
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=dims)
+        sqmean = (x * x).mean(dim=dims)
+        n = x.numel() // x.shape[-1]
+        if mesh is not None:
+            mean, sqmean = pmean(mean, mesh), pmean(sqmean, mesh)
+            n *= mesh.size
+        var = sqmean - mean * mean
+        update_running_stats(running_mean, running_var, momentum,
+                             momentum_keep, mean, var, n)
+    else:
+        mean, var = running_mean, running_var
+    inv = torch.rsqrt(var + eps) * weight
+    y = (x - mean) * inv + bias
+    if relu:
+        y = F.relu(y)
+    return y.to(out_dtype)
+
+
+def batch_norm_terms(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                     inv: torch.Tensor, bias: torch.Tensor, relu: bool):
+    """The [..., C] tensors that autograd forms in :func:`batch_norm`'s
+    backward and sums over the rows, from the cotangent g of y (f32 or
+    bf16, y's dtype) and the forward's x, mean, inv = rsqrt(var + eps) *
+    weight and bias: -> (gz, gz * (x - mean), gz * inv), f32. gz is relu's
+    backward (g where y > 0; NaN passes), or g without the ReLU; gz * inv
+    is also x - mean's gradient."""
+    d = x - mean
+    gz = g.float()
+    if relu:
+        gz = torch.where(d * inv + bias <= 0, 0.0, gz)
+    return gz, gz * d, gz * inv
+
+
+def batch_norm_grads(sums, mean: torch.Tensor, r: torch.Tensor,
+                     weight: torch.Tensor, n: int, training: bool):
+    """The [C] part of :func:`batch_norm`'s backward, autograd's ops in its
+    order, from the row sums of :func:`batch_norm_terms` (sum gz, sum gz *
+    (x - mean), sum gz * inv), r = rsqrt(var + eps) and n rows: -> (dweight,
+    dbias, ks, kmu), where ks and kmu are the gradients of E[x^2] and E[x]
+    over n that reach x through the batch statistics (None in eval)."""
+    sgz, sgzd, sgzi = sums
+    dweight = sgzd * r
+    if not training:
+        return dweight, sgz, None, None
+    # rsqrt's backward, -0.5 * grad * result^3, of r's gradient sgzd * weight
+    gvar = -0.5 * (sgzd * weight) * r.pow(3)
+    # var = E[x^2] - mean * mean: mean * mean's two gradients, each added to
+    # mean's after x - mean's (the sum of -(gz * inv), which is -sgzi)
+    half = -gvar * mean
+    gmean = (-sgzi + half) + half
+    return dweight, sgz, gvar / n, gmean / n
+
+
+def batch_norm_dx(gzi: torch.Tensor, x: torch.Tensor, ks: torch.Tensor,
+                  kmu: torch.Tensor) -> torch.Tensor:
+    """x's gradient in training, its four parts added as autograd's engine
+    adds them: x - mean's (gz * inv), x * x's two (ks * x each), then
+    mean's (kmu)."""
+    p = ks * x
+    return ((gzi + p) + p) + kmu

@@ -15,6 +15,10 @@ which :func:`replayed` adds to ``launches`` each time the graph runs, so
 the counts are the kernels' runs on the card either way. There is no
 fallback: a CUDA tensor either runs the kernel or raises. The
 plain versions with the same contracts are in ``tumseg_torch.ops.core``.
+
+``plain_calls["batch_norm_plain"]`` counts the BatchNorms on a CUDA tensor
+that ran the plain formula (inside ``ops.plain()`` or on a mesh), through
+the same tallies, so that a run shows the main path took the kernels.
 """
 
 from __future__ import annotations
@@ -30,13 +34,17 @@ from tumseg_torch.ops import build
 
 KERNELS = ("fps", "ball_query", "ball_query_multi", "group",
            "three_nn_interpolate", "group_backward", "interpolate_backward",
-           "three_nn_window", "fused_ball_group")
+           "three_nn_window", "fused_ball_group", "bn_apply",
+           "bn_backward_terms", "bn_backward_dx")
 launches = dict.fromkeys(KERNELS, 0)
 # the kernels with a fast mode; its launches also count here
 FAST_KERNELS = ("group", "three_nn_interpolate", "group_backward",
                 "interpolate_backward", "three_nn_window", "fused_ball_group")
 fast_launches = dict.fromkeys(FAST_KERNELS, 0)
-# (launches, fast_launches) of the CUDA graph being captured, else None
+PLAIN_CALLS = ("batch_norm_plain",)
+plain_calls = dict.fromkeys(PLAIN_CALLS, 0)
+_LIVE = (launches, fast_launches, plain_calls)
+# the tallies (_LIVE's three) of the CUDA graph being captured, else None
 _captured = None
 
 # csrc/fps.cu: one CTA a batch row of at most 1024 threads, each owning up
@@ -83,6 +91,10 @@ THREE_NN_MAX_QUERIES = 256
 THREE_NN_TILE = 1024
 THREE_NN_MAX_SLABS = 128
 THREE_NN_SLAB_SOURCES = 8
+# csrc/batch_norm.cu: threads a block (kThreads) and the rows a thread
+# loads before it stores (kUnroll)
+BN_THREADS = 256
+BN_UNROLL = 4
 
 
 class _MultiRadii(ctypes.Structure):
@@ -94,19 +106,20 @@ class _MultiRadii(ctypes.Structure):
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
-    for name in FAST_KERNELS:
-        fast_launches[name] = 0
+    for counts in _LIVE:
+        for name in counts:
+            counts[name] = 0
 
 
 @contextlib.contextmanager
 def capturing():
     """Counts the launches made inside this block, a CUDA graph's capture
     (the autograd thread's backward launches included), apart from
-    ``launches``: yields the graph's (launches, fast_launches) tallies."""
+    ``launches``: yields the graph's (launches, fast_launches, plain_calls)
+    tallies."""
     global _captured
-    tally = (dict.fromkeys(KERNELS, 0), dict.fromkeys(FAST_KERNELS, 0))
+    tally = (dict.fromkeys(KERNELS, 0), dict.fromkeys(FAST_KERNELS, 0),
+             dict.fromkeys(PLAIN_CALLS, 0))
     prev, _captured = _captured, tally
     try:
         yield tally
@@ -117,9 +130,15 @@ def capturing():
 def replayed(tally) -> None:
     """Adds a captured graph's tallies to the counts: one replay runs every
     launch that its capture recorded."""
-    for counts, graph in zip((launches, fast_launches), tally):
+    for counts, graph in zip(_LIVE, tally):
         for name, n in graph.items():
             counts[name] += n
+
+
+def count_plain(name: str) -> None:
+    """One more call of ``name`` (of ``PLAIN_CALLS``) on the plain path of a
+    CUDA tensor, in the tally of the graph being captured if there is one."""
+    (_captured or _LIVE)[2][name] += 1
 
 
 def group_geometry(rows: int, C: int) -> Tuple[int, int]:
@@ -331,7 +350,7 @@ def _launch(kernel: str, fn_name: str, device: torch.device, *args,
             err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    counts, fast_counts = _captured or (launches, fast_launches)
+    counts, fast_counts, _ = _captured or _LIVE
     counts[kernel] += 1
     if fast:
         fast_counts[kernel] += 1
@@ -575,3 +594,95 @@ def interpolate_backward(idx: torch.Tensor, weight: torch.Tensor,
             _ptr(idx), _ptr(weight), _ptr(grad), _ptr(out), B, N, s, D,
             *interpolate_backward_tiles(B, s, D), fast=fast)
     return out
+
+
+def bn_layout(C: int, vec: bool) -> Tuple[int, int, int]:
+    """-> (V, tiles, R) of csrc/batch_norm.cu for C channels: V channels a
+    thread's column vector (4 with ``vec``, else 1), the column tiles of at
+    most ``BN_THREADS`` vectors (the grid's y), and R, the rows a block of
+    ``BN_THREADS`` threads steps, one a thread of a tile."""
+    V = 4 if vec else 1
+    cols = C // V
+    tile = min(cols, BN_THREADS)
+    return V, -(-cols // tile), BN_THREADS // tile
+
+
+def bn_blocks(M: int, C: int, vec: bool) -> int:
+    """Blocks (the grid's x) of csrc/batch_norm.cu's kernels: enough that
+    each thread has ``BN_UNROLL`` rows at least once, at most 8 of
+    ``BN_THREADS`` threads an SM (its 2048)."""
+    _, tiles, R = bn_layout(C, vec)
+    return max(1, min(-(-M // (R * BN_UNROLL)), 8 * SMS // tiles))
+
+
+def _bn_vec(C: int, *tensors: torch.Tensor) -> bool:
+    """16-byte column vectors: C a multiple of 4 and every [M, C] tensor
+    16-byte aligned."""
+    return C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _bn_check(x: torch.Tensor, *channels: Tuple[str, torch.Tensor]):
+    """x [M, C] f32 and each named [C] f32 tensor -> (M, C, device)."""
+    _check("x", x, torch.float32, (None, None))
+    M, C = x.shape
+    if M >= 2 ** 31 or C < 1:
+        raise ValueError(f"batch norm takes 1 <= C and M < 2^31, got "
+                         f"{tuple(x.shape)}")
+    for name, t in channels:
+        _check(name, t, torch.float32, (C,))
+    return M, C, _same_device(x, *(t for _, t in channels))
+
+
+def bn_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+             bias: torch.Tensor, relu: bool,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [M, C] f32, mean, inv, bias [C] f32 -> y [M, C] = relu?((x - mean)
+    * inv + bias) in ``dtype`` (f32 or bf16), each operation rounded in
+    that order, so bitwise the eager ops of ``core.batch_norm``."""
+    M, C, device = _bn_check(x, ("mean", mean), ("inv", inv),
+                             ("bias", bias))
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bn_apply stores f32 or bf16, not {dtype}")
+    y = torch.empty((M, C), dtype=dtype, device=device)
+    vec = _bn_vec(C, x, y)
+    _launch("bn_apply", "tumseg_bn_apply", device, _ptr(x), _ptr(mean),
+            _ptr(inv), _ptr(bias), _ptr(y), M, C, int(relu),
+            int(dtype == torch.bfloat16), int(vec), bn_blocks(M, C, vec))
+    return y
+
+
+def bn_backward_terms(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                      inv: torch.Tensor, bias: torch.Tensor, relu: bool):
+    """The [M, C] terms of :func:`bn_apply`'s backward, as autograd forms
+    them (``core.batch_norm_terms``): g [M, C] f32 or bf16, x [M, C] f32,
+    the forward's mean, inv, bias [C] f32 -> (gz, gz * (x - mean), gz *
+    inv), each [M, C] f32, gz = g where the recomputed ReLU passed (g
+    without ``relu``)."""
+    M, C, device = _bn_check(x, ("mean", mean), ("inv", inv),
+                             ("bias", bias))
+    _check("g", g, (torch.float32, torch.bfloat16), (M, C))
+    _same_device(x, g)
+    gz, gzd, gzi = (torch.empty((M, C), dtype=torch.float32, device=device)
+                    for _ in range(3))
+    vec = _bn_vec(C, g, x, gz, gzd, gzi)
+    _launch("bn_backward_terms", "tumseg_bn_backward_terms", device, _ptr(g),
+            _ptr(x), _ptr(mean), _ptr(inv), _ptr(bias), _ptr(gz), _ptr(gzd),
+            _ptr(gzi), M, C, int(relu), int(g.dtype == torch.bfloat16),
+            int(vec), bn_blocks(M, C, vec))
+    return gz, gzd, gzi
+
+
+def bn_backward_dx(gzi: torch.Tensor, x: torch.Tensor, ks: torch.Tensor,
+                   kmu: torch.Tensor) -> torch.Tensor:
+    """dx [M, C] f32 = ((gzi + ks * x) + ks * x) + kmu, each operation
+    rounded in that order (``core.batch_norm_dx``): gzi [M, C] from
+    :func:`bn_backward_terms`, x [M, C], ks and kmu [C] f32."""
+    M, C, device = _bn_check(x, ("ks", ks), ("kmu", kmu))
+    _check("gzi", gzi, torch.float32, (M, C))
+    _same_device(x, gzi)
+    dx = torch.empty((M, C), dtype=torch.float32, device=device)
+    vec = _bn_vec(C, gzi, x, dx)
+    _launch("bn_backward_dx", "tumseg_bn_backward_dx", device, _ptr(gzi),
+            _ptr(x), _ptr(ks), _ptr(kmu), _ptr(dx), M, C, int(vec),
+            bn_blocks(M, C, vec))
+    return dx
