@@ -24,10 +24,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from gpubench import check, tiles
+from gpubench import check, spec, tiles
 from gpubench.loops.common import (Window, derived, memory_peak,
                                    reset_peak, sync)
-from gpubench.reference import pointnet2, serve as ref_serve
+from gpubench.reference import serve as ref_serve
 
 
 def _dataset(cfg: Dict):
@@ -85,11 +85,12 @@ def calibration_blocks(cfg: Dict, tile: Dict, seed: int, count: int,
 def _weights(cfg, seed, warm_tile, device):
     """The run's weights, BatchNorm statistics calibrated by the
     reference."""
-    weights = pointnet2.make_weights(cfg, derived(seed, 1), device)
+    arch = spec.architecture(cfg)
+    weights = arch.make_weights(cfg, derived(seed, 1), device)
     x = calibration_blocks(cfg, warm_tile, seed, cfg["serve"]["calibrate"],
                            device)
     with torch.no_grad():
-        pointnet2.Net(cfg, weights, "calibrate").forward(x)
+        arch.Net(cfg, weights, "calibrate").forward(x)
     return weights
 
 

@@ -24,10 +24,9 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from gpubench import check, tiles
+from gpubench import check, spec, tiles
 from gpubench.loops.common import (Window, derived, memory_peak,
                                    reset_peak, sync)
-from gpubench.reference import pointnet2
 
 
 def class_weights(labels, num_classes: int) -> np.ndarray:
@@ -82,7 +81,8 @@ def run(env) -> Dict:
     loader = DeviceSampleLoader(
         SimpleNamespace(room_idxs=room_ids(rooms, P, mix["sample_rate"])),
         batch_size=B, shuffle=True, drop_last=True, seed=derived(seed, 5))
-    weights = pointnet2.make_weights(cfg, derived(seed, 1), device)
+    weights = spec.architecture(cfg).make_weights(cfg, derived(seed, 1),
+                                                  device)
     model = models.get_module(cfg["model"]).get_model(C, len(tiles.COLOURS))
     model.load_state_dict({n: v.clone() for n, v in weights.items()})
     engine = TrainEngine(model, C, weights_c, optimizer=t["optimizer"],

@@ -6,7 +6,7 @@ where it finds nothing to read."""
 
 from __future__ import annotations
 
-from gpubench import counting, trace as T
+from gpubench import counting, spec, trace as T
 
 
 def units(ctx) -> int:
@@ -16,8 +16,8 @@ def units(ctx) -> int:
 
 def mfu(ctx) -> float:
     cfg, B, N = ctx["cfg"], ctx["batch"], ctx["points"]
-    per = (counting.step_flops if ctx["train"] else counting.forward_flops)(
-        cfg, B, N)
+    arch = spec.architecture(cfg)
+    per = (arch.step_flops if ctx["train"] else arch.forward_flops)(cfg, B, N)
     return 100.0 * per * units(ctx) / (ctx["window_s"]
                                        * counting.F32_FLOPS_PER_S)
 
@@ -26,18 +26,20 @@ def roofline(ctx):
     """The point kernels' least time over their device time, in %. The
     time is every point-kernel launch that the trace holds; the least time
     counts only the families whose launches the trace, the program's
-    counter (``kernels.launches``) and the configuration's count agree on,
-    so a family that the count cannot price (a launch structure that
-    changed) lowers the share and never raises it. Each family, its
-    launches and whether it was priced go into ``ctx["roofline_families"]``
-    for the result's line. The profiler has to see every launch that the
+    counter (``kernels.launches``) and the configuration's count (its
+    architecture module's ``launches``) agree on, so a family that the
+    count cannot price (a launch structure that changed) lowers the share
+    and never raises it; where none is priced (an architecture that
+    launches no point kernel) it reads nothing. Each family, its launches
+    and whether it was priced go into ``ctx["roofline_families"]`` for the
+    result's line. The profiler has to see every launch that the
     program counted, graph replays included: a trace that lost some
     raises."""
     tr = ctx.get("trace")
     if tr is None or ctx["device"] != "cuda":
         return None
-    per = counting.launches(ctx["cfg"], ctx["batch"], ctx["points"],
-                            ctx["train"])
+    per = spec.architecture(ctx["cfg"]).launches(
+        ctx["cfg"], ctx["batch"], ctx["points"], ctx["train"])
     n = units(ctx)
     seen = T.point_kernels(tr["kernels"])
     counted = {f: sum(ctx["launches"].get(k, 0) for k in names)

@@ -1,29 +1,47 @@
 """Plain PointNet++ semantic segmentation (SSG and MSG), built from a
 configuration file's sizes: arXiv:1706.02413 as the yanx27 PyTorch models
-(``pointnet2_sem_seg.py``, ``pointnet2_sem_seg_msg.py``) lay it out.
+(``pointnet2_sem_seg.py``, ``pointnet2_sem_seg_msg.py``) lay it out. The
+architecture module of the configurations whose ``architecture`` is
+``pointnet2`` (``gpubench/README.md`` gives the contract): the reference,
+its loss and its counts; and, for the CPU tests, its tiny version.
 
 Weights are a dict under the published models' state-dict names (1x1 convs
 as ``[out, in, 1, 1]`` in the set abstractions, ``[out, in, 1]`` in the
-feature propagations and the head); a conv is ``F.linear`` over the last
-axis in f32, TF32 off. BatchNorm is ``(x - mean) * (rsqrt(var + eps) *
-weight) + bias``, the batch's mean and ``E[x^2] - E[x]^2`` in training,
-the running statistics in eval. A training forward with a generator draws,
-in order, each stage's FPS start in [0, N_stage) and then the head's
+feature propagations and the head); convs and BatchNorms as
+``reference/layers.py`` computes them. A training forward with a generator
+draws, in order, each stage's FPS start in [0, N_stage) and then the head's
 dropout mask; the set abstractions' groups and the interpolations take the
 fast (bf16) gathers when ``fast``.
+
+Counts. FLOPs: ``2 * rows * in * out`` a 1x1 conv; its rows are ``B * S *
+K`` at a set abstraction (S centroids, K samples of a scale), ``B *
+N_level`` at a feature propagation and ``B * N`` at the head. A training
+step adds the weight gradient of every conv and the input gradient of
+every conv whose input carries one (all but the first conv of each
+first-stage scale). A point-kernel launch's bytes count each input read
+once and each output written once; its operations only what the inputs
+need: FPS's 10 a point a step, a group's one subtraction an xyz output, the
+3-NN's weights and interpolation (10 a query and 5 an output element; the
+search itself is data-dependent and counted as nothing), the backward
+passes' adds and multiplies; a ball query counts its bytes alone
+(``counting.bound_s`` prices them).
 """
 
 from __future__ import annotations
 
-import math
+import copy
 from typing import Dict, Iterator, List, Tuple
 
 import torch
 from torch.nn import functional as F
 
+from gpubench import counting
+from gpubench.reference import layers as L
 from gpubench.reference import ops
+from gpubench.reference.layers import leaves  # noqa: F401 (the contract)
 
-EPS = 1e-5
+# the centroids a stage of the tiny version for the CPU tests
+TINY_NPOINT = [64, 16, 8, 4]
 
 
 def layers(cfg: Dict) -> Iterator[Tuple[str, int, int, int]]:
@@ -59,41 +77,11 @@ def bn_name(conv: str) -> str:
 
 
 def make_weights(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Seeded weights on ``device`` in three calls of one generator: conv
-    weights N(0, 2 / (in + out)), conv biases U(-1/sqrt(in), 1/sqrt(in)),
-    BatchNorm scales 1 + 0.1 N(0, 1) and shifts 0.1 N(0, 1); running
+    """Seeded weights on ``device`` (``layers.make_weights``); running
     statistics 0 and 1 (serving calibrates them)."""
     convs = list(layers(cfg))
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    n_w = sum(i * o for _, i, o, _ in convs)
-    n_b = sum(o for _, _, o, _ in convs)
     bns = [(bn_name(n), o) for n, _, o, _ in convs if n != "conv2"]
-    n_bn = sum(o for _, o in bns)
-    w_flat = torch.randn(n_w, generator=g, device=device)
-    b_flat = torch.rand(n_b, generator=g, device=device) * 2 - 1
-    bn_flat = torch.randn(2 * n_bn, generator=g, device=device) * 0.1
-    out, wo, bo = {}, 0, 0
-    for name, i, o, rank in convs:
-        w = w_flat[wo:wo + i * o].view(o, i) * math.sqrt(2.0 / (i + o))
-        out[f"{name}.weight"] = w.reshape(o, i, *([1] * rank))
-        out[f"{name}.bias"] = b_flat[bo:bo + o] / math.sqrt(i)
-        wo, bo = wo + i * o, bo + o
-    off = 0
-    for name, o in bns:
-        out[f"{name}.weight"] = 1.0 + bn_flat[off:off + o]
-        out[f"{name}.bias"] = bn_flat[n_bn + off:n_bn + off + o].clone()
-        out[f"{name}.running_mean"] = torch.zeros(o, device=device)
-        out[f"{name}.running_var"] = torch.ones(o, device=device)
-        out[f"{name}.num_batches_tracked"] = torch.zeros(
-            (), dtype=torch.long, device=device)
-        off += o
-    return {k: v.contiguous() for k, v in out.items()}
-
-
-def leaves(weights: Dict[str, torch.Tensor]) -> List[str]:
-    """The trainable leaves' names (every weight and bias), in order."""
-    return [k for k in weights if k.endswith((".weight", ".bias"))]
+    return L.make_weights(convs, bns, seed, device)
 
 
 class Net:
@@ -108,34 +96,21 @@ class Net:
         self.fast, self.generator = fast, generator
 
     def conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        w = self.w[f"{name}.weight"]
-        return F.linear(x, w.reshape(w.shape[0], w.shape[1]),
-                        self.w[f"{name}.bias"])
+        return L.conv(self.w, name, x)
 
     def bn(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        p = bn_name(name)
-        weight, bias = self.w[f"{p}.weight"], self.w[f"{p}.bias"]
-        if self.mode == "train":
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = (x * x).mean(dim=dims) - mean * mean
-        else:
-            if self.mode == "calibrate":
-                h = x.reshape(-1, x.shape[-1])
-                self.w[f"{p}.running_mean"].copy_(h.mean(dim=0))
-                self.w[f"{p}.running_var"].copy_(h.var(dim=0, unbiased=False))
-            mean = self.w[f"{p}.running_mean"]
-            var = self.w[f"{p}.running_var"]
-        return (x - mean) * (torch.rsqrt(var + EPS) * weight) + bias
+        """The BatchNorm that follows conv ``name``."""
+        return L.batch_norm(self.w, bn_name(name), x, self.mode)
 
     def mlp(self, names, x):
         for name in names:
             x = F.relu(self.bn(name, self.conv(name, x)))
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         """x [B, N, C] (block-relative xyz, normalized xyz, extras) ->
-        log-probs [B, N, num_classes]."""
+        (log-probs [B, N, num_classes], None: the loss takes nothing
+        else)."""
         cfg = self.cfg
         convs = [n for n, _, _, _ in layers(cfg)]
         B = x.shape[0]
@@ -180,4 +155,116 @@ class Net:
             mask = torch.rand(h.shape, generator=self.generator,
                               device=h.device) < keep
             h = torch.where(mask, h / keep, 0.0)
-        return F.log_softmax(self.conv("conv2", h), dim=-1)
+        return F.log_softmax(self.conv("conv2", h), dim=-1), None
+
+
+def loss(cfg: Dict, log_probs: torch.Tensor, target: torch.Tensor, aux,
+         class_weights: torch.Tensor) -> torch.Tensor:
+    """The weighted NLL over every point."""
+    C = cfg["num_classes"]
+    return F.nll_loss(log_probs.reshape(-1, C), target.reshape(-1),
+                      weight=class_weights)
+
+
+def levels(cfg: Dict, N: int) -> List[int]:
+    return [N] + [sa["npoint"] for sa in cfg["sa"]]
+
+
+def widths(cfg: Dict) -> List[int]:
+    """Channels of each level's features: the input, then each stage's."""
+    out = [cfg["in_channels"]]
+    for sa in cfg["sa"]:
+        out.append(sum(m[-1] for m in sa["mlp"]))
+    return out
+
+
+def gemms(cfg: Dict, B: int, N: int) -> List[Tuple[str, int, int, int]]:
+    """(stage, rows, in, out) of every conv of a forward at B x N."""
+    lv, w = levels(cfg, N), widths(cfg)
+    out = []
+    for i, sa in enumerate(cfg["sa"], start=1):
+        for k, mlp in zip(sa["nsample"], sa["mlp"]):
+            last = w[i - 1] + 3
+            for j, o in enumerate(mlp):
+                out.append((f"sa{i}.{j}", B * sa["npoint"] * k, last, o))
+                last = o
+    for i, lvl, fp in zip((4, 3, 2, 1), (3, 2, 1, 0), cfg["fp"]):
+        last = fp["in"]
+        for j, o in enumerate(fp["mlp"]):
+            out.append((f"fp{i}.{j}", B * lv[lvl], last, o))
+            last = o
+    out.append(("head.0", B * N, cfg["head"], cfg["head"]))
+    out.append(("head.1", B * N, cfg["head"], cfg["num_classes"]))
+    return out
+
+
+def forward_flops(cfg: Dict, B: int, N: int) -> int:
+    return sum(2 * r * i * o for _, r, i, o in gemms(cfg, B, N))
+
+
+def step_flops(cfg: Dict, B: int, N: int) -> int:
+    """Forward, weight gradients and the input gradients that are needed."""
+    total = 0
+    for stage, r, i, o in gemms(cfg, B, N):
+        total += 2 * 2 * r * i * o
+        if stage != "sa1.0":
+            total += 2 * r * i * o
+    return total
+
+
+def launches(cfg: Dict, B: int, N: int, train: bool) -> List[Dict]:
+    """The point-kernel launches of one forward (serving: exact gathers) or
+    one training step (fast gathers, then the backward kernels)."""
+    cost = counting.cost
+    lv, w = levels(cfg, N), widths(cfg)
+    gb = 2 if train else 4          # bytes of a grouped element
+    out = []
+    for i, sa in enumerate(cfg["sa"], start=1):
+        n, s, c = lv[i - 1], sa["npoint"], w[i - 1] + 3
+        out.append(cost("fps", B * n * 12 + B * 4 + B * s * 4,
+                        B * s * n * 10))
+        out.append(cost("group", 4 * (B * s + B * n * 3 + B * s * 3)
+                        + B * s * 12, B * s * 3))
+        ks = sa["nsample"]
+        out.append(cost("ball_query" if len(ks) == 1 else "ball_query_multi",
+                        B * n * 12 + B * s * 12 + B * s * sum(ks) * 4, 0))
+        for k in ks:
+            out.append(cost("group", 4 * (B * s * k + B * n * c + B * s * 3)
+                            + B * s * k * c * gb, B * s * k * 3))
+    fp_in = []
+    d = w[-1]
+    for i, lvl, fp in zip((4, 3, 2, 1), (3, 2, 1, 0), cfg["fp"]):
+        n1, s = lv[lvl], lv[lvl + 1]
+        out.append(cost("three_nn_interpolate",
+                        4 * (B * n1 * 3 + B * s * 3 + B * s * d + B * n1 * 6
+                             + B * n1 * d), B * n1 * 10 + B * n1 * d * 5))
+        fp_in.append((n1, s, d))
+        d = fp["mlp"][-1]
+    if train:
+        for i, sa in enumerate(cfg["sa"], start=1):
+            if i == 1:
+                continue        # the input carries no gradient
+            n, s, c = lv[i - 1], sa["npoint"], w[i - 1] + 3
+            for k in sa["nsample"]:
+                out.append(cost("group_backward",
+                                4 * B * s * k + 2 * B * s * k * c
+                                + 4 * B * n * c, B * s * k * c))
+        for n1, s, d in fp_in:
+            out.append(cost("interpolate_backward",
+                            4 * (B * n1 * 6 + B * n1 * d + B * s * d),
+                            B * n1 * 3 * d * 2))
+    return out
+
+
+def tiny(cfg: Dict):
+    """The configuration shrunk for the CPU tests (fewer centroids a
+    stage), and the program's sizes that match it: -> (cfg, [(attribute,
+    index, key, value)]), each to set as ``<model module>.<attribute>
+    [index][key] = value`` (the program's models read their centroid
+    counts from ``SA_CFGS``)."""
+    cfg = copy.deepcopy(cfg)
+    program = []
+    for i, (sa, n) in enumerate(zip(cfg["sa"], TINY_NPOINT)):
+        sa["npoint"] = n
+        program.append(("SA_CFGS", i, "npoint", n))
+    return cfg, program

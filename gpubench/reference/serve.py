@@ -28,7 +28,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from gpubench.reference.pointnet2 import Net
+from gpubench import spec
 
 
 def vote_seed(seed: int, tile: int, vote: int) -> int:
@@ -129,14 +129,14 @@ def vote_pool(cfg: Dict, weights, tile: Dict, seed: int, tile_index: int,
     P, size = serve["block_points"], serve["block_size"]
     lay = layout(grid_columns(xyz, size, serve["stride"], serve["padding"]),
                  P, xyz.device)
-    net = Net(cfg, weights, "eval")
+    net = spec.architecture(cfg).Net(cfg, weights, "eval")
     pool = torch.zeros(n * C, dtype=torch.float32, device=xyz.device)
     for vote in range(serve["votes"]):
         blocks = reblock(lay, seed, tile_index, vote, P)
         for s in range(0, blocks.shape[0], REF_BATCH):
             idx, off = blocks[s:s + REF_BATCH], lay[4][s:s + REF_BATCH]
             pred = net.forward(features(xyz, extra, color, idx, off,
-                                        size)).argmax(-1)
+                                        size))[0].argmax(-1)
             flat = idx.reshape(-1) * C + pred.reshape(-1)
             pool += torch.bincount(flat, minlength=n * C).float()
     return pool.view(n, C)

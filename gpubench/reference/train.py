@@ -27,8 +27,9 @@ semantics as the device pipeline draws them):
 - Features: x - cx, y - cy, z, xyz / the room's max (f32), the extras.
 
 The step: a rotation about z by ``2 pi u`` (one uniform a block), the
-training forward (FPS starts and dropout drawn after it, fast gathers), the
-weighted NLL, its gradients, and Adam (betas 0.9, 0.999, eps 1e-8, the
+training forward of the configuration's architecture (``spec.architecture``:
+its draws after the rotation, the gathers fast where the configuration says
+so), its loss, the gradients, and Adam (betas 0.9, 0.999, eps 1e-8, the
 weight decay added to the gradient; on the card with its step count, bias
 corrections and learning rate as f32 device tensors, as a CUDA graph holds
 them).
@@ -41,10 +42,9 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-from torch.nn import functional as F
 
+from gpubench import spec
 from gpubench.reference import ops
-from gpubench.reference.pointnet2 import Net, leaves
 
 BIN_FRACTION = 0.6
 CAP_GRANULE = 256
@@ -207,8 +207,9 @@ def train_calls(cfg: Dict, weights: Dict[str, torch.Tensor], rooms: Rooms,
     v}} it begins at step s (its draws and Adam's step count) with Adam's
     first and second moments m and v."""
     device = rooms.device
+    arch = spec.architecture(cfg)
     params = {k: v.detach().clone() for k, v in weights.items()}
-    names = leaves(params)
+    names = arch.leaves(params)
     for n in names:
         params[n].requires_grad_(True)
     card = torch.device(device).type == "cuda"
@@ -227,7 +228,6 @@ def train_calls(cfg: Dict, weights: Dict[str, torch.Tensor], rooms: Rooms,
                                      device=device if card else "cpu"),
                 "exp_avg": start["moments"][n].to(device).clone(),
                 "exp_avg_sq": start["squares"][n].to(device).clone()}
-    C = cfg["num_classes"]
     losses, first = [], None
     for ids in calls:
         k = ids.shape[0]
@@ -244,10 +244,10 @@ def train_calls(cfg: Dict, weights: Dict[str, torch.Tensor], rooms: Rooms,
             angles = torch.rand(x.shape[0], generator=g,
                                 device=device) * (2 * math.pi)
             x = torch.cat([ops.rotate_z(x[..., :3], angles), x[..., 3:]], -1)
-            logp = Net(cfg, params, "train", fast=train["fast_gather"],
-                       generator=g).forward(x)
-            loss = F.nll_loss(logp.reshape(-1, C), labels[i].reshape(-1),
-                              weight=class_weights)
+            logp, aux = arch.Net(cfg, params, "train",
+                                 fast=train["fast_gather"],
+                                 generator=g).forward(x)
+            loss = arch.loss(cfg, logp, labels[i], aux, class_weights)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if first is None:

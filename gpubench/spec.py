@@ -1,8 +1,10 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration
-(``configs/<name>.json``), its traffic mix (``traffic/<name>.json``), the
-loop that mix drives (``loops/<loop>.py``) and each per-layer metric's
-reader (``metrics/<name>.py``). Nothing is listed in code: a file is found
-by the name that ``BENCHMARK.json`` gives it."""
+(``configs/<name>.json``) and its architecture module
+(``reference/<architecture>.py``, by the configuration's
+``architecture``), its traffic mix (``traffic/<name>.json``), the loop
+that mix drives (``loops/<loop>.py``) and each per-layer metric's reader
+(``metrics/<name>.py``). Nothing is listed in code: a file is found by the
+name that ``BENCHMARK.json`` or the configuration gives it."""
 
 from __future__ import annotations
 
@@ -19,6 +21,11 @@ BENCHMARK = ROOT / "BENCHMARK.json"
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+MODULE = re.compile(r"^[a-z_][a-z0-9_]*$")
+
+# what an architecture module gives (``gpubench/README.md``)
+ARCHITECTURE = ("make_weights", "Net", "leaves", "loss", "forward_flops",
+                "step_flops", "launches")
 
 
 def load_benchmark(path: Path = BENCHMARK) -> Dict:
@@ -50,9 +57,24 @@ def traffic(name: str) -> Dict:
 
 def loop(name: str):
     """The module ``gpubench.loops.<name>``."""
-    if not re.match(r"^[a-z_][a-z0-9_]*$", name):
+    if not MODULE.match(name):
         raise ValueError(f"bad loop name {name!r}")
     return importlib.import_module(f"gpubench.loops.{name}")
+
+
+def architecture(cfg: Dict):
+    """The module ``gpubench.reference.<cfg["architecture"]>``: the
+    architecture's reference, loss and counts, each of ``ARCHITECTURE``."""
+    name = cfg["architecture"]
+    if not MODULE.match(name):
+        raise ValueError(f"bad architecture name {name!r}")
+    module = importlib.import_module(f"gpubench.reference.{name}")
+    missing = [f for f in ARCHITECTURE if not callable(getattr(module, f,
+                                                               None))]
+    if missing:
+        raise AttributeError(f"architecture module {module.__name__} lacks "
+                             + ", ".join(missing))
+    return module
 
 
 def reader(metric: str):

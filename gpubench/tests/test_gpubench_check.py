@@ -4,7 +4,8 @@ cell reads correct as the program runs, and not correct with the control
 underneath: a vote or a step that leaves the state unchanged, half of the
 blocks or of the batch left out, an answer altered where it is made; and
 a fault that spares the set-up and breaks only the window's tiles or
-calls."""
+calls. The fixture cells (``tiny.FIXTURE_CELLS``) run the same loops on
+PointNet, an architecture that no cell of the benchmark runs."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import pytest
 from gpubench import faults, spec
 from gpubench.tests import tiny
 
-CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]] + list(
+    tiny.FIXTURE_CELLS)
 
 
 def _failed(line):
@@ -33,10 +35,12 @@ def test_control_bf16_is_not_correct(monkeypatch, workload):
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered", "late"])
-@pytest.mark.parametrize("workload", ["ssg.serve.facade", "ssg.train.facade"])
+@pytest.mark.parametrize("workload", ["ssg.serve.facade", "ssg.train.facade",
+                                      *tiny.FIXTURE_CELLS])
 def test_broken_timed_path_is_not_correct(monkeypatch, workload, fault):
+    like = tiny.FIXTURE_CELLS.get(workload, (None, workload))[1]
     loop = spec.traffic(spec.cell(spec.load_benchmark(),
-                                  workload)["traffic"])["loop"]
+                                  like)["traffic"])["loop"]
     faults.plant(loop, fault, monkeypatch)
     line = tiny.execute(monkeypatch, workload)
     assert not line["correct"], (fault, line["checks"])

@@ -2,7 +2,7 @@
 launches agree with the configuration's count; a family whose launches do
 not agree keeps its device time in the share and loses its least time, so
 the share falls and the result names it; a trace that lost launches
-raises."""
+raises; an architecture whose count holds no launch reads no share."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import pytest
 
 from gpubench import counting, spec
 from gpubench.metrics import _common
+from gpubench.tests import tiny
 from gpubench.trace import FAMILIES
 
 FORWARDS = 10
@@ -22,7 +23,7 @@ def _ctx(drop_group=0):
     """A serving window of FORWARDS SSG forwards, each launch 10 us on the
     device; ``drop_group`` group launches fewer a forward than counted."""
     cfg = spec.config("pointnet2_ssg")
-    per = counting.launches(cfg, 32, 4096, False)
+    per = spec.architecture(cfg).launches(cfg, 32, 4096, False)
     kernels, launches = [], {}
     for _ in range(FORWARDS):
         skipped = 0
@@ -68,8 +69,22 @@ def test_a_trace_that_lost_launches_raises():
         _common.roofline(ctx)
 
 
-def test_families_cover_the_counted_kernels():
-    cfg = spec.config("pointnet2_msg")
+@pytest.mark.parametrize("name", [c["name"] for c in
+                                  spec.load_benchmark()["configs"]])
+def test_families_cover_the_counted_kernels(name):
+    cfg = spec.config(name)
     kinds = {c["kernel"] for train in (False, True)
-             for c in counting.launches(cfg, 2, 256, train)}
+             for c in spec.architecture(cfg).launches(cfg, 2, 256, train)}
     assert kinds <= {k for names in FAMILIES.values() for k in names}
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_no_point_kernel_reads_no_share(train):
+    cfg = tiny.full_config("pointnet")
+    ctx = {"trace": {"kernels": [("gemm", 1.0)]}, "device": "cuda",
+           "cfg": cfg, "batch": 32, "points": 4096, "train": train,
+           "forwards": FORWARDS, "steps": FORWARDS, "launches": {}}
+    assert _common.roofline(ctx) is None
+    assert ctx["roofline_families"] == {}
+    ctx["window_s"] = 1.0
+    assert _common.mfu(ctx) > 0

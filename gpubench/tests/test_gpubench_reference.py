@@ -3,7 +3,9 @@ CPU at tiny sizes: the reference's point ops against the plain versions of
 ``tumseg_torch.ops.core`` (forward and backward), the reference model
 against the port's models, the reference's re-blocking and features
 against the runner's, its block sampling against ``DeviceBlockSampler``,
-and the FLOP and launch counts against ``tools/roofline.py``."""
+and the FLOP and launch counts against ``tools/roofline.py``, for every
+configuration of the benchmark and the test configurations
+(``tests/configs/``)."""
 
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ import torch
 from gpubench import counting, spec, tiles
 from gpubench.loops import serve_tiles
 from gpubench.reference import ops as R
-from gpubench.reference import pointnet2, serve as RS, train as RT
+from gpubench.reference import serve as RS, train as RT
 from gpubench.tests import tiny
 from tumseg_torch.ops import core
+
+CONFIGS = [c["name"] for c in spec.load_benchmark()["configs"]] + [
+    "pointnet"]
 
 
 @pytest.fixture
@@ -74,48 +79,63 @@ def test_rotation():
     assert torch.equal(R.rotate_z(x, a), rotate_z(x, a))
 
 
-@pytest.mark.parametrize("name", ["pointnet2_ssg", "pointnet2_msg"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_model_forward_and_gradients(monkeypatch, name):
     from tumseg_torch import models
 
-    cfg = tiny.config(name)
-    tiny.program_sizes(monkeypatch, cfg)
-    w = pointnet2.make_weights(cfg, 3, torch.device("cpu"))
+    cfg, program = tiny.config(name)
+    tiny.program_sizes(monkeypatch, cfg, program)
+    arch = spec.architecture(cfg)
+    w = arch.make_weights(cfg, 3, torch.device("cpu"))
     prog = models.get_module(cfg["model"]).get_model(18, 3)
     prog.load_state_dict({k: v.clone() for k, v in w.items()})
     x = torch.rand(2, 128, 9)
     with torch.no_grad():
         assert torch.equal(prog.eval()(x)[0],
-                           pointnet2.Net(cfg, w, "eval").forward(x))
+                           arch.Net(cfg, w, "eval").forward(x)[0])
     g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
     prog.train()
-    lp = prog(x, generator=g1, fast_gather=True)[0]
+    lp, aux = prog(x, generator=g1, fast_gather=True)
     params = {k: v.clone().requires_grad_(k in dict(prog.named_parameters()))
               for k, v in w.items()}
-    ref = pointnet2.Net(cfg, params, "train", fast=True,
-                        generator=g2).forward(x)
+    ref, ref_aux = arch.Net(cfg, params, "train", fast=True,
+                            generator=g2).forward(x)
     assert torch.equal(lp, ref)
-    lp.sum().backward()
-    ref.sum().backward()
+    lp.sum().backward(retain_graph=True)
+    ref.sum().backward(retain_graph=True)
     for n, p in prog.named_parameters():
         assert torch.allclose(p.grad, params[n].grad, rtol=1e-5,
                               atol=1e-6), n
+        p.grad, params[n].grad = None, None
+    # the loss that training runs, its gradients held to the same 1e-6 of
+    # the largest gradient as the log-probs' (each about 1 there)
+    target = torch.randint(0, 18, (2, 128))
+    cw = torch.rand(18) + 0.5
+    loss = prog.loss(lp, target, aux, cw)
+    ref_loss = arch.loss(cfg, ref, target, ref_aux, cw)
+    assert torch.equal(loss, ref_loss)
+    loss.backward()
+    ref_loss.backward()
+    scale = max(params[n].grad.abs().max() for n, _ in prog.named_parameters())
+    for n, p in prog.named_parameters():
+        assert torch.allclose(p.grad, params[n].grad, rtol=1e-5,
+                              atol=1e-6 * scale), n
 
 
-def test_weights_load_strict_into_the_port():
+@pytest.mark.parametrize("name", CONFIGS)
+def test_weights_load_strict_into_the_port(name):
     from tumseg_torch import models
 
-    for name in ("pointnet2_ssg", "pointnet2_msg"):
-        cfg = spec.config(name)
-        w = pointnet2.make_weights(cfg, 1, torch.device("cpu"))
-        models.get_module(cfg["model"]).get_model(18, 3).load_state_dict(w)
+    cfg = tiny.full_config(name)
+    w = spec.architecture(cfg).make_weights(cfg, 1, torch.device("cpu"))
+    models.get_module(cfg["model"]).get_model(18, 3).load_state_dict(w)
 
 
 def test_reblocking_and_features(monkeypatch):
     from tumseg_torch import models
     from tumseg_torch.infer.voting import InferenceRunner, featurize
 
-    cfg = tiny.config("pointnet2_ssg")
+    cfg = tiny.config("pointnet2_ssg")[0]
     mix = tiny.mix("facade_tiles")
     tile = tiles.make_tiles(mix, 5, [3000], 18, "cpu")[0]
     ds = serve_tiles._dataset(cfg)
@@ -165,24 +185,31 @@ def test_block_sampling():
     assert torch.equal(ours, pts) and torch.equal(our_lab, lab)
 
 
-@pytest.mark.parametrize("name", ["pointnet2_ssg", "pointnet2_msg"])
+# the configurations that the port's roofline tool knows, and their
+# point-kernel launches of a B=32 forward and of a B=16 training step
+LAUNCHES = {"pointnet2_ssg": (20, 27), "pointnet2_msg": (24, 34),
+            "pointnet": (0, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
 def test_counts_against_the_roofline_tool(name):
     from tumseg_torch import models
     from tumseg_torch.tools import roofline
 
-    cfg = spec.config(name)
+    cfg = tiny.full_config(name)
+    arch = spec.architecture(cfg)
     model = models.get_module(cfg["model"]).get_model(18, 3)
     layers, bmm = roofline.gemm_layers(model, 32, 4096)
     assert [(r, i, o) for _, r, i, o in layers] == [
-        (r, i, o) for _, r, i, o in counting.gemms(cfg, 32, 4096)]
-    assert counting.forward_flops(cfg, 32, 4096) == sum(
+        (r, i, o) for _, r, i, o in arch.gemms(cfg, 32, 4096)]
+    assert arch.forward_flops(cfg, 32, 4096) == sum(
         2 * r * i * o for _, r, i, o in layers) + bmm
-    per = counting.launches(cfg, 32, 4096, train=False)
-    assert per[0]["nbytes"] == roofline.fps_cost(32, 4096, 1024)["nbytes"]
-    assert per[0]["ops"] == roofline.fps_cost(32, 4096, 1024)["ops"]
-    msg = name == "pointnet2_msg"
-    assert len(per) == (24 if msg else 20)
-    assert len(counting.launches(cfg, 16, 4096, train=True)) == (
-        34 if msg else 27)
+    per = arch.launches(cfg, 32, 4096, train=False)
+    if per:
+        assert per[0]["nbytes"] == roofline.fps_cost(32, 4096,
+                                                     1024)["nbytes"]
+        assert per[0]["ops"] == roofline.fps_cost(32, 4096, 1024)["ops"]
+    assert (len(per), len(arch.launches(cfg, 16, 4096, train=True))) == \
+        LAUNCHES[name]
     assert counting.HBM_BYTES_PER_S == roofline.HBM_BYTES_PER_S
     assert counting.F32_FLOPS_PER_S == roofline.F32_OPS_PER_S
