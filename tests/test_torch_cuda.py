@@ -28,11 +28,17 @@ operands are bf16, so the products are exact and the f32 sums rarely
 round).
 
 BatchNorm + ReLU (csrc/batch_norm.cu): the apply bitwise the eager chain
-at every (M, C) of the SSG, MSG and PointNet forwards at B=32 and B=16,
-ReLU on and off, f32 and bf16 stores; ``BatchNormReLU``'s output, running
-stats and gradients bitwise the eager chain's and autograd's; two runs and
-a captured training step bitwise their eager calls; the launches of a
-forward and of a step."""
+at every (M, C) of the SSG, MSG, PointNet and PointNeXt-XL forwards at
+B=32 and B=16, ReLU on and off, f32 and bf16 stores; ``BatchNormReLU``'s
+output, running stats and gradients bitwise the eager chain's and
+autograd's; two runs and a captured training step bitwise their eager
+calls; the launches of a forward and of a step.
+
+PointNeXt-XL: the ball query, the group and its backward at each of the
+19 groupings of a B=16 step, the 3-NN interpolation and its backward at
+each of its four feature propagations (D up to 1024), the model's forward
+and step against ``ops.plain()`` and its 8-step graph against its eager
+calls."""
 
 import contextlib
 
@@ -996,7 +1002,7 @@ def _bn_shapes(cuda, name, B, N=4096):
 
 
 BN_LAYERS = {"pointnet2_sem_seg": 22, "pointnet2_sem_seg_msg": 34,
-             "pointnet_sem_seg": 16}
+             "pointnet_sem_seg": 16, "pointnext_sem_seg": 58}
 BN_KERNELS = ("bn_apply", "bn_backward_terms", "bn_backward_dx")
 
 
@@ -1063,9 +1069,12 @@ def _bn_both(cuda, shape, relu, train, dtype, misaligned, seed=0):
     return out
 
 
+# the last three PointNeXt-XL's at B=16: stage 1's aggregations (M =
+# 524,288), res4's expansion (C = 4096) and stage 4's aggregations
 BN_CASES = [(1, 32), (7, 3), (33, 196), (4097, 32), (1000, 1030),
             (300, 1040), (65536, 64), (16, 512), (2, 64, 32, 64),
-            (16, 256, 32, 128), (4, 1024, 128), (16, 16, 32, 512)]
+            (16, 256, 32, 128), (4, 1024, 128), (16, 16, 32, 512),
+            (16, 1024, 32, 128), (16, 16, 4096), (16, 16, 32, 1024)]
 
 
 @pytest.mark.parametrize("misaligned", [False, True])
@@ -1197,3 +1206,200 @@ def test_batch_norm_refuses_what_it_does_not_take(cuda):
         kernels.bn_backward_dx(x, x, c, c[:4])
     assert sum(kernels.launches.values()) == 0
     assert kernels.plain_calls["batch_norm_plain"] == 0
+
+
+# -- PointNeXt-XL (tumseg_torch/models/pointnext_sem_seg.py) ------------------
+
+# (B, N, S, C, r) of its groupings in a B=16 step: the four set
+# abstractions (S = N / 4 FPS centroids, C = the previous width + 3) and
+# the InvResMLPs' local aggregations (the queries the level's own points,
+# S = N, C = width + 3)
+PNX_AGGREGATIONS = [(16, 4096, 1024, 67, 0.1), (16, 1024, 256, 131, 0.2),
+                    (16, 256, 64, 259, 0.4), (16, 64, 16, 515, 0.8),
+                    (16, 1024, 1024, 131, 0.2), (16, 256, 256, 259, 0.4),
+                    (16, 64, 64, 515, 0.8), (16, 16, 16, 1027, 1.6)]
+
+
+def _pnx_levels(rng, B):
+    """xyz [B, N, 3] of each level of a B x 4096 step, 4096 to 16 points:
+    1 m facade blocks, each level the FPS centroids of the one before."""
+    pts = _fps_points("facade", rng, B, 4096)
+    pts[..., 2] *= 0.1              # a 1 m block
+    levels = [torch.as_tensor(pts, device="cuda")]
+    while levels[-1].shape[1] > 16:
+        src = levels[-1]
+        levels.append(core.gather_rows(src, kernels.farthest_point_sample(
+            src, src.shape[1] // 4)).contiguous())
+    return {x.shape[1]: x for x in levels}
+
+
+@pytest.mark.parametrize("B,N,S,C,r", PNX_AGGREGATIONS)
+def test_pointnext_aggregation_kernels_match_plain(cuda, B, N, S, C, r):
+    """At each grouping of a B=16 step, on facade-shaped levels: the ball
+    query (its queries the level's FPS centroids, or the support points
+    themselves) bitwise its plain version on the card, the group in both
+    modes bitwise, and the group backward of a bf16 cotangent bitwise the
+    plain version on the CPU."""
+    rng = np.random.default_rng(21)
+    levels = _pnx_levels(rng, B)
+    xyz, queries = levels[N], levels[S]
+    idx = kernels.query_ball_point(r, 32, xyz, queries)
+    want = core.query_ball_point(r, 32, xyz, queries)
+    assert torch.equal(idx, want)
+    if S == N:
+        assert (idx[..., 0] <= torch.arange(N, device=cuda)).all()
+    src = torch.cat([xyz, torch.as_tensor(rng.standard_normal(
+        (B, N, C - 3)).astype(np.float32), device=cuda)], dim=-1)
+    for fast in (False, True):
+        got = kernels.group_points(idx, src, queries, fast=fast)
+        assert torch.equal(got, core.group_points(idx, src, queries,
+                                                  fast=fast))
+    g = torch.as_tensor(rng.standard_normal((B, S, 32, C)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+    got, want = _backward_runs(idx, g, N, fast=True)
+    assert torch.equal(got.cpu(), want)
+
+
+# (N, S, D) of its feature propagations fp1-fp4 in a B=16 step: the
+# deeper level's features, D up to 1024, onto the shallower level's points
+PNX_DECODER = [(4096, 1024, 128), (1024, 256, 256), (256, 64, 512),
+               (64, 16, 1024)]
+
+
+@pytest.mark.parametrize("N,S,D", PNX_DECODER)
+def test_pointnext_decoder_kernels_match_plain(cuda, N, S, D):
+    """At each feature propagation of a B=16 step, on facade-shaped
+    levels, in both modes: the 3-NN's indices and distances identical to
+    the plain version, the interpolation within rtol 1e-5 / atol 1e-6, and
+    the interpolation backward bitwise the plain version on the CPU and
+    itself across runs."""
+    B = 16
+    rng = np.random.default_rng(22)
+    levels = _pnx_levels(rng, B)
+    xyz1, xyz2 = levels[N], levels[S]
+    p2 = torch.as_tensor(rng.standard_normal((B, S, D)).astype(np.float32),
+                         device=cuda)
+    g = torch.as_tensor(rng.standard_normal((B, N, D)).astype(np.float32),
+                        device=cuda)
+    for fast in (False, True):
+        dk, ik, ok = kernels.three_nn_interpolate(xyz1, xyz2, p2, fast)
+        dp, ip, op = core.three_nn_interpolate(xyz1, xyz2, p2, fast)
+        assert torch.equal(ik, ip) and torch.equal(dk, dp)
+        torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-6)
+        _interp_backward_bitwise(ik, core.interpolation_weights(dk), g, S,
+                                 fast)
+
+
+def _pointnext(cuda, B, N, seed=0):
+    """A seeded PointNeXt-XL (8 classes, 3 extra channels) on the card, its
+    BatchNorm statistics calibrated on ``x`` [B, N, 9] -> (model, x)."""
+    from tumseg_torch.models.pointnext_sem_seg import get_model
+    from tumseg_torch.nn.layers import calibrate_batch_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    pts = _fps_points("facade", rng, B, N)
+    pts[..., 2] *= 0.1
+    x = torch.as_tensor(np.concatenate(
+        [pts, pts + 0.5, rng.random((B, N, 3))], -1).astype(np.float32),
+        device=cuda)
+    torch.manual_seed(seed)
+    model = get_model(8, 3).to(cuda).eval()
+    calibrate_batch_norm(model, x)
+    return model, x
+
+
+PNX_FORWARD = {"fps": 4, "ball_query": 19, "ball_query_multi": 0,
+               "group": 23, "three_nn_interpolate": 4, "group_backward": 0,
+               "interpolate_backward": 0, "three_nn_window": 0,
+               "fused_ball_group": 0, "bn_apply": 58,
+               "bn_backward_terms": 0, "bn_backward_dx": 0}
+
+
+def test_pointnext_forward_and_step_match_plain(cuda):
+    """The eval forward with the kernels against ops.plain() on the card
+    (the log-probs within 1e-4, the labels on 99.9% of the points) and
+    its launches; a step (exact gathers, eval-mode BatchNorm on the
+    calibrated statistics, where it is well conditioned): the loss within
+    1e-5 and every parameter's gradient within 1e-4 of its norm, and the
+    launches of a training step: a group backward for each of the 19
+    groups, the three BatchNorm kernels once a layer."""
+    model, x = _pointnext(cuda, 2, 2048)
+    target = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 8, (2, 2048)), device=cuda)
+    weight = torch.ones(8, device=cuda)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model(x)[0]
+        counts = dict(kernels.launches)
+        with ops.plain():
+            want = model(x)[0]
+    assert counts == PNX_FORWARD
+    assert (got - want).abs().max().item() <= 1e-4
+    assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.999
+
+    def step():
+        loss = model.loss(model(x, fast_gather=False)[0], target, None,
+                          weight)
+        return (loss,) + torch.autograd.grad(loss, list(model.parameters()))
+
+    kernels.reset_launches()
+    got = step()
+    with ops.plain():
+        want = step()
+    assert abs(got[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
+    for a, b in zip(got[1:], want[1:]):
+        assert (a - b).norm().item() <= 1e-4 * b.norm().item() + 1e-12
+    kernels.reset_launches()
+    model.train()(x, fast_gather=True)[0].square().mean().backward()
+    assert kernels.launches["group_backward"] == 19
+    assert kernels.launches["interpolate_backward"] == 4
+    assert {k: kernels.launches[k] for k in BN_KERNELS} == dict.fromkeys(
+        BN_KERNELS, 58)
+    assert kernels.plain_calls["batch_norm_plain"] == 0
+
+
+def test_pointnext_superstep_graph_bitwise_eager(cuda):
+    """Three 8-step room-id calls of ``TrainEngine`` on the device
+    pipeline, as a CUDA graph (the first call eager, the second captured,
+    the third replayed) and with ``cuda_graphs=False``, from the same
+    weights and seeds: the losses and the parameters after each call bit
+    for bit."""
+    from tumseg_torch.data.device_sampler import DeviceBlockSampler
+    from tumseg_torch.models.pointnext_sem_seg import get_model
+    from tumseg_torch.train.loop import TrainEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    rooms = []
+    for n in (30000, 24000):
+        xyz = np.stack([rng.uniform(0, 3, n), rng.uniform(0, 2, n),
+                        rng.uniform(0, 4, n)], 1)
+        rooms.append((xyz, rng.integers(0, 8, n),
+                      [rng.integers(0, 256, n).astype(np.float64)
+                       for _ in range(3)]))
+    torch.manual_seed(0)
+    state = get_model(8, 3).state_dict()
+    ids = rng.integers(0, 2, (3, 8, 4))
+    runs = []
+    for graphs in (True, False):
+        sampler = DeviceBlockSampler([r[0] for r in rooms],
+                                     [r[1] for r in rooms],
+                                     [r[2] for r in rooms], [True] * 3,
+                                     num_point=1024, min_block_points=512,
+                                     device=cuda)
+        model = get_model(8, 3)
+        model.load_state_dict(state)
+        engine = TrainEngine(model, 8, np.ones(8, np.float32), seed=9,
+                             device=cuda, sampler=sampler,
+                             cuda_graphs=graphs)
+        out = []
+        for call in ids:
+            losses, _ = engine.train_batch_rooms_multi(call, 1e-3, 0.1)
+            out.append([losses.clone()] + [p.detach().clone()
+                                           for p in model.parameters()])
+        runs.append(out)
+    for got, want in zip(*runs):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

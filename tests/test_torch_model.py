@@ -174,9 +174,11 @@ FROZEN_EXTRA = {"pointnet2_sem_seg_original": 3, "pointnet2_sem_seg_trial": 0,
 @pytest.mark.parametrize("name", [*models.AVAILABLE,
                                   "pointnet2_sem_seg_geo_trial"])
 def test_registry(name):
-    """Every name of tumseg's registry resolves to the port's module of
-    that name (the alias to the SSG model); a frozen variant builds its
-    pinned channel count and rejects any other, a live model takes any."""
+    """Every name of the port's registry (tumseg's, the alias to the SSG
+    model included, and the port's own PointNeXt-XL, which tumseg lacks)
+    resolves to the port's module of that name; a frozen variant builds
+    its pinned channel count and rejects any other, a live model takes
+    any."""
     live = {"pointnet2_sem_seg_geo_trial": "pointnet2_sem_seg"}.get(name,
                                                                      name)
     mod = models.get_module(name)

@@ -1,5 +1,6 @@
-"""Model registry with the names of ``tumseg/models/__init__.py``. Each
-module exposes ``get_model(num_classes, num_extra_features)``."""
+"""Model registry with the names of ``tumseg/models/__init__.py``, and the
+port's own ``pointnext_sem_seg`` (PointNeXt-XL, which ``tumseg`` lacks).
+Each module exposes ``get_model(num_classes, num_extra_features)``."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ _ALIASES = {"pointnet2_sem_seg_geo_trial": "pointnet2_sem_seg"}
 
 AVAILABLE = ["pointnet2_sem_seg", "pointnet2_sem_seg_msg", "pointnet_sem_seg",
              "pointnet2_sem_seg_original", "pointnet2_sem_seg_trial",
-             "pointnet_sem_seg_original"]
+             "pointnet_sem_seg_original", "pointnext_sem_seg"]
 
 
 def get_module(name: str) -> ModuleType:

@@ -11,7 +11,10 @@ list of such lists, one per scale, the port's ``<stage>.conv_blocks.s.j`` /
 ``<stage>.bn_blocks.s.j``. Any other entry with ``"w"`` is a conv or, under
 a name that starts with ``fc``, a Linear (``[out, in]``), one with
 ``"scale"`` a batch norm, and any other dict a module of such entries, as
-PointNet's ``feat``, ``feat.stn`` and ``feat.fstn``.
+PointNet's ``feat``, ``feat.stn`` and ``feat.fstn``, or PointNeXt's
+``res<i>.<j>`` blocks, whose local aggregation's conv (``*.aggr.*``) is
+``[out, in, 1, 1]`` like a set abstraction's. A conv without a bias
+(PointNeXt's that a BatchNorm follows) has no ``"b"``.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ _STACKS = ("mlp_convs", "mlp_bns", "conv_blocks", "bn_blocks")
 
 
 def _conv_rank(path: str) -> int:
-    """Trailing 1-dims of the weight at ``path`` (a dotted module path)."""
-    if path.startswith("sa"):
+    """Trailing 1-dims of the weight at ``path`` (a dotted module path): 2
+    for a conv over grouped neighbourhoods (a set abstraction's, ``sa*``,
+    or a PointNeXt local aggregation's, ``*.aggr.*``)."""
+    if path.startswith("sa") or ".aggr." in path:
         return 2
     return 0 if path.rsplit(".", 1)[-1].startswith("fc") else 1
 
@@ -49,10 +54,17 @@ def _bn(sd: Dict, prefix: str, params, stats) -> None:
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _conv(sd: Dict, prefix: str, p, rank: int) -> None:
+    """A conv's weight, and its bias where it has one (PointNeXt's convs
+    that a BatchNorm follows have none)."""
+    sd[f"{prefix}.weight"] = _weight(p["w"], rank)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _tensor(p["b"])
+
+
 def _stack(sd: Dict, convs: str, bns: str, layers, stats, rank: int) -> None:
     for j, (layer, s) in enumerate(zip(layers, stats)):
-        sd[f"{convs}.{j}.weight"] = _weight(layer["conv"]["w"], rank)
-        sd[f"{convs}.{j}.bias"] = _tensor(layer["conv"]["b"])
+        _conv(sd, f"{convs}.{j}", layer["conv"], rank)
         _bn(sd, f"{bns}.{j}", layer["bn"], s)
 
 
@@ -74,8 +86,7 @@ def _emit(sd: Dict, prefix: str, params: Dict, stats: Dict) -> None:
             _stack(sd, f"{path}.mlp_convs", f"{path}.mlp_bns", p, s,
                    _conv_rank(path))
         elif "w" in p:
-            sd[f"{path}.weight"] = _weight(p["w"], _conv_rank(path))
-            sd[f"{path}.bias"] = _tensor(p["b"])
+            _conv(sd, path, p, _conv_rank(path))
         elif "scale" in p:
             _bn(sd, path, p, s)
         else:
@@ -101,8 +112,9 @@ def variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict:
         else:
             w = m["weight"]
             p = {"w": np.ascontiguousarray(w.reshape(w.shape[0],
-                                                     w.shape[1]).T),
-                 "b": m["bias"].copy()}
+                                                     w.shape[1]).T)}
+            if "bias" in m:
+                p["b"] = m["bias"].copy()
             s = None
         parts = prefix.split(".")
         if len(parts) < 3 or parts[1] not in _STACKS:

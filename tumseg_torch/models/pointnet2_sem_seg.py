@@ -13,7 +13,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from tumseg_torch.nn.layers import (BatchNorm, Dense, FeaturePropagation,
-                                    SetAbstraction, weighted_nll_loss)
+                                    SetAbstraction, dropout,
+                                    weighted_nll_loss)
 
 SA_CFGS = [
     dict(npoint=1024, radius=0.1, nsample=32, mlp=[32, 32, 64]),
@@ -96,10 +97,7 @@ class PointNet2SemSeg(nn.Module):
                                            mesh)
         h = self.bn1(self.conv1(feat, compute_dtype), mesh, relu=True)
         if draw:
-            keep = 1.0 - DROPOUT_RATE
-            mask = torch.rand(h.shape, generator=generator,
-                              device=h.device) < keep
-            h = torch.where(mask, h / keep, 0.0)
+            h = dropout(h, DROPOUT_RATE, generator)
         return (F.log_softmax(self.conv2(h, compute_dtype), dim=-1),
                 l_points[4])
 

@@ -1,5 +1,6 @@
 """PointNet++ and PointNet layers as ``nn.Module``s, channels-last
-(``tumseg/nn/layers.py:37-417``).
+(``tumseg/nn/layers.py:37-417``), and PointNeXt's (arXiv:2206.04670, as
+openpoints builds it), which the JAX package does not have.
 
 Weights keep the reference's conv shapes — ``[out, in, 1, 1]`` in the set
 abstractions, ``[out, in, 1]`` in feature propagation and the head — so
@@ -37,6 +38,7 @@ from torch.nn import functional as F
 
 from tumseg_torch import ops
 from tumseg_torch.parallel.mesh import psum
+from tumseg_torch.utils.profiling import span
 
 
 class Dense(nn.Module):
@@ -49,24 +51,31 @@ class Dense(nn.Module):
     and bias (``dense_init_torch_default``), its Conv1d layers. The default,
     None, is "xavier" for the set abstractions' convs (``conv_rank=2``) and
     "torch_default" for the FP and head convs (``conv_rank=1``).
-    ``conv_rank=0`` is a Linear's ``[out, in]`` weight."""
+    ``conv_rank=0`` is a Linear's ``[out, in]`` weight. ``bias=False``
+    leaves the bias out (``self.bias`` None), as PointNeXt's convs that a
+    BatchNorm follows have none."""
 
     def __init__(self, in_dim: int, out_dim: int, conv_rank: int,
-                 init: Optional[str] = None):
+                 init: Optional[str] = None, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_dim, in_dim, *([1] * conv_rank)))
-        self.bias = nn.Parameter(torch.empty(out_dim))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_dim))
+        else:
+            self.register_parameter("bias", None)
         if init is None:
             init = "xavier" if conv_rank == 2 else "torch_default"
         if init == "xavier":
             std = math.sqrt(2.0 / (in_dim + out_dim))
             nn.init.normal_(self.weight, std=std)
-            nn.init.zeros_(self.bias)
+            if bias:
+                nn.init.zeros_(self.bias)
         else:
             bound = 1.0 / math.sqrt(in_dim)
             nn.init.uniform_(self.weight, -bound, bound)
-            nn.init.uniform_(self.bias, -bound, bound)
+            if bias:
+                nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         """x [..., in] -> [..., out]. In f32, ``F.linear`` (TF32 off at the
@@ -92,7 +101,7 @@ def _mm_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class LowPrecisionLinear(torch.autograd.Function):
     """``tumseg``'s ``dense`` with a compute dtype and its ``jax.grad``
     (``tumseg/nn/layers.py:62-71``): x [..., in] (any float dtype), w
-    [out, in] f32, b [out] f32 -> y [..., out] f32 =
+    [out, in] f32, b [out] f32 or None -> y [..., out] f32 =
     ``round(x) @ round(w)^T`` accumulated in f32, plus b in f32, where
     ``round`` is to ``dtype``.
 
@@ -109,7 +118,9 @@ class LowPrecisionLinear(torch.autograd.Function):
         w2 = w.to(dtype)
         ctx.save_for_backward(x2, w2)
         ctx.dtype, ctx.x_dtype, ctx.x_shape = dtype, x.dtype, x.shape
-        y = _mm_f32_out(x2, w2).add_(b)
+        y = _mm_f32_out(x2, w2)
+        if b is not None:
+            y.add_(b)
         return y.reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod
@@ -207,12 +218,13 @@ def calibrate_batch_norm(model: nn.Module, x: torch.Tensor) -> None:
             h.remove()
 
 
-def _mlp_layers(in_dim: int, dims: Sequence[int], conv_rank: int):
+def _mlp_layers(in_dim: int, dims: Sequence[int], conv_rank: int,
+                bias: bool = True):
     """-> (convs, bns): the ModuleLists of a [Dense -> BatchNorm] * L stack."""
     convs, bns = nn.ModuleList(), nn.ModuleList()
     last = in_dim
     for out in dims:
-        convs.append(Dense(last, out, conv_rank))
+        convs.append(Dense(last, out, conv_rank, bias=bias))
         bns.append(BatchNorm(out))
         last = out
     return convs, bns
@@ -233,11 +245,14 @@ def _run_mlp(convs: nn.ModuleList, bns: nn.ModuleList, x: torch.Tensor,
 
 class MLPStack(nn.Module):
     """[Dense -> BatchNorm -> ReLU] * L over the last axis, with the
-    reference's ``mlp_convs.j`` / ``mlp_bns.j`` names."""
+    reference's ``mlp_convs.j`` / ``mlp_bns.j`` names; ``bias=False``
+    leaves the convs' biases out."""
 
-    def __init__(self, in_dim: int, dims: Sequence[int], conv_rank: int):
+    def __init__(self, in_dim: int, dims: Sequence[int], conv_rank: int,
+                 bias: bool = True):
         super().__init__()
-        self.mlp_convs, self.mlp_bns = _mlp_layers(in_dim, dims, conv_rank)
+        self.mlp_convs, self.mlp_bns = _mlp_layers(in_dim, dims, conv_rank,
+                                                   bias)
 
     def mlp(self, x: torch.Tensor, compute_dtype=None,
             mesh=None) -> torch.Tensor:
@@ -336,10 +351,12 @@ class SetAbstractionMsg(nn.Module):
 
 class FeaturePropagation(MLPStack):
     """3-NN inverse-distance interpolation of points2 onto xyz1, skip
-    concat with points1, then the pointwise MLP."""
+    concat with points1, then the pointwise MLP (its convs without bias
+    with ``bias=False``, as PointNeXt's decoder has them)."""
 
-    def __init__(self, in_channel: int, mlp: Sequence[int]):
-        super().__init__(in_channel, mlp, conv_rank=1)
+    def __init__(self, in_channel: int, mlp: Sequence[int],
+                 bias: bool = True):
+        super().__init__(in_channel, mlp, conv_rank=1, bias=bias)
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
                 points1: Optional[torch.Tensor], points2: torch.Tensor,
@@ -355,6 +372,118 @@ class FeaturePropagation(MLPStack):
         if points1 is not None:
             interpolated = torch.cat([points1, interpolated], dim=-1)
         return self.mlp(interpolated, compute_dtype, mesh)
+
+
+class GroupedConv(nn.Module):
+    """PointNeXt's conv over grouped neighbourhoods (openpoints'
+    ``LocalAggregation`` and ``SetAbstraction`` with ``feature_type:
+    dp_fj``, ``normalize_dp: True`` and the max): :meth:`reduce` takes a
+    group ``[p_j - p_i, f_j]`` to ``[(p_j - p_i) / radius, f_j]``, then one
+    ``Dense`` ``in + 3 -> out`` without bias, BatchNorm, ReLU and the max
+    over K. :class:`LocalAggregation` and
+    :class:`PointNeXtSetAbstraction` differ in the group they give it.
+
+    The offsets are divided by the radius as f32 (a 0-d f32 buffer, so the
+    card divides too: a Python float divisor would be a multiply by its
+    reciprocal there), after the group, in place on the MLP's f32 input."""
+
+    def __init__(self, in_channel: int, out_channel: int, radius: float,
+                 nsample: int):
+        super().__init__()
+        self.radius, self.nsample = radius, nsample
+        self.conv = Dense(in_channel + 3, out_channel, conv_rank=2,
+                          init="torch_default", bias=False)
+        self.bn = BatchNorm(out_channel)
+        self.register_buffer("divisor", torch.tensor(float(radius)),
+                             persistent=False)
+
+    def reduce(self, grouped: torch.Tensor, compute_dtype,
+               mesh) -> torch.Tensor:
+        """[B, S, K, 3 + in] (centred offsets first) -> [B, S, out] f32."""
+        g = grouped.float()     # a copy where fast gathers stored bf16
+        g[..., :3].div_(self.divisor)
+        h = self.bn(self.conv(g, compute_dtype), mesh, relu=True)
+        return h.amax(dim=2)
+
+
+class LocalAggregation(GroupedConv):
+    """PointNeXt's local aggregation on a level's own points: around each
+    point, the first ``nsample`` of the level's points within ``radius``
+    (``ops.ball_group``), then :meth:`GroupedConv.reduce`: xyz [B, N, 3],
+    points [B, N, in] -> [B, N, out] f32. Under a profiler each call is
+    the span ``tumseg.model.aggregate``."""
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor,
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None) -> torch.Tensor:
+        if fast_gather is None:
+            fast_gather = compute_dtype is not None
+        with span("tumseg.model.aggregate"):
+            grouped = ops.ball_group(self.radius, self.nsample, xyz, xyz,
+                                     torch.cat([xyz, points], dim=-1),
+                                     fast_gather)
+            return self.reduce(grouped, compute_dtype, mesh)
+
+
+class PointNeXtSetAbstraction(GroupedConv):
+    """PointNeXt's strided set abstraction (openpoints' ``SetAbstraction``
+    with one conv): FPS keeps N // ``stride`` points, the ball of
+    ``radius`` around them over the level's points
+    (``ops.sample_and_group``), then :meth:`GroupedConv.reduce`: xyz
+    [B, N, 3], points [B, N, in] -> (new_xyz [B, N // stride, 3],
+    new_points [B, N // stride, out]). Under a profiler each call is the
+    span ``tumseg.model.aggregate``."""
+
+    def __init__(self, stride: int, in_channel: int, out_channel: int,
+                 radius: float, nsample: int):
+        super().__init__(in_channel, out_channel, radius, nsample)
+        self.stride = stride
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor,
+                fps_start: Optional[torch.Tensor] = None,
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None):
+        """``fps_start`` [B] int32 seeds FPS (default index 0)."""
+        if fast_gather is None:
+            fast_gather = compute_dtype is not None
+        with span("tumseg.model.aggregate"):
+            new_xyz, grouped = ops.sample_and_group(
+                xyz.shape[1] // self.stride, self.radius, self.nsample, xyz,
+                points, fps_start=fps_start, fast_gather=fast_gather)
+            return new_xyz, self.reduce(grouped, compute_dtype, mesh)
+
+
+class InvResMLP(nn.Module):
+    """PointNeXt's inverted residual block (openpoints' ``InvResMLP``,
+    ``use_res``, two pointwise convs) on a level's own points: ``g`` the
+    :class:`LocalAggregation` of radius ``radius`` around every point
+    (``C -> C``), then ``relu(bn2(pw2(relu(bn1(pw1(g))))) + f)`` with
+    ``pw1`` C -> ``expansion`` C and ``pw2`` back, neither with a bias;
+    ``bn2`` has no ReLU of its own, the ReLU follows the residual add.
+    With a ``compute_dtype`` the expanded activation is stored in it; the
+    block's output stays f32. Under a profiler each call is the span
+    ``tumseg.model.block``."""
+
+    def __init__(self, channels: int, radius: float, nsample: int,
+                 expansion: int):
+        super().__init__()
+        mid = channels * expansion
+        self.aggr = LocalAggregation(channels, channels, radius, nsample)
+        self.pw1 = Dense(channels, mid, conv_rank=1, bias=False)
+        self.bn1 = BatchNorm(mid)
+        self.pw2 = Dense(mid, channels, conv_rank=1, bias=False)
+        self.bn2 = BatchNorm(channels)
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor,
+                fast_gather: Optional[bool] = None, compute_dtype=None,
+                mesh=None) -> torch.Tensor:
+        with span("tumseg.model.block"):
+            h = self.aggr(xyz, points, fast_gather=fast_gather,
+                          compute_dtype=compute_dtype, mesh=mesh)
+            h = self.bn1(self.pw1(h, compute_dtype), mesh, relu=True,
+                         dtype=compute_dtype)
+            h = self.bn2(self.pw2(h, compute_dtype), mesh)
+            return F.relu(h + points)
 
 
 class STN(nn.Module):
@@ -449,6 +578,16 @@ def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(trans.shape[1], dtype=trans.dtype, device=trans.device)
     gram = torch.bmm(trans, trans.transpose(1, 2))
     return (gram - eye).square().sum(dim=(1, 2)).sqrt().mean()
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """The heads' dropout: each entry kept with probability 1 - ``rate``
+    (one uniform draw from ``generator`` an entry) and scaled by
+    1 / (1 - rate), the others 0."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def weighted_nll_loss(log_probs: torch.Tensor, target: torch.Tensor,
